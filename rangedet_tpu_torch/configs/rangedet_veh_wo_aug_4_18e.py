@@ -1,0 +1,19 @@
+"""Vehicle-only, 1/4 data, 18 epochs, no augmentation — the reference's
+primary single-class recipe (config/rangedet/rangedet_veh_wo_aug_4_18e.py),
+mirroring rangedet_tpu/configs/rangedet_veh_wo_aug_4_18e.py.
+"""
+from rangedet_tpu_torch.configs.base import RangeDetConfig
+
+
+def get_config(is_train: bool) -> RangeDetConfig:
+    return RangeDetConfig(
+        name="rangedet_veh_wo_aug_4_18e",
+        is_train=is_train,
+        batch_image=2 if is_train else 1,
+        label_set=(1,),
+        class_names=("veh",),
+        filter_class=("TYPE_VEHICLE",),
+        sampling_rate=4,
+        end_epoch=18,
+        lr_steps=(12, 15),
+    )

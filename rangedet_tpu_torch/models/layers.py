@@ -1,0 +1,204 @@
+"""Conv building blocks in the (B, H, C, W) layout, counterpart of the bhcw
+path of ``rangedet_tpu/models/layers.py``.
+
+Convs compute in ``dtype`` (bf16 on the card) from f32 parameters, cast at
+use. BatchNorm is the eval form with MXNet semantics (eps 1e-3): it folds
+the running statistics into an f32 (scale, bias). A layer that emits
+``PendingBN`` defers its BN apply + relu to the consumer, whose 3x3 conv
+fuses it into the kernel's input load (``ops/conv3x3.py``).
+
+Parameter layouts are PyTorch's: conv weights (Co, Ci, kh, kw) as in
+``nn.Conv2d``, deconv weights (Ci, Co, kh, kw) as in ``nn.ConvTranspose2d``.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional, Tuple, Union
+
+import torch
+from torch import nn
+
+from ..ops import conv3x3 as _conv
+
+BN_EPSILON = 1e-3
+
+
+class PendingBN(NamedTuple):
+    """A conv output whose BatchNorm apply + relu is deferred: the consumer
+    computes ``relu(y * scale + bias)`` on load. ``scale``/``bias`` are the
+    f32 BN fold (C,)."""
+
+    y: torch.Tensor  # raw conv output (B, H, C, W)
+    scale: torch.Tensor
+    bias: torch.Tensor
+
+    def materialize(self) -> torch.Tensor:
+        a = self.y.float() * self.scale[None, None, :, None]
+        a = a + self.bias[None, None, :, None]
+        return torch.relu(a).to(self.y.dtype)
+
+
+MaybePending = Union[torch.Tensor, PendingBN]
+
+
+def materialize(x: MaybePending) -> torch.Tensor:
+    return x.materialize() if isinstance(x, PendingBN) else x
+
+
+def lecun_normal_(w: torch.Tensor, fan_in: int, g: torch.Generator) -> None:
+    """Normal(0, 1/fan_in) truncated at two standard deviations, like
+    flax's lecun_normal."""
+    std = 1.0 / math.sqrt(fan_in) / 0.87962566103423978
+    with torch.no_grad():
+        nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=g)
+
+
+def normal_(w: torch.Tensor, std: float, g: torch.Generator) -> None:
+    with torch.no_grad():
+        w.normal_(0.0, std, generator=g)
+
+
+class BatchNorm(nn.Module):
+    """Eval-mode BatchNorm over channel axis 2, from the running statistics.
+
+    With ``affine_out`` it returns ``PendingBN(x, scale, bias)`` with the f32
+    fold; otherwise ``x * mul + add`` in ``dtype``, with the fold cast to it
+    (``rangedet_tpu/models/layers.py:170-178``)."""
+
+    def __init__(self, channels: int, dtype: torch.dtype = torch.float32,
+                 affine_out: bool = False):
+        super().__init__()
+        self.dtype = dtype
+        self.affine_out = affine_out
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def fold(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        inv = torch.rsqrt(self.running_var + BN_EPSILON) * self.weight
+        return inv, self.bias - self.running_mean * inv
+
+    def forward(self, x: torch.Tensor) -> MaybePending:
+        inv, add = self.fold()
+        if self.affine_out:
+            return PendingBN(x.to(self.dtype), inv, add)
+        mul = inv.to(self.dtype)[None, None, :, None]
+        add = add.to(self.dtype)[None, None, :, None]
+        return x.to(self.dtype) * mul + add
+
+
+def conv3x3_consume(x: MaybePending, weight: torch.Tensor, stride_w: int,
+                    dtype: torch.dtype) -> torch.Tensor:
+    """3x3 conv of a tensor or a PendingBN (its BN apply + relu fused into
+    the kernel's input load). weight: (Co, Ci, 3, 3) f32, handed to the
+    kernel wrapper as (3, 3, Ci, Co)."""
+    w = weight.permute(2, 3, 1, 0).to(dtype)
+    if isinstance(x, PendingBN):
+        return _conv.conv3x3_bhcw(x.y, w, x.scale, x.bias, stride_w)
+    return _conv.conv3x3_bhcw(x.to(dtype).contiguous(), w, None, None,
+                              stride_w)
+
+
+def conv1x1_bhcw(x: torch.Tensor, weight: torch.Tensor, stride_w: int = 1
+                 ) -> torch.Tensor:
+    """1x1 conv on (B, H, Ci, W); weight (Co, Ci) in x's dtype. A strided
+    1x1 conv reads columns 0, s, 2s, ..."""
+    if stride_w != 1:
+        x = x[..., ::stride_w]
+    return torch.einsum("bhiw,oi->bhow", x, weight)
+
+
+class ConvNormRelu(nn.Module):
+    """3x3 or 1x1 conv (stride 1) + BN + relu."""
+
+    def __init__(self, in_channels: int, features: int, kernel: int = 3,
+                 dtype: torch.dtype = torch.bfloat16,
+                 emit_pending: bool = False, init_std: Optional[float] = None):
+        super().__init__()
+        if kernel not in (1, 3):
+            raise ValueError(f"kernel must be 1 or 3, got {kernel}")
+        self.kernel, self.dtype = kernel, dtype
+        self.init_std = init_std  # None: lecun normal
+        self.weight = nn.Parameter(
+            torch.empty(features, in_channels, kernel, kernel))
+        self.bn = BatchNorm(features, dtype, affine_out=emit_pending)
+
+    def init_from(self, g: torch.Generator) -> None:
+        if self.init_std is None:
+            lecun_normal_(self.weight, self.weight[0].numel(), g)
+        else:
+            normal_(self.weight, self.init_std, g)
+
+    def forward(self, x: MaybePending) -> MaybePending:
+        if self.kernel == 1:
+            x = materialize(x).to(self.dtype)
+            y = conv1x1_bhcw(x, self.weight[:, :, 0, 0].to(self.dtype))
+        else:
+            y = conv3x3_consume(x, self.weight, 1, self.dtype)
+        out = self.bn(y)
+        return out if isinstance(out, PendingBN) else torch.relu(out)
+
+
+def pack_deconv_phases(k: torch.Tensor, stride_w: int) -> torch.Tensor:
+    """SAME transposed conv (kh=3, kw=2s) as ONE stride-1 3x3 conv with s*Co
+    outputs at the input resolution: output phase p (columns p, p+s, ...)
+    is a 3x2-tap conv whose column offsets lie in {-1, 0, +1}
+    (``rangedet_tpu/models/layers.py:deconv_bhcw_phase_conv``).
+
+    k: (3, kw, Ci, Co), the JAX package's HWIO form. Returns (3, 3, Ci, s*Co).
+    """
+    kh, kw, Ci, Co = k.shape
+    s = stride_w
+    if kh != 3 or kw != 2 * s:
+        raise ValueError(f"deconv kernel ({kh}, {kw}) with stride {s}")
+    pad = (kw - s) // 2
+    J = kw // s
+    kp = k.new_zeros((3, 3, Ci, s * Co))
+    for p in range(s):
+        k0 = (p + pad) % s
+        D = (p + pad - k0) // s
+        for j in range(J):
+            k_idx = k0 + j * s
+            off = D - j
+            kp[:, off + 1, :, p * Co:(p + 1) * Co] = k[:, kw - 1 - k_idx]
+    return kp
+
+
+class DeconvNormRelu(nn.Module):
+    """Transposed conv with stride (1, s) and SAME padding + BN + relu, the
+    FPN aggregation upsampler (reference deconvs (3,8)/(1,4)/pad (1,2) and
+    (3,4)/(1,2)/pad (1,1), i.e. ``F.conv_transpose2d`` with those paddings).
+    Runs as the phase-packed 3x3 conv on the kernel, then an interleave."""
+
+    def __init__(self, in_channels: int, features: int,
+                 kernel: Tuple[int, int], stride_w: int,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.stride_w, self.dtype = stride_w, dtype
+        self.weight = nn.Parameter(torch.empty(in_channels, features, *kernel))
+        self.bn = BatchNorm(features, dtype)
+
+    def init_from(self, g: torch.Generator) -> None:
+        kh, kw = self.weight.shape[2:]
+        lecun_normal_(self.weight, kh * kw * self.weight.shape[0], g)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = deconv_bhcw(x.to(self.dtype).contiguous(),
+                        self.weight.to(self.dtype), self.stride_w)
+        return torch.relu(self.bn(y))
+
+
+def deconv_bhcw(x: torch.Tensor, weight: torch.Tensor, stride_w: int
+                ) -> torch.Tensor:
+    """SAME transposed conv, stride (1, s), on (B, H, Ci, W) through the
+    phase-packed 3x3 conv kernel. weight: (Ci, Co, 3, 2s) in
+    ``nn.ConvTranspose2d``'s layout, same dtype as x. -> (B, H, Co, W*s)."""
+    B, H, _, W = x.shape
+    s = stride_w
+    Co = weight.shape[1]
+    # the JAX form (kh, kw, Ci, Co) correlates with the flipped kernel
+    kp = pack_deconv_phases(weight.flip(2, 3).permute(2, 3, 0, 1), s)
+    y2 = _conv.conv3x3_bhcw(x, kp)  # (B, H, s*Co, W)
+    y = y2.reshape(B, H, s, Co, W).permute(0, 1, 3, 4, 2)
+    return y.reshape(B, H, Co, W * s)

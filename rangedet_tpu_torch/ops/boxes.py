@@ -1,0 +1,56 @@
+"""Box format conversions on tensors — the serving path's part of
+``rangedet_tpu/ops/boxes.py`` (formats documented there):
+
+  box10      [x1,y1, x2,y2, x3,y3, x4,y4, z0, z1]
+  box11      [x1..y4 (8), yaw, z0(bottom), height]
+  box12      box11 + [score]
+  box8_eval  [cx, cy, cz, length, width, height, heading, score]
+"""
+from __future__ import annotations
+
+import torch
+
+
+def box10_to_corners_bev(box10: torch.Tensor) -> torch.Tensor:
+    """box10 (..., 10) -> BEV corners (..., 4, 2)."""
+    return box10[..., :8].reshape(box10.shape[:-1] + (4, 2))
+
+
+def box10_to_box11(box10: torch.Tensor) -> torch.Tensor:
+    """box10 -> box11 (reference tools/test.py:56 bbox3d_10dim_to_11dim):
+    yaw = atan2(y1 - y2, x1 - x2), the first edge's direction."""
+    c = box10[..., :8]
+    z0 = box10[..., 8:9]
+    z1 = box10[..., 9:10]
+    yaw = torch.atan2(c[..., 1] - c[..., 3], c[..., 0] - c[..., 2])[..., None]
+    return torch.cat([c, yaw, z0, z1 - z0], dim=-1)
+
+
+def box12_to_box8_eval(box12: torch.Tensor) -> torch.Tensor:
+    """box12 -> [cx, cy, cz, length, width, height, heading, score]
+    (reference tools/test.py:43 bbox3d_12dim_to_8dim)."""
+    cx = box12[..., 0:8:2].mean(dim=-1)
+    cy = box12[..., 1:8:2].mean(dim=-1)
+    z0 = box12[..., 9]
+    height = box12[..., 10]
+    cz = z0 + height / 2.0
+    length = torch.sqrt(
+        (box12[..., 2] - box12[..., 0]) ** 2
+        + (box12[..., 3] - box12[..., 1]) ** 2
+    )
+    width = torch.sqrt(
+        (box12[..., 2] - box12[..., 4]) ** 2
+        + (box12[..., 3] - box12[..., 5]) ** 2
+    )
+    return torch.stack(
+        [cx, cy, cz, length, width, height, box12[..., 8], box12[..., 11]],
+        dim=-1,
+    )
+
+
+def polygon_area(corners: torch.Tensor) -> torch.Tensor:
+    """Signed shoelace area of a polygon (..., K, 2); CCW positive."""
+    x, y = corners[..., 0], corners[..., 1]
+    x2 = torch.roll(x, -1, dims=-1)
+    y2 = torch.roll(y, -1, dims=-1)
+    return 0.5 * torch.sum(x * y2 - x2 * y, dim=-1)

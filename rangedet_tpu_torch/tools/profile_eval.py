@@ -1,0 +1,105 @@
+"""Where the eval step's time goes on the card: the full-size serving path
+of a recipe, seeded random weights, under ``torch.profiler``.
+
+    python -m rangedet_tpu_torch.tools.profile_eval [--batch 4]
+        [--out profile_b4.txt]
+
+Prints the wall time of the profiled steps, the device time of the forward
+and of the post-processing (top-k, decode, WNMS) ranges, the device busy
+share, and the kernels by total device time; writes the full table to
+``--out``. Needs a CUDA card.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import time
+
+import torch
+from torch.profiler import ProfilerActivity, profile, record_function
+
+RECIPE = "rangedet_veh_wo_aug_4_18e"
+ITERS = 5  # profiled steps, after 2 warm-up steps
+SEED = 0
+
+
+def _device_us(evt) -> float:
+    return getattr(evt, "device_time_total", None) or getattr(
+        evt, "cuda_time_total", 0.0)
+
+
+def _self_device_us(evt) -> float:
+    return getattr(evt, "self_device_time_total", None) or getattr(
+        evt, "self_cuda_time_total", 0.0)
+
+
+def main(argv=None) -> None:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--batch", type=int, default=4)
+    p.add_argument("--out", default=None)
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_eval needs a CUDA card")
+
+    from rangedet_tpu.data.synthetic import make_batch
+    from rangedet_tpu_torch.configs import load_config
+    from rangedet_tpu_torch.infer import build_eval_inputs
+    from rangedet_tpu_torch.models import RangeDet
+    from rangedet_tpu_torch.models.detector import run_inference
+
+    dev = torch.device("cuda")
+    cfg = load_config(RECIPE, is_train=False)
+    model = RangeDet(**cfg.model_kwargs())
+    model.init_from(torch.Generator().manual_seed(SEED))
+    model = model.to(dev).eval()
+    inputs = build_eval_inputs(
+        make_batch(cfg, args.batch, seed=SEED, num_boxes=20), cfg, dev)
+
+    def step():
+        with torch.inference_mode():
+            with record_function("forward"):
+                out = model(inputs["input_data"], inputs["coord"])
+            with record_function("postprocess"):
+                return run_inference(*out, inputs, cfg)
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(ITERS):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / ITERS
+
+    events = prof.key_averages()
+    ranges = {e.key: _device_us(e) / 1e3 / ITERS for e in events
+              if e.key in ("forward", "postprocess")}
+    # kernels only: the ranges and the aten ops that launched the kernels
+    # carry device time too
+    kernels = [e for e in events if e.key not in ranges
+               and str(e.device_type).endswith("CUDA")
+               and _self_device_us(e) > 0]
+    busy_ms = sum(_self_device_us(e) for e in kernels) / 1e3 / ITERS
+    name = torch.cuda.get_device_name(0)
+    print(f"profile_eval: {RECIPE} B={args.batch} on {name}: wall "
+          f"{wall_ms:.2f} ms/step, device busy {busy_ms:.2f} ms/step "
+          f"({100 * busy_ms / wall_ms:.1f}%), forward range "
+          f"{ranges.get('forward', float('nan')):.2f} ms, postprocess range "
+          f"{ranges.get('postprocess', float('nan')):.2f} ms (device time)")
+    kernels.sort(key=_self_device_us, reverse=True)
+    lines = [f"{'device ms/step':>15} {'share':>6} {'calls/step':>10}  kernel"]
+    for e in kernels:
+        ms = _self_device_us(e) / 1e3 / ITERS
+        lines.append(f"{ms:15.3f} {100 * ms / busy_ms:5.1f}% "
+                     f"{e.count / ITERS:10.1f}  {e.key[:110]}")
+    print("\n".join(lines[:26]))
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            f.write("\n".join(lines) + "\n")
+
+
+if __name__ == "__main__":
+    main()

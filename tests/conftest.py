@@ -28,6 +28,11 @@ def pytest_configure(config):
         "platform); the fast inner-loop tier is `pytest -m 'not heavy'` "
         "(~10 min) — the default full run remains the pre-commit/CI gate",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card (a hand-written kernel has no CPU mode); "
+        "skips without one",
+    )
 
 
 @pytest.fixture
