@@ -7,19 +7,37 @@ Phases, one line of output each (or a table), failing on the first error:
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions, and
    the build of the hand-written kernels from ``rangedet_tpu_torch/csrc``;
-2. the conv3x3 kernel against its plain PyTorch version on the card, at
-   every (Ci, Co, W, stride, ingest) the B=1 forward launches and at the
-   largest shape for B=4: max error and ms of both;
+2. the conv3x3 forward kernel against its plain PyTorch version on the
+   card, at every (Ci, Co, W, stride, ingest) the B=1 forward launches and
+   at the largest shape for B=4: max error and ms of both;
 3. the full serving path of ``rangedet_veh_wo_aug_4_18e`` at 64x2656 with
    seeded random weights, at B=4 and B=1: the kernel's launch count per
    forward, finite outputs, logits and deltas against the plain path, the
    median eval-step time, its weighted-NMS share and the peak memory;
-4. ``python -m rangedet_tpu_torch.tools.test`` on 2 synthetic frames.
+4. ``python -m rangedet_tpu_torch.tools.test`` on 2 synthetic frames;
+5. the train kernels against their plain versions at every distinct shape
+   of one B=2 train step: conv3x3 forward (stats, ingest + stats), dgrad
+   (plain, cot, affine-backward + cot), wgrad (plain, ingest + cot), the
+   stride-2 and deconv backward through the autograd Function, and the
+   IoU target at each level; max error, kernel ms, plain ms, cuDNN ms and
+   the bound;
+6. the full-size train step at B=2: launches per step against the counts
+   the config implies, gradients of the kernel path against the plain path
+   and of both bf16 paths against an f32 step, the same gates shown to
+   reject two planted faults (a zeroed dgrad, a sign-flipped wgrad), 5
+   steps with finite and falling loss, two steps from one state with
+   bit-equal losses, the median step time and peak memory;
+7. ``python -m rangedet_tpu_torch.tools.train`` for 3 steps on the card.
 
-It prints a JSON line of the kernels, then as its last line
-``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero.
+It prints a JSON line of the kernels, one entry per kernel and path (the
+serving forward of phases 2-3, the train step of phases 5-6), then as its
+last line ``{"ok": true, "device": {...}}``. Without CUDA it exits
+non-zero.
 """
+import contextlib
+import copy
 import json
+import math
 import os
 import pickle
 import statistics
@@ -35,8 +53,42 @@ SEED = 0
 # bf16 operands: the kernel accumulates in f32 and rounds once to bf16
 REL_TOL = 2.0 ** -6
 MAX_TOL = 1e-3
+# f32 results of a kernel (channel sums, dscale/dbias, wgrad) against the
+# plain version's: the same f32 products summed in another order over up
+# to B*H*W = 340k terms; max|a - b| <= F32_SUM_TOL * max|b|
+F32_SUM_TOL = 1e-3
+# gradients through the autograd Function (stride 2, deconv), kernel vs
+# plain: bf16 outputs one rounding (2^-8 relative) apart at most, so
+# max|a - b| <= 2^-6 max|b| leaves a factor of 4
+FN_TOL = 2.0 ** -6
+# IoU target, kernel vs plain: the same f32 operations (-fmad=false) but
+# expf, which may differ from the host's by 2 ulp in the box size
+IOU_TOL = 1e-5
 # kernel path vs plain path, whole model: max|a - b| / max|b| per output
 MODEL_TOL = 5e-2
+# train step on step 1, kernel path vs plain path, both bf16 (measured,
+# PERF.md). At random init the bf16 BatchNorm backward cancels: the
+# per-parameter gradients of either bf16 path lie a median 0.87 max|g|
+# from an f32 step, so no per-tensor bound holds for a correct kernel.
+# The gates, each on r = max|a - b| / max|b| per parameter: each loss
+# |a - b| / |b| <= LOSS_TOL; the 1x1 head projections, whose gradients see
+# no BatchNorm backward, r <= HEAD_GRAD_TOL (measured 0.092; either bf16
+# path lies 0.195-0.201 from f32 there); the median r over all parameters
+# <= MEDIAN_TOL and over the 3x3 conv weights (the wgrad kernel's output)
+# <= CONV_MEDIAN_TOL. Phase 6 plants a zeroed dgrad and a sign-flipped
+# wgrad and shows the gates reject both. Measured medians, all / conv:
+# sound 0.577 / 0.586, zeroed dgrad 1 / 1, flipped wgrad 0.756 / 1.934;
+# each limit lies midway between the sound reading and the nearer fault's
+LOSS_TOL = 1e-2
+HEAD_GRAD_TOL = 0.14
+MEDIAN_TOL = 0.67
+CONV_MEDIAN_TOL = 0.79
+STEPS_PER_EPOCH = 100
+# the H100 SXM's published peaks (NVIDIA data sheet) for bound_ms
+PEAK_BF16 = 989e12
+PEAK_F32 = 67e12
+PEAK_BYTES = 3.35e12
+IOU_OPS_PER_PAIR = 600  # f32 operations per (pixel, candidate) clip
 
 
 def _smi():
@@ -79,6 +131,468 @@ def _median_ms(fn, iters=10, warmup=2):
     return statistics.median(times)
 
 
+def _bound_ms(flops, nbytes, peak):
+    """Least time for the work: operations at the peak rate or bytes at
+    the memory rate, whichever is longer; and which of the two it is."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def conv_launches(cfg):
+    """conv3x3 forward launches per forward pass that the config implies,
+    and how they add up."""
+    from rangedet_tpu_torch.models.dla_backbone import (
+        DEFAULT_META_UNITS,
+        DEFAULT_NUM_BLOCK,
+    )
+
+    n_meta = len(DEFAULT_META_UNITS if cfg.meta_units is None
+                 else cfg.meta_units)
+    n_blocks = sum((cfg.num_block or DEFAULT_NUM_BLOCK).values())
+    n_levels = len(cfg.fpn_strides)
+    n = (2 * n_blocks - n_meta + 4
+         + n_levels * (cfg.cls_conv_layers + cfg.reg_conv_layers))
+    return n, (f"2*{n_blocks} block convs - {n_meta} Meta-Kernel conv1 + 4 "
+               f"agg deconvs + {n_levels}*({cfg.cls_conv_layers}+"
+               f"{cfg.reg_conv_layers}) head = {n}")
+
+
+def _rel(a, b):
+    """max|a - b| / max|b|."""
+    return ((a.double() - b.double()).abs().max()
+            / b.double().abs().max().clamp(min=1e-30)).item()
+
+
+def _bf16_ok(y, ref):
+    err = (y.float() - ref).abs()
+    ok = bool((err <= REL_TOL * ref.abs() + MAX_TOL * ref.abs().max()).all())
+    return ok and bool(y.float().isfinite().all()), err.max().item()
+
+
+class KernelTotals:
+    """Sums over the launches of a kernel in one step or forward: count,
+    kernel ms, plain ms, bound ms, cuDNN ms; and the largest error."""
+
+    def __init__(self):
+        self.n = 0
+        self.ms = self.plain_ms = self.bound_ms = self.library_ms = 0.0
+        self.err = 0.0
+        self.by = {}
+
+    def add(self, n, ms, plain_ms, bound, library_ms, err):
+        self.n += n
+        self.ms += n * ms
+        self.plain_ms += n * plain_ms
+        self.bound_ms += n * bound[0]
+        self.by[bound[1]] = self.by.get(bound[1], 0.0) + n * bound[0]
+        if library_ms is not None:
+            self.library_ms += n * library_ms
+        self.err = max(self.err, err)
+
+    def bound_by(self):
+        return max(self.by, key=self.by.get) if self.by else "operations"
+
+
+# ---------------------------------------------------------------- phase 5
+def record_train_step(step, batch, conv3x3, iou_mod, layers):
+    """Run step(batch) once, counting every distinct kernel call shape, and
+    keeping the IoU target's real inputs."""
+    fwd, dgrad, wgrad, deconv, iou = {}, {}, {}, {}, []
+    real_f, real_d, real_w = (conv3x3.conv3x3_bhcw, conv3x3.conv3x3_dgrad,
+                              conv3x3.conv3x3_wgrad)
+    real_i, real_dc = iou_mod.iou_target_blocks, layers.deconv_bhcw
+
+    def count(d, key):
+        d[key] = d.get(key, 0) + 1
+
+    def rec_f(x, w, scale=None, bias=None, stride_w=1, stats=False):
+        count(fwd, (x.shape[0], x.shape[2], w.shape[3], x.shape[3], stride_w,
+                    scale is not None, stats))
+        return real_f(x, w, scale, bias, stride_w, stats)
+
+    def rec_d(gy, w, cot=None, affine=None):
+        count(dgrad, (gy.shape[0], gy.shape[2], w.shape[2], gy.shape[3],
+                      cot is not None, affine is not None))
+        return real_d(gy, w, cot, affine)
+
+    def rec_w(x, gy, scale=None, bias=None, cot=None):
+        count(wgrad, (x.shape[0], x.shape[2], gy.shape[2], x.shape[3],
+                      scale is not None, cot is not None))
+        return real_w(x, gy, scale, bias, cot)
+
+    def rec_i(*args):
+        iou.append(tuple(a.clone() for a in args))
+        return real_i(*args)
+
+    def rec_dc(x, weight, stride_w):
+        count(deconv, (x.shape[0], x.shape[2], weight.shape[1], x.shape[3],
+                       stride_w))
+        return real_dc(x, weight, stride_w)
+
+    with mock.patch.object(conv3x3, "conv3x3_bhcw", rec_f), \
+            mock.patch.object(conv3x3, "conv3x3_dgrad", rec_d), \
+            mock.patch.object(conv3x3, "conv3x3_wgrad", rec_w), \
+            mock.patch.object(iou_mod, "iou_target_blocks", rec_i), \
+            mock.patch.object(layers, "deconv_bhcw", rec_dc):
+        step(batch)
+    return fwd, dgrad, wgrad, deconv, iou
+
+
+def _plain_convs(conv3x3, plain=True):
+    """A context in which the conv Function runs the plain versions (or,
+    with plain=False, the kernels as usual)."""
+    if not plain:
+        return contextlib.nullcontext()
+    return mock.patch.multiple(
+        conv3x3, conv3x3_bhcw=conv3x3.conv3x3_bhcw_plain,
+        conv3x3_dgrad=conv3x3.conv3x3_dgrad_plain,
+        conv3x3_wgrad=conv3x3.conv3x3_wgrad_plain)
+
+
+def phase5(torch, conv3x3, iou_mod, layers, recorded, H, dev):
+    F = torch.nn.functional
+    fwd, dgrad, wgrad, deconv, iou = recorded
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+
+    def rn(*shape, scale=1.0):
+        return scale * torch.randn(*shape, device=dev, generator=g)
+
+    def vecs(C):
+        return 1.0 + 0.3 * rn(C), 0.2 * rn(C)
+
+    def channels_last(t):
+        return t.permute(0, 2, 1, 3).contiguous(
+            memory_format=torch.channels_last)
+
+    def fail(msg):
+        raise SystemExit(f"[5] {msg}")
+
+    totals = {k: KernelTotals() for k in ("fwd", "dgrad", "wgrad", "iou")}
+    print(f"[5] one B=2 train step: {len(fwd)} forward, {len(dgrad)} dgrad,"
+          f" {len(wgrad)} wgrad shapes, {len(deconv)} deconvs, {len(iou)} "
+          f"IoU-target levels")
+    print("[5] kernel  B    Ci    Co     W s ingest stats   n  max_abs_err"
+          "  kernel_ms   plain_ms  cudnn_ms   bound_ms")
+    for (B, Ci, Co, W, s, ingest, stats), n in sorted(fwd.items()):
+        x = rn(B, H, Ci, W).bfloat16()
+        w = (rn(3, 3, Ci, Co) / (3.0 * Ci ** 0.5)).bfloat16()
+        sc, bi = vecs(Ci) if ingest else (None, None)
+        out = conv3x3.conv3x3_bhcw(x, w, sc, bi, s, stats)
+        torch.cuda.synchronize()
+        y = out[0] if stats else out
+        ref = conv3x3.conv3x3_bhcw_plain(x, w, sc, bi, s,
+                                         out_dtype=torch.float32)
+        ok, err = _bf16_ok(y, ref)
+        if stats:  # the kernel's sums against its own stored y, in f64
+            yd = y.double()
+            ok &= _rel(out[1], yd.sum((0, 1, 3))) <= F32_SUM_TOL
+            ok &= _rel(out[2], (yd * yd).sum((0, 1, 3))) <= F32_SUM_TOL
+        if not ok:
+            fail(f"conv3x3 forward disagrees at "
+                 f"{(B, Ci, Co, W, s, ingest, stats)}: max err {err}")
+        k_ms = _time_ms(lambda: conv3x3.conv3x3_bhcw(x, w, sc, bi, s, stats))
+        p_ms = _time_ms(lambda: conv3x3.conv3x3_bhcw_plain(x, w, sc, bi, s,
+                                                           stats))
+        xn = channels_last(x)
+        wn = w.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        c_ms = _time_ms(lambda: F.conv2d(xn, wn, stride=(1, s), padding=1))
+        Wo = W // s
+        bound = _bound_ms(2 * B * H * Wo * Co * Ci * 9,
+                          2 * (B * H * Ci * W + 9 * Ci * Co + B * H * Co * Wo),
+                          PEAK_BF16)
+        totals["fwd"].add(n, k_ms, p_ms, bound, c_ms, err)
+        print(f"[5] fwd   {B:2d} {Ci:5d} {Co:5d} {W:5d} {s} {int(ingest):6d} "
+              f"{int(stats):5d} {n:3d} {err:12.6g} {k_ms:10.4f} {p_ms:10.4f} "
+              f"{c_ms:9.4f} {bound[0]:10.4f}")
+
+    print("[5] kernel  B   Cgy   Cdx     W   cot affine   n  max_abs_err"
+          "  kernel_ms   plain_ms  cudnn_ms   bound_ms")
+    for (B, Cg, Cx, W, cot, aff), n in sorted(dgrad.items()):
+        gy = rn(B, H, Cg, W).bfloat16()
+        w = (rn(3, 3, Cx, Cg) / (3.0 * Cx ** 0.5)).bfloat16()
+        cots = affs = None
+        if cot:
+            cots = (rn(B, H, Cg, W).bfloat16(), rn(Cg, scale=0.1),
+                    rn(Cg, scale=0.05))
+        if aff:
+            affs = (rn(B, H, Cx, W).bfloat16(), *vecs(Cx))
+        out = conv3x3.conv3x3_dgrad(gy, w, cots, affs)
+        torch.cuda.synchronize()
+        ref = conv3x3.conv3x3_dgrad_plain(gy, w, cots, affs,
+                                          out_dtype=torch.float32)
+        ok, err = _bf16_ok(out[0] if aff else out, ref[0] if aff else ref)
+        if aff:
+            ok &= _rel(out[1], ref[1]) <= F32_SUM_TOL
+            ok &= _rel(out[2], ref[2]) <= F32_SUM_TOL
+        if not ok:
+            fail(f"dgrad disagrees at {(B, Cg, Cx, W, cot, aff)}: max err "
+                 f"{err}")
+        k_ms = _time_ms(lambda: conv3x3.conv3x3_dgrad(gy, w, cots, affs))
+        p_ms = _time_ms(lambda: conv3x3.conv3x3_dgrad_plain(gy, w, cots,
+                                                            affs))
+        gn = channels_last(gy)
+        wn = w.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        c_ms = _time_ms(lambda: torch.nn.grad.conv2d_input(
+            (B, Cx, H, W), wn, gn, padding=1))
+        extra = (B * H * Cg * W if cot else 0) + (B * H * Cx * W if aff else 0)
+        bound = _bound_ms(2 * B * H * W * Cg * Cx * 9,
+                          2 * (B * H * (Cg + Cx) * W + 9 * Cg * Cx + extra),
+                          PEAK_BF16)
+        totals["dgrad"].add(n, k_ms, p_ms, bound, c_ms, err)
+        print(f"[5] dgrad {B:2d} {Cg:5d} {Cx:5d} {W:5d} {int(cot):5d} "
+              f"{int(aff):6d} {n:3d} {err:12.6g} {k_ms:10.4f} {p_ms:10.4f} "
+              f"{c_ms:9.4f} {bound[0]:10.4f}")
+
+    print("[5] kernel  B    Ci    Co     W ingest cot   n  max_abs_err"
+          "  max_rel_err  kernel_ms   plain_ms  cudnn_ms   bound_ms")
+    for (B, Ci, Co, W, ingest, cot), n in sorted(wgrad.items()):
+        x = rn(B, H, Ci, W).bfloat16()
+        gy = rn(B, H, Co, W).bfloat16()
+        sc, bi = vecs(Ci) if ingest else (None, None)
+        cots = None
+        if cot:
+            cots = (rn(B, H, Co, W).bfloat16(), rn(Co, scale=0.1),
+                    rn(Co, scale=0.05))
+        dw = conv3x3.conv3x3_wgrad(x, gy, sc, bi, cots)
+        torch.cuda.synchronize()
+        ref = conv3x3.conv3x3_wgrad_plain(x, gy, sc, bi, cots)
+        rel = _rel(dw, ref)
+        err = (dw - ref).abs().max().item()
+        if not (rel <= F32_SUM_TOL and bool(dw.isfinite().all())):
+            fail(f"wgrad disagrees at {(B, Ci, Co, W, ingest, cot)}: rel "
+                 f"err {rel}")
+        k_ms = _time_ms(lambda: conv3x3.conv3x3_wgrad(x, gy, sc, bi, cots))
+        p_ms = _time_ms(lambda: conv3x3.conv3x3_wgrad_plain(x, gy, sc, bi,
+                                                            cots))
+        xn, gn = channels_last(x), channels_last(gy)
+        c_ms = _time_ms(lambda: torch.nn.grad.conv2d_weight(
+            xn, (Co, Ci, 3, 3), gn, padding=1))
+        bound = _bound_ms(
+            2 * B * H * W * Ci * Co * 9,
+            2 * B * H * (Ci + Co * (2 if cot else 1)) * W + 4 * 9 * Ci * Co,
+            PEAK_BF16)
+        totals["wgrad"].add(n, k_ms, p_ms, bound, c_ms, err)
+        print(f"[5] wgrad {B:2d} {Ci:5d} {Co:5d} {W:5d} {int(ingest):6d} "
+              f"{int(cot):3d} {n:3d} {err:12.6g} {rel:12.6g} {k_ms:10.4f} "
+              f"{p_ms:10.4f} {c_ms:9.4f} {bound[0]:10.4f}")
+
+    # the stride-2 and the deconv backward, through the autograd Function
+    def grads_both(fn, inputs):
+        out = []
+        for plain in (False, True):
+            leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+            with _plain_convs(conv3x3, plain):
+                fn(*leaves).backward()
+            out.append([t.grad for t in leaves])
+        return [_rel(a, b) for a, b in zip(*out)]
+
+    s2 = sorted(k for k in fwd if k[4] == 2)
+    for (B, Ci, Co, W, _, _, _) in sorted(set(s2[:1] + s2[-1:])):
+        x = rn(B, H, Ci, W).bfloat16()
+        w = (rn(3, 3, Ci, Co) / (3.0 * Ci ** 0.5)).bfloat16()
+        sc, bi = vecs(Ci)
+        r = rn(B, H, Co, W // 2)
+        r1, r2 = rn(Co, scale=1e-3), rn(Co, scale=1e-5)
+
+        def f(x, w, sc, bi):
+            y, s1, s2 = conv3x3.conv3x3(x, w, sc, bi, 2, True)
+            return ((y.float() * r).sum() + (s1 * r1).sum()
+                    + (s2 * r2).sum())
+
+        rels = grads_both(f, (x, w, sc, bi))
+        print(f"[5] stride-2 backward (B={B} Ci={Ci} Co={Co} W={W}, ingest "
+              f"+ stats): max|a-b|/max|b| dx {rels[0]:.3g} dw {rels[1]:.3g} "
+              f"dscale {rels[2]:.3g} dbias {rels[3]:.3g}")
+        if not max(rels) <= FN_TOL:
+            fail(f"stride-2 backward kernel vs plain {max(rels)} > {FN_TOL}")
+    for (B, Ci, Co, W, s) in sorted(deconv):
+        x = rn(B, H, Ci, W).bfloat16()
+        wt = (rn(Ci, Co, 3, 2 * s) / (3.0 * Ci ** 0.5)).bfloat16()
+        r = rn(B, H, Co, W * s)
+        rels = grads_both(
+            lambda x, wt: (layers.deconv_bhcw(x, wt, s).float() * r).sum(),
+            (x, wt))
+        print(f"[5] deconv backward (B={B} Ci={Ci} Co={Co} W={W} s={s}): "
+              f"max|a-b|/max|b| dx {rels[0]:.3g} dw {rels[1]:.3g}")
+        if not max(rels) <= FN_TOL:
+            fail(f"deconv backward kernel vs plain {max(rels)} > {FN_TOL}")
+
+    for lvl, (cand, nv, d, p) in enumerate(iou):
+        out = iou_mod.iou_target_blocks(cand, nv, d, p)
+        torch.cuda.synchronize()
+        ref = iou_mod.iou_target_plain_blocks(cand, nv, d, p)
+        err = (out - ref).abs().max().item()
+        if not (err <= IOU_TOL and bool(out.isfinite().all())):
+            fail(f"IoU target disagrees at level {lvl}: max err {err}")
+        k_ms = _time_ms(lambda: iou_mod.iou_target_blocks(cand, nv, d, p))
+        p_ms = _time_ms(lambda: iou_mod.iou_target_plain_blocks(cand, nv, d,
+                                                                p), iters=3)
+        Gk = cand.shape[1]
+        pairs = int(((nv.long() + 7) // 8 * 8).clamp(max=Gk).sum()) \
+            * iou_mod.TILE
+        bound = _bound_ms(IOU_OPS_PER_PAIR * pairs,
+                          4 * (cand.numel() + nv.numel() + d.numel()
+                               + p.numel() + d.shape[0] * iou_mod.TILE),
+                          PEAK_F32)
+        totals["iou"].add(1, k_ms, p_ms, bound, None, err)
+        print(f"[5] IoU target level {lvl}: {d.shape[0]} blocks, G={Gk}, "
+              f"{pairs} (pixel, candidate) pairs, {int((out > 0).sum())} "
+              f"pixels with IoU > 0, max abs err {err:.3g}; kernel "
+              f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {bound[0]:.4f} ms")
+    for name, t in totals.items():
+        print(f"[5] {name}: {t.n} launches per step, kernel {t.ms:.3f} ms, "
+              f"plain {t.plain_ms:.3f} ms, bound {t.bound_ms:.3f} ms "
+              f"({t.bound_by()}), cuDNN {t.library_ms:.3f} ms")
+    return totals
+
+
+# ---------------------------------------------------------------- phase 6
+def phase6(torch, m, cfg, dev):
+    conv3x3, iou_mod = m["conv3x3"], m["iou"]
+
+    def fail(msg):
+        raise SystemExit(f"[6] {msg}")
+
+    init = m["RangeDet"](**cfg.model_kwargs())
+    init.init_from(torch.Generator().manual_seed(SEED))
+    init_sd = copy.deepcopy(init.state_dict())
+    conv_weights = {n for n, p in init.named_parameters()
+                    if p.dim() == 4 and p.shape[2] == 3}
+    batch = m["batch_to_device"](
+        m["make_batch"](cfg, 2, seed=SEED, num_boxes=20), dev)
+
+    # two planted faults the gates must reject
+    real_d, real_w = conv3x3.conv3x3_dgrad, conv3x3.conv3x3_wgrad
+
+    def zeroed_dgrad(*args):
+        out = real_d(*args)
+        return (tuple(torch.zeros_like(t) for t in out)
+                if isinstance(out, tuple) else torch.zeros_like(out))
+
+    faults = {"zeroed-dgrad": dict(conv3x3_dgrad=zeroed_dgrad),
+              "flipped-wgrad": dict(conv3x3_wgrad=lambda *a: -real_w(*a))}
+
+    def grads(dtype, plain, fault=None):
+        model = m["RangeDet"](**dict(cfg.model_kwargs(), dtype=dtype))
+        model.load_state_dict(init_sd)
+        model = model.to(dev).train()
+        iou_fn = (iou_mod.iou_target_plain_blocks if plain
+                  else iou_mod.iou_target_blocks)
+        planted = (mock.patch.multiple(conv3x3, **faults[fault]) if fault
+                   else contextlib.nullcontext())
+        with _plain_convs(conv3x3, plain), planted, \
+                mock.patch.object(iou_mod, "iou_target_blocks", iou_fn):
+            targets = m["build_train_targets"](batch, cfg)
+            cls, reg = model(batch["input_data"], batch["coord"])
+            total, metrics = m["compute_losses"](cls, reg, targets, cfg)
+            total.backward()
+        return ({k: float(v.detach()) for k, v in metrics.items()},
+                {n: p.grad.detach().clone()
+                 for n, p in model.named_parameters()})
+
+    runs = {"kernel-bf16": grads(torch.bfloat16, False),
+            "plain-bf16": grads(torch.bfloat16, True),
+            "plain-f32": grads(torch.float32, True)}
+    runs.update({f: grads(torch.bfloat16, False, f) for f in faults})
+    stat = {}
+    for a, b in (("kernel-bf16", "plain-bf16"), ("kernel-bf16", "plain-f32"),
+                 ("plain-bf16", "plain-f32"),
+                 *((f, "plain-bf16") for f in faults)):
+        (ma, ga), (mb, gb) = runs[a], runs[b]
+        rels = sorted((_rel(ga[n], gb[n]), n) for n in ga)
+        vals = [r for r, _ in rels]
+        head = max(r for r, n in rels if "_lvl_" in n and (
+            "cls_logit" in n or "reg_delta" in n))
+        conv = statistics.median(r for r, n in rels if n in conv_weights)
+        va = torch.cat([ga[n].flatten().double() for n in ga])
+        vb = torch.cat([gb[n].flatten().double() for n in ga])
+        cos = float(va @ vb / (va.norm() * vb.norm()))
+        loss_rel = max(abs(ma[k] - mb[k]) / max(abs(mb[k]), 1e-30)
+                       for k in ma)
+        stat[a, b] = dict(median=statistics.median(vals), conv=conv,
+                          head=head, loss=loss_rel)
+        print(f"[6] {a} vs {b}: per-parameter gradient max|a-b|/max|b| over "
+              f"{len(vals)} tensors: median {statistics.median(vals):.4g}, "
+              f"p90 {vals[int(0.9 * (len(vals) - 1))]:.4g}, max "
+              f"{rels[-1][0]:.4g} ({rels[-1][1]}); median over the "
+              f"{len(conv_weights)} 3x3 conv weights {conv:.4g}; head "
+              f"projections max {head:.4g}; cosine of the whole gradients "
+              f"{cos:.6f}; losses max rel diff {loss_rel:.4g}, total_loss "
+              f"{ma['total_loss']:.6f} vs {mb['total_loss']:.6f}")
+
+    def passes(s):
+        return (s["loss"] <= LOSS_TOL and s["head"] <= HEAD_GRAD_TOL
+                and s["median"] <= MEDIAN_TOL
+                and s["conv"] <= CONV_MEDIAN_TOL)
+
+    for a in ("kernel-bf16", *faults):
+        s = stat[a, "plain-bf16"]
+        print(f"[6] gates, {a} vs plain-bf16: losses {s['loss']:.4g} <= "
+              f"{LOSS_TOL}; head projections {s['head']:.4g} <= "
+              f"{HEAD_GRAD_TOL}; median {s['median']:.4g} <= {MEDIAN_TOL}; "
+              f"conv-weight median {s['conv']:.4g} <= {CONV_MEDIAN_TOL}: "
+              f"{'pass' if passes(s) else 'reject'}")
+    if not passes(stat["kernel-bf16", "plain-bf16"]):
+        fail("kernel path vs plain path outside the gates above")
+    for f in faults:
+        if passes(stat[f, "plain-bf16"]):
+            fail(f"the gates pass the planted fault {f}")
+
+    model = m["RangeDet"](**cfg.model_kwargs())
+    model.load_state_dict(init_sd)
+    model = model.to(dev)
+    state = m["create_train_state"](model, cfg, STEPS_PER_EPOCH, seed=None)
+    step = m["make_train_step"](state, cfg)
+    n_levels = len(cfg.fpn_strides)
+    n_fwd = conv_launches(cfg)[0]
+    expected = {"fwd": n_fwd, "dgrad": n_fwd - 1, "wgrad": n_fwd,
+                "iou": n_levels * cfg.num_classes}
+    print(f"[6] expected launches per step: forward {n_fwd} (as the eval "
+          f"forward), dgrad {n_fwd - 1} (all but res1_unit1.conv1, whose "
+          f"input is the data), wgrad {n_fwd}, IoU target {n_levels} levels "
+          f"x {cfg.num_classes} classes = {expected['iou']}")
+    losses, launches = [], None
+    for i in range(5):
+        torch.cuda.synchronize()
+        conv3x3.reset_counts()
+        iou_mod.LAUNCHES = 0
+        metrics = step(batch)
+        torch.cuda.synchronize()
+        launches = {"fwd": conv3x3.LAUNCHES, "dgrad": conv3x3.DGRAD_LAUNCHES,
+                    "wgrad": conv3x3.WGRAD_LAUNCHES, "iou": iou_mod.LAUNCHES}
+        if launches != expected:
+            fail(f"step {i}: launches {launches}, expected {expected}")
+        losses.append(float(metrics["total_loss"]))
+    print(f"[6] 5 steps, launches per step {launches}; total_loss "
+          + " ".join(f"{v:.6f}" for v in losses))
+    if not all(math.isfinite(v) for v in losses) or losses[-1] >= losses[0]:
+        fail(f"loss not finite or not falling: {losses}")
+
+    snap = (copy.deepcopy(model.state_dict()),
+            copy.deepcopy(state.optimizer.state_dict()), state.step)
+    m1 = step(batch)
+    model.load_state_dict(snap[0])
+    state.optimizer.load_state_dict(snap[1])
+    state.step = snap[2]
+    m2 = step(batch)
+    same = all(torch.equal(m1[k], m2[k]) for k in m1)
+    print(f"[6] two steps from one state: total_loss "
+          f"{float(m1['total_loss'])!r} and {float(m2['total_loss'])!r}; all "
+          f"metrics bit-equal: {same}")
+    if not same:
+        fail("a repeated step from one state gave other losses")
+
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = _median_ms(lambda: step(batch))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[6] B=2 train step median {step_ms:.2f} ms over 10 steps; peak "
+          f"memory {peak:.2f} GiB")
+    return launches, step_ms
+
+
 def main():
     import numpy as np
     import torch
@@ -87,18 +601,25 @@ def main():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this script runs on a CUDA card only")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from rangedet_tpu.data.synthetic import make_batch
     from rangedet_tpu_torch import _build
     from rangedet_tpu_torch.configs import load_config
+    from rangedet_tpu_torch.data.synthetic import make_batch
     from rangedet_tpu_torch.infer import build_eval_inputs, make_eval_step
-    from rangedet_tpu_torch.models import RangeDet
-    from rangedet_tpu_torch.models.dla_backbone import (
-        DEFAULT_META_UNITS,
-        DEFAULT_NUM_BLOCK,
+    from rangedet_tpu_torch.models import RangeDet, layers
+    from rangedet_tpu_torch.models.detector import (
+        build_train_targets,
+        compute_losses,
+        run_inference,
     )
-    from rangedet_tpu_torch.models.detector import run_inference
     from rangedet_tpu_torch.ops import conv3x3, nms
+    from rangedet_tpu_torch.ops import iou_target as iou_mod
     from rangedet_tpu_torch.tools import test as test_cli
+    from rangedet_tpu_torch.tools import train as train_cli
+    from rangedet_tpu_torch.train.state import create_train_state
+    from rangedet_tpu_torch.train.train_step import (
+        batch_to_device,
+        make_train_step,
+    )
 
     # exact f32 references: no TF32 in the plain convs and matmuls
     torch.backends.cudnn.allow_tf32 = False
@@ -112,43 +633,43 @@ def main():
     t0 = time.perf_counter()
     _build.load()
     print(f"[1] kernels built in {time.perf_counter() - t0:.2f} s "
-          f"(nvcc {_build.build_seconds:.2f} s) -> {_build.library_path()}")
+          f"(one nvcc per source, in parallel, and a link: "
+          f"{_build.build_seconds:.2f} s) -> {_build.library_path()}")
     for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[1] ptxas: {line.strip()}")
+        if any(k in line for k in ("==", "registers", "spill", "error")):
+            print(f"[1] nvcc: {line.strip()}")
 
     cfg = load_config(RECIPE, is_train=False)
     model = RangeDet(**cfg.model_kwargs())
     model.init_from(torch.Generator().manual_seed(SEED))
     model = model.to(dev).eval()
     eval_step = make_eval_step(model, cfg)
+    H = cfg.pad_field[0]
 
     # ------------------------------------------------------------ phase 2
     # the conv shapes of the path, read off one B=1 forward
     shapes = {}
     real_conv = conv3x3.conv3x3_bhcw
 
-    def record(x, w, scale=None, bias=None, stride_w=1):
+    def record(x, w, scale=None, bias=None, stride_w=1, stats=False):
         key = (x.shape[2], w.shape[3], x.shape[3], stride_w,
                scale is not None)
         shapes[key] = shapes.get(key, 0) + 1
-        return real_conv(x, w, scale, bias, stride_w)
+        return real_conv(x, w, scale, bias, stride_w, stats)
 
-    inputs1 = build_eval_inputs(make_batch(cfg, 1, seed=SEED, num_boxes=20),
-                                cfg, dev)
+    inputs1 = build_eval_inputs(
+        make_batch(cfg, 1, seed=SEED, num_boxes=20), cfg, dev)
     with mock.patch.object(conv3x3, "conv3x3_bhcw", record), \
             torch.inference_mode():
         model(inputs1["input_data"], inputs1["coord"])
-    H = cfg.pad_field[0]
     largest = max(shapes, key=lambda k: k[0] * k[1] * k[2] / k[3])
     cases = [(1, k) for k in sorted(shapes)] + [(4, largest)]
     print(f"[2] {len(shapes)} distinct conv shapes in the B=1 forward, "
           f"{sum(shapes.values())} launches; plus the largest at B=4")
-    print("[2]  B    Ci    Co     W s ingest n/fwd  max_abs_err    tol_ok"
-          "  kernel_ms   plain_ms cudnn_bf16_ms")
+    print("[2]  B    Ci    Co     W s ingest n/fwd  max_abs_err    "
+          "tol_ok  kernel_ms   plain_ms cudnn_bf16_ms")
     g = torch.Generator(device=dev).manual_seed(SEED)
-    max_err = 0.0
-    fwd_ms = fwd_plain_ms = 0.0
+    serve = KernelTotals()  # sums over the launches of one B=1 forward
     big_ms = big_plain_ms = None
     for B, (Ci, Co, W, s, ingest) in cases:
         x = torch.randn(B, H, Ci, W, device=dev, generator=g).bfloat16()
@@ -162,15 +683,14 @@ def main():
         torch.cuda.synchronize()
         ref = conv3x3.conv3x3_bhcw_plain(x, w, sc, bi, s,
                                          out_dtype=torch.float32)
-        err = (y.float() - ref).abs()
-        ok = bool((err <= REL_TOL * ref.abs()
-                   + MAX_TOL * ref.abs().max()).all())
-        if not (ok and torch.isfinite(y).all()):
+        ok, e = _bf16_ok(y, ref)
+        if not ok:
             raise SystemExit(f"[2] conv3x3 kernel disagrees at B={B} "
-                             f"Ci={Ci} Co={Co} W={W} s={s} ingest={ingest}: "
-                             f"max err {err.max().item()}")
+                             f"Ci={Ci} Co={Co} W={W} s={s} "
+                             f"ingest={ingest}: max err {e}")
         k_ms = _time_ms(lambda: conv3x3.conv3x3_bhcw(x, w, sc, bi, s))
-        p_ms = _time_ms(lambda: conv3x3.conv3x3_bhcw_plain(x, w, sc, bi, s))
+        p_ms = _time_ms(lambda: conv3x3.conv3x3_bhcw_plain(x, w, sc, bi,
+                                                           s))
         # for scale only, not a reference: cuDNN's bf16 conv, no ingest
         xn = x.permute(0, 2, 1, 3).contiguous(
             memory_format=torch.channels_last)
@@ -178,48 +698,42 @@ def main():
             memory_format=torch.channels_last)
         c_ms = _time_ms(lambda: torch.nn.functional.conv2d(
             xn, wn, stride=(1, s), padding=1))
-        e = err.max().item()
-        max_err = max(max_err, e)
         n = shapes[(Ci, Co, W, s, ingest)] if B == 1 else 0
-        fwd_ms += n * k_ms
-        fwd_plain_ms += n * p_ms
+        Wo = W // s
+        serve.add(n, k_ms, p_ms, _bound_ms(
+            2 * B * H * Wo * Co * Ci * 9,
+            2 * (B * H * Ci * W + 9 * Ci * Co + B * H * Co * Wo), PEAK_BF16),
+            c_ms, e)
         if B == 4:
             big_ms, big_plain_ms = k_ms, p_ms
         print(f"[2] {B:2d} {Ci:5d} {Co:5d} {W:5d} {s} {int(ingest):6d} "
               f"{n:5d} {e:12.6g} {str(ok):>9} {k_ms:10.4f} {p_ms:10.4f} "
               f"{c_ms:13.4f}")
     print(f"[2] conv3x3 per B=1 forward (sum over launches): kernel "
-          f"{fwd_ms:.3f} ms, plain {fwd_plain_ms:.3f} ms; largest shape at "
-          f"B=4: kernel {big_ms:.4f} ms, plain {big_plain_ms:.4f} ms")
+          f"{serve.ms:.3f} ms, plain {serve.plain_ms:.3f} ms, cuDNN "
+          f"{serve.library_ms:.3f} ms, bound {serve.bound_ms:.3f} ms "
+          f"({serve.bound_by()}); largest shape at B=4: kernel "
+          f"{big_ms:.4f} ms, plain {big_plain_ms:.4f} ms")
 
     # ------------------------------------------------------------ phase 3
-    n_meta = len(DEFAULT_META_UNITS if cfg.meta_units is None
-                 else cfg.meta_units)
-    n_blocks = sum((cfg.num_block or DEFAULT_NUM_BLOCK).values())
-    n_levels = len(cfg.fpn_strides)
-    expected = (2 * n_blocks - n_meta + 4
-                + n_levels * (cfg.cls_conv_layers + cfg.reg_conv_layers))
-    print(f"[3] expected conv3x3 launches per forward: 2*{n_blocks} block "
-          f"convs - {n_meta} Meta-Kernel conv1 + 4 agg deconvs + "
-          f"{n_levels}*({cfg.cls_conv_layers}+{cfg.reg_conv_layers}) head "
-          f"= {expected}")
-    step_launches = None
+    expected, how = conv_launches(cfg)
+    print(f"[3] expected conv3x3 launches per forward: {how}")
     for B in (4, 1):
         inputs = build_eval_inputs(
             make_batch(cfg, B, seed=SEED, num_boxes=20), cfg, dev)
         torch.cuda.synchronize()
-        conv3x3.LAUNCHES = 0
+        conv3x3.reset_counts()
         out = eval_step(inputs)
         torch.cuda.synchronize()
         launches = conv3x3.LAUNCHES
         if launches != expected:
             raise SystemExit(f"[3] B={B}: {launches} conv3x3 launches, "
                              f"expected {expected}")
-        step_launches = launches
         res = out["veh"]
         boxes, valid = res["boxes"], res["valid"]
         if not (torch.isfinite(boxes[valid]).all()
-                and tuple(boxes.shape) == (B, cfg.post_nms_top_n["veh"], 8)):
+                and tuple(boxes.shape) == (B, cfg.post_nms_top_n["veh"],
+                                           8)):
             raise SystemExit(f"[3] B={B}: non-finite or misshapen boxes")
 
         with torch.inference_mode():
@@ -233,8 +747,8 @@ def main():
                 raise SystemExit(f"[3] B={B}: non-finite logits/deltas")
             rels.append(((a - b).abs().max() / b.abs().max()).item())
         rel = max(rels)
-        print(f"[3] B={B}: kernel vs plain path, max|a-b|/max|b| per output "
-              f"(logits by level, then deltas): "
+        print(f"[3] B={B}: kernel vs plain path, max|a-b|/max|b| per "
+              f"output (logits by level, then deltas): "
               + " ".join(f"{r:.4g}" for r in rels))
         if rel > MODEL_TOL:
             raise SystemExit(f"[3] B={B}: kernel path vs plain path "
@@ -264,9 +778,11 @@ def main():
               f"finite; kernel vs plain path max rel err {rel:.4g} "
               f"(bound {MODEL_TOL}); eval step median {step_ms:.2f} ms "
               f"(forward {fwd_ms_b:.2f} ms, WNMS {wnms_ms:.2f} ms = "
-              f"{100 * wnms_ms / step_ms:.1f}%); {n_valid} valid candidates, "
-              f"{int(valid.sum())} boxes, truncated "
+              f"{100 * wnms_ms / step_ms:.1f}%); {n_valid} valid "
+              f"candidates, {int(valid.sum())} boxes, truncated "
               f"{res['truncated'].tolist()}; peak memory {peak:.2f} GiB")
+    serve_launches = launches  # of the B=1 step, the last one
+    del model, eval_step
 
     # ------------------------------------------------------------ phase 4
     with tempfile.TemporaryDirectory() as tmp:
@@ -283,18 +799,70 @@ def main():
         if det.ndim != 2 or det.shape[1] != 8 or not np.isfinite(det).all():
             raise SystemExit("[4] malformed detections")
         n_det += len(det)
-    print(f"[4] tools.test: 2 frames, {n_det} detections, pickle read back")
+    print(f"[4] tools.test: 2 frames, {n_det} detections, pickle read "
+          f"back")
 
-    print(json.dumps({"kernels": [{
-        "name": "conv3x3_bhcw",
-        "route": "cuda",
-        "source": "rangedet_tpu_torch/csrc/conv3x3_bhcw.cu",
-        "replaces": "rangedet_tpu/ops/conv_pallas.py:252",
-        "launches": step_launches,
-        "max_abs_err": max_err,
-        "ms": fwd_ms,
-        "plain_ms": fwd_plain_ms,
-    }]}))
+    # ------------------------------------------------------------ phase 5
+    # the setting of tests/test_model_train.py: base_lr 0.01, no warmup
+    tcfg = load_config(RECIPE, is_train=True).replace(base_lr=0.01,
+                                                      warmup_epochs=0)
+    rmodel = RangeDet(**tcfg.model_kwargs())
+    rmodel.init_from(torch.Generator().manual_seed(SEED))
+    rstate = create_train_state(rmodel.to(dev), tcfg, STEPS_PER_EPOCH,
+                                seed=None)
+    recorded = record_train_step(
+        make_train_step(rstate, tcfg),
+        batch_to_device(make_batch(tcfg, 2, seed=SEED, num_boxes=20),
+                        dev),
+        conv3x3, iou_mod, layers)
+    del rmodel, rstate
+    totals = phase5(torch, conv3x3, iou_mod, layers, recorded, H, dev)
+
+    # ------------------------------------------------------------ phase 6
+    mods = dict(conv3x3=conv3x3, iou=iou_mod, RangeDet=RangeDet,
+                make_batch=make_batch, batch_to_device=batch_to_device,
+                create_train_state=create_train_state,
+                make_train_step=make_train_step,
+                build_train_targets=build_train_targets,
+                compute_losses=compute_losses)
+    launches, _ = phase6(torch, mods, tcfg, dev)
+
+    # ------------------------------------------------------------ phase 7
+    hist = train_cli.main(["--config", RECIPE, "--synthetic", "2",
+                           "--steps", "3", "--device", "cuda"])
+    if len(hist) != 3 or not all(math.isfinite(h["total_loss"])
+                                 for h in hist):
+        raise SystemExit(f"[7] tools.train: bad losses {hist}")
+    print("[7] tools.train: 3 steps, total_loss "
+          + " ".join(f"{h['total_loss']:.5f}" for h in hist))
+
+    # one entry per kernel and path: the serving forward (launches of the
+    # B=1 eval step of phase 3, times summed over one B=1 forward in phase
+    # 2), then the B=2 train step (phases 6 and 5)
+    conv_src = "rangedet_tpu_torch/csrc/conv3x3_bhcw.cu"
+    conv_tpu = "rangedet_tpu/ops/conv_pallas.py:252"
+    entries = []
+    for path, name, t, n, source, replaces in (
+        ("serve", "conv3x3_bhcw", serve, serve_launches, conv_src, conv_tpu),
+        ("train", "conv3x3_bhcw_train", totals["fwd"], launches["fwd"],
+         conv_src, conv_tpu),
+        ("train", "conv3x3_dgrad", totals["dgrad"], launches["dgrad"],
+         conv_src, conv_tpu),
+        ("train", "conv3x3_wgrad", totals["wgrad"], launches["wgrad"],
+         "rangedet_tpu_torch/csrc/conv3x3_wgrad.cu",
+         "rangedet_tpu/ops/conv_pallas.py:452"),
+        ("train", "iou_target", totals["iou"], launches["iou"],
+         "rangedet_tpu_torch/csrc/iou_target.cu",
+         "rangedet_tpu/ops/iou_target_pallas.py:193"),
+    ):
+        entries.append({
+            "name": name, "path": path, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": n, "max_abs_err": t.err,
+            "ms": t.ms, "plain_ms": t.plain_ms, "bound_ms": t.bound_ms,
+            "bound_by": t.bound_by(),
+            "library_ms": t.library_ms if name != "iou_target" else None,
+        })
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

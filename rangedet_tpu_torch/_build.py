@@ -1,10 +1,11 @@
 """Build and bind the port's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, which is loaded with ``ctypes``.
-The library lands in ``build/torch_kernels/`` at the repository root, named
-by a hash of the sources, and is built on first use: importing this module
-builds nothing, so the package imports on a machine without ``nvcc``.
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for ``sm_90a``, all
+at once, and the objects are linked into one shared library with a plain C
+interface, which is loaded with ``ctypes``. The library lands in
+``build/torch_kernels/`` at the repository root, named by a hash of the
+sources and flags, and is built on first use: importing this module builds
+nothing, so the package imports on a machine without ``nvcc``.
 """
 from __future__ import annotations
 
@@ -20,10 +21,12 @@ from typing import Optional
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                     "-Xptxas", "-v"]
+# per-source extra flags: the IoU target matches its plain version
+# operation for operation, so no multiply-add contraction there
+EXTRA_FLAGS = {"iou_target.cu": ["-fmad=false"]}
 
 _lib: Optional[ctypes.CDLL] = None
 # what the last build printed (ptxas registers / shared memory per kernel)
@@ -49,6 +52,7 @@ def library_path() -> Path:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(repr(sorted(EXTRA_FLAGS.items())).encode())
     return BUILD_DIR / f"libtorch_kernels_{h.hexdigest()[:16]}.so"
 
 
@@ -60,17 +64,37 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cus = [str(s) for s in _sources() if s.suffix == ".cu"]
+    tag = f"{out.stem}.{os.getpid()}"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cus],
-        capture_output=True, text=True,
-    )
+    jobs = []
+    for src in (s for s in _sources() if s.suffix == ".cu"):
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, *EXTRA_FLAGS.get(src.name, []), "-c",
+               "-o", str(obj), str(src)]
+        jobs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    logs, failed = [], []
+    for src, _, proc in jobs:
+        text, _ = proc.communicate()
+        logs.append(f"== {src.name}\n{text}")
+        if proc.returncode != 0:
+            failed.append(src.name)
+    objs = [str(obj) for _, obj, _ in jobs]
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    if not failed:
+        link = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp), *objs],
+                              capture_output=True, text=True)
+        logs.append(f"== link\n{link.stdout}{link.stderr}")
+        if link.returncode != 0:
+            failed.append("link")
+    for obj in objs:
+        Path(obj).unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+    build_log = "".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n{build_log}")
     os.replace(tmp, out)
     return out
 
@@ -82,7 +106,15 @@ def load() -> ctypes.CDLL:
         return _lib
     lib = ctypes.CDLL(str(build()))
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.conv3x3_bhcw_fwd.argtypes = [vp] * 5 + [i32] * 7 + [vp]
+    lib.conv3x3_bhcw_part_rows.argtypes = [i32] * 4
+    lib.conv3x3_bhcw_part_rows.restype = i32
+    lib.conv3x3_bhcw_fwd.argtypes = [vp] * 13 + [i32] * 7 + [vp]
     lib.conv3x3_bhcw_fwd.restype = i32
+    lib.conv3x3_wgrad_splits.argtypes = [i32] * 5
+    lib.conv3x3_wgrad_splits.restype = i32
+    lib.conv3x3_wgrad.argtypes = [vp] * 9 + [i32] * 6 + [vp]
+    lib.conv3x3_wgrad.restype = i32
+    lib.iou_target_run.argtypes = [vp] * 5 + [i32] * 2 + [vp]
+    lib.iou_target_run.restype = i32
     _lib = lib
     return lib

@@ -1,16 +1,21 @@
-"""RangeDet detector: model assembly and the inference path, counterpart of
-``rangedet_tpu/models/detector.py`` (RangeDet and run_inference).
+"""RangeDet detector: model assembly, on-device train targets, losses and
+the inference path, counterpart of ``rangedet_tpu/models/detector.py``.
+The batch dimension is written out where the JAX package uses vmap.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
+from ..ops import assigner as ops_assigner
 from ..ops import boxes as ops_boxes
 from ..ops import decode as ops_decode
+from ..ops import iou_target as ops_iou_target
 from ..ops import nms as ops_nms
+from ..ops import targets as ops_targets
+from . import losses as L
 from .dla_backbone import DLABackbone
 from .head import RangeRpnHead
 
@@ -54,6 +59,108 @@ class RangeDet(nn.Module):
                 f"stride {max(self.fpn_strides)} (pad W, cf. pad_field)"
             )
         return self.head(self.backbone(input_data, coords))
+
+
+@torch.no_grad()
+def build_train_targets(batch: Dict[str, torch.Tensor], cfg
+                        ) -> Dict[str, torch.Tensor]:
+    """Raw batch -> per-stride dense targets, on the batch's device
+    (reference host pipeline rangedet/core/input.py:276-607).
+
+    batch (channels last, padded to cfg.pad_field): input_data (B,H,W,8),
+    coord, pc (B,H,W,3), mask, unnorm_range (B,H,W,1), gt_csa (B,M,7),
+    gt_class (B,M), gt_valid (B,M); optional is_in_nlz (B,H,W,1), > 0
+    excludes the pixel from assignment.
+
+    Returns, per stride s: reg_target_s, reg_weight_s, reg_norm_weight_s,
+    mask_s (valid and in the range interval), pc_s; and gt_corners_cls{k},
+    the class-k GT BEV corners (other rows zero-size, so IoU 0)."""
+    strides = tuple(cfg.fpn_strides)
+    nlz = batch.get("is_in_nlz")
+    if nlz is None:  # synthetic/legacy batches: nothing is in an NLZ
+        nlz = torch.full_like(batch["mask"], -1.0)
+    frames = []
+    for b in range(batch["pc"].shape[0]):
+        pc, mask = batch["pc"][b].float(), batch["mask"][b].float()
+        gt_csa = batch["gt_csa"][b].float()
+        assignment = ops_assigner.assign_points_to_boxes(
+            pc.reshape(-1, 3), ops_boxes.csa_to_corners3d(gt_csa),
+            mask.reshape(-1), box_valid=batch["gt_valid"][b],
+            is_in_nlz=nlz[b].reshape(-1),
+        )
+        dense = ops_targets.generate_dense_targets(
+            pc, gt_csa, batch["gt_class"][b], assignment,
+            label_set=tuple(cfg.label_set),
+            reg_dim_weights=tuple(cfg.reg_dim_weights),
+        )
+        imasks = ops_targets.interval_masks(batch["unnorm_range"][b],
+                                            cfg.fpn_intervals, strides)
+        out = {}
+        for s in strides:
+            m = imasks[s]
+            for key, name in (("reg_target", "rpn_reg_target"),
+                              ("reg_weight", "rpn_reg_weight"),
+                              ("reg_norm_weight", "reg_normalize_weight")):
+                out[f"{key}_s{s}"] = ops_targets.stride_slice(
+                    dense[name] * m, s, w_axis=1)
+            out[f"mask_s{s}"] = ops_targets.stride_slice(mask * m, s, 1)
+            out[f"pc_s{s}"] = ops_targets.stride_slice(pc, s, 1)
+        frames.append(out)
+    targets = {k: torch.stack([f[k] for f in frames]) for k in frames[0]}
+
+    gt_bev = ops_boxes.csa_to_corners_bev(batch["gt_csa"].float())
+    for k, label in enumerate(cfg.label_set):
+        keep = ((batch["gt_class"].to(torch.int32) == label)
+                & batch["gt_valid"].bool())
+        targets[f"gt_corners_cls{k}"] = torch.where(
+            keep[..., None, None], gt_bev, torch.zeros_like(gt_bev))
+    return targets
+
+
+def iou_targets_per_level(reg_deltas: List[torch.Tensor],
+                          targets: Dict[str, torch.Tensor], cfg
+                          ) -> List[torch.Tensor]:
+    """Per level, the max IoU of each pixel's decoded box against the GTs of
+    each class (RangeRpnHead.get_iou_target, builder.py:156-196) through the
+    IoU-target kernel, with G = max(iou_topk_gt, 32) candidates per block:
+    (B, H, W_s, K), no gradient."""
+    out = []
+    for level, s in enumerate(cfg.fpn_strides):
+        delta = reg_deltas[level].detach()  # (B, H, Ws, K*8)
+        per_class = [
+            ops_iou_target.iou_target(
+                delta[..., k * 8:(k + 1) * 8], targets[f"pc_s{s}"],
+                targets[f"gt_corners_cls{k}"],
+                topk_gt=max(cfg.iou_topk_gt, 32))
+            for k in range(cfg.num_classes)
+        ]
+        out.append(torch.stack(per_class, dim=-1))
+    return out
+
+
+def compute_losses(cls_logits: List[torch.Tensor],
+                   reg_deltas: List[torch.Tensor],
+                   targets: Dict[str, torch.Tensor], cfg
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Total loss and per-level metrics (get_fpn_loss, builder.py:268-348),
+    weights cls x cfg.cls_loss_weight, reg x cfg.reg_loss_weight."""
+    iou_t = iou_targets_per_level(reg_deltas, targets, cfg)
+    metrics = {}
+    total = 0.0
+    for level, s in enumerate(cfg.fpn_strides):
+        cls_loss = L.vfl_cls_loss(cls_logits[level], iou_t[level],
+                                  targets[f"mask_s{s}"], alpha=cfg.vfl_alpha,
+                                  gamma=cfg.vfl_gamma)
+        reg_loss = L.normalized_reg_loss(
+            reg_deltas[level], targets[f"reg_target_s{s}"],
+            targets[f"reg_weight_s{s}"], targets[f"reg_norm_weight_s{s}"],
+            smooth_l1_scalar=cfg.smooth_l1_scalar, l1=cfg.l1_loss)
+        metrics[f"cls_loss_s{s}"] = cls_loss
+        metrics[f"reg_loss_s{s}"] = reg_loss
+        total = (total + cfg.cls_loss_weight * cls_loss
+                 + cfg.reg_loss_weight * reg_loss)
+    metrics["total_loss"] = total
+    return total, metrics
 
 
 def run_inference(

@@ -1,6 +1,9 @@
 """DLA-style backbone over the range image, counterpart of
 ``rangedet_tpu/models/dla_backbone.py`` (reference
-rangedet/symbol/backbone/dla_backbone.py:13-175), eval form, (B, H, C, W).
+rangedet/symbol/backbone/dla_backbone.py:13-175), (B, H, C, W). Train and
+eval follow ``self.training``; the Meta-Kernel block is the materialized
+form (the JAX package's MetaBlock with use_pallas=False), differentiated by
+autograd.
 
 The network downsamples the width only (stride (1, 2) at res2a, res2,
 res3a, res3) and re-aggregates with deconv "agg" nodes into per-stride
@@ -99,8 +102,9 @@ class BasicBlock(nn.Module):
             y = self.meta_block(x, coords)
         else:
             y = self.conv1(x)
-        y = self.bn2(conv3x3_consume(y, self.conv2_weight, self.stride_w,
-                                     self.dtype))
+        y, sums = conv3x3_consume(y, self.conv2_weight, self.stride_w,
+                                  self.dtype, want_stats=self.training)
+        y = self.bn2(y, sums)
         if self.proj:
             sc = conv1x1_bhcw(x.to(self.dtype),
                               self.sc_weight[:, :, 0, 0].to(self.dtype),

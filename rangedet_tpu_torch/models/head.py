@@ -1,6 +1,6 @@
 """Per-level detection head towers, counterpart of
 ``rangedet_tpu/models/head.py`` (reference RangeRpnHead.get_fpn_output,
-rangedet/symbol/head/builder.py:198-266), eval form.
+rangedet/symbol/head/builder.py:198-266), train and eval.
 
 Each FPN level has its own cls and reg towers of 3x3 conv-BN-relu layers,
 chained through PendingBN so each conv's BN apply + relu runs in the next

@@ -2,10 +2,12 @@
 path of ``rangedet_tpu/models/layers.py``.
 
 Convs compute in ``dtype`` (bf16 on the card) from f32 parameters, cast at
-use. BatchNorm is the eval form with MXNet semantics (eps 1e-3): it folds
-the running statistics into an f32 (scale, bias). A layer that emits
-``PendingBN`` defers its BN apply + relu to the consumer, whose 3x3 conv
-fuses it into the kernel's input load (``ops/conv3x3.py``).
+use. BatchNorm has MXNet semantics (eps 1e-3, momentum 0.9): in eval it
+folds the running statistics into an f32 (scale, bias); in training it
+uses the batch statistics in f32, from the producer kernel's (sum y,
+sum y^2) when given. A layer that emits ``PendingBN`` defers its BN apply +
+relu to the consumer, whose 3x3 conv fuses it into the kernel's input load
+(``ops/conv3x3.py``); gradients flow through all of it.
 
 Parameter layouts are PyTorch's: conv weights (Co, Ci, kh, kw) as in
 ``nn.Conv2d``, deconv weights (Ci, Co, kh, kw) as in ``nn.ConvTranspose2d``.
@@ -21,6 +23,7 @@ from torch import nn
 from ..ops import conv3x3 as _conv
 
 BN_EPSILON = 1e-3
+BN_MOMENTUM = 0.9
 
 
 class PendingBN(NamedTuple):
@@ -33,9 +36,38 @@ class PendingBN(NamedTuple):
     bias: torch.Tensor
 
     def materialize(self) -> torch.Tensor:
-        a = self.y.float() * self.scale[None, None, :, None]
-        a = a + self.bias[None, None, :, None]
-        return torch.relu(a).to(self.y.dtype)
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (self.y, self.scale, self.bias)):
+            return _BnReluMat.apply(self.y, self.scale, self.bias)
+        return _bn_relu(self.y, self.scale, self.bias)
+
+
+def _bn_relu(y, scale, bias):
+    a = y.float() * scale[None, None, :, None] + bias[None, None, :, None]
+    return torch.relu(a).to(y.dtype)
+
+
+class _BnReluMat(torch.autograd.Function):
+    """relu(y*scale + bias) with the backward of ``_bn_relu_mat``
+    (``rangedet_tpu/models/layers.py:48-85``): every full-size intermediate
+    stays in y.dtype, f32 only inside the elementwise math and the two
+    per-channel reductions."""
+
+    @staticmethod
+    def forward(ctx, y, scale, bias):
+        ctx.save_for_backward(y, scale, bias)
+        return _bn_relu(y, scale, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        y, scale, bias = ctx.saved_tensors
+        sb = scale[None, None, :, None]
+        yf = y.float()
+        pos = yf * sb + bias[None, None, :, None] > 0.0
+        gz = torch.where(pos, g, torch.zeros_like(g))  # y.dtype
+        dy = (gz.float() * sb).to(y.dtype)
+        gzf = gz.float()
+        return dy, (gzf * yf).sum(dim=(0, 1, 3)), gzf.sum(dim=(0, 1, 3))
 
 
 MaybePending = Union[torch.Tensor, PendingBN]
@@ -59,11 +91,15 @@ def normal_(w: torch.Tensor, std: float, g: torch.Generator) -> None:
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm over channel axis 2, from the running statistics.
+    """BatchNorm over channel axis 2 (``rangedet_tpu/models/layers.py:
+    102-178``). Eval: the running statistics. Training: the batch's, in
+    f32, from ``sums`` = (sum x, sum x^2) when the producer kernel gave them
+    and from the tensor otherwise; var = E[x^2] - mean^2 clamped at 0; the
+    running statistics move by momentum 0.9.
 
     With ``affine_out`` it returns ``PendingBN(x, scale, bias)`` with the f32
-    fold; otherwise ``x * mul + add`` in ``dtype``, with the fold cast to it
-    (``rangedet_tpu/models/layers.py:170-178``)."""
+    fold; otherwise ``x * mul + add`` in ``dtype``, with the fold cast to
+    it."""
 
     def __init__(self, channels: int, dtype: torch.dtype = torch.float32,
                  affine_out: bool = False):
@@ -75,12 +111,30 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
-    def fold(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        inv = torch.rsqrt(self.running_var + BN_EPSILON) * self.weight
-        return inv, self.bias - self.running_mean * inv
+    def fold(self, sums=None, x: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        if not self.training:
+            mean, var = self.running_mean, self.running_var
+        else:
+            if sums is not None:
+                n = x.numel() // x.shape[2]
+                mean = sums[0] / n
+                var = sums[1] / n - mean * mean
+            else:
+                xf = x.float()
+                mean = xf.mean(dim=(0, 1, 3))
+                var = (xf * xf).mean(dim=(0, 1, 3)) - mean * mean
+            var = var.clamp(min=0.0)
+            with torch.no_grad():
+                self.running_mean.copy_(BN_MOMENTUM * self.running_mean
+                                        + (1 - BN_MOMENTUM) * mean)
+                self.running_var.copy_(BN_MOMENTUM * self.running_var
+                                       + (1 - BN_MOMENTUM) * var)
+        inv = torch.rsqrt(var + BN_EPSILON) * self.weight
+        return inv, self.bias - mean * inv
 
-    def forward(self, x: torch.Tensor) -> MaybePending:
-        inv, add = self.fold()
+    def forward(self, x: torch.Tensor, sums=None) -> MaybePending:
+        inv, add = self.fold(sums, x)
         if self.affine_out:
             return PendingBN(x.to(self.dtype), inv, add)
         mul = inv.to(self.dtype)[None, None, :, None]
@@ -89,15 +143,21 @@ class BatchNorm(nn.Module):
 
 
 def conv3x3_consume(x: MaybePending, weight: torch.Tensor, stride_w: int,
-                    dtype: torch.dtype) -> torch.Tensor:
+                    dtype: torch.dtype, want_stats: bool = False):
     """3x3 conv of a tensor or a PendingBN (its BN apply + relu fused into
     the kernel's input load). weight: (Co, Ci, 3, 3) f32, handed to the
-    kernel wrapper as (3, 3, Ci, Co)."""
+    kernel wrapper as (3, 3, Ci, Co). Returns (y, sums): with
+    ``want_stats`` sums = (sum y, sum y^2) per channel from the kernel,
+    else None."""
     w = weight.permute(2, 3, 1, 0).to(dtype)
     if isinstance(x, PendingBN):
-        return _conv.conv3x3_bhcw(x.y, w, x.scale, x.bias, stride_w)
-    return _conv.conv3x3_bhcw(x.to(dtype).contiguous(), w, None, None,
-                              stride_w)
+        out = _conv.conv3x3(x.y, w, x.scale, x.bias, stride_w, want_stats)
+    else:
+        out = _conv.conv3x3(x.to(dtype).contiguous(), w, None, None,
+                            stride_w, want_stats)
+    if want_stats:
+        return out[0], out[1:]
+    return out, None
 
 
 def conv1x1_bhcw(x: torch.Tensor, weight: torch.Tensor, stride_w: int = 1
@@ -134,9 +194,11 @@ class ConvNormRelu(nn.Module):
         if self.kernel == 1:
             x = materialize(x).to(self.dtype)
             y = conv1x1_bhcw(x, self.weight[:, :, 0, 0].to(self.dtype))
+            out = self.bn(y)
         else:
-            y = conv3x3_consume(x, self.weight, 1, self.dtype)
-        out = self.bn(y)
+            y, sums = conv3x3_consume(x, self.weight, 1, self.dtype,
+                                      want_stats=self.training)
+            out = self.bn(y, sums)
         return out if isinstance(out, PendingBN) else torch.relu(out)
 
 
@@ -193,12 +255,14 @@ def deconv_bhcw(x: torch.Tensor, weight: torch.Tensor, stride_w: int
                 ) -> torch.Tensor:
     """SAME transposed conv, stride (1, s), on (B, H, Ci, W) through the
     phase-packed 3x3 conv kernel. weight: (Ci, Co, 3, 2s) in
-    ``nn.ConvTranspose2d``'s layout, same dtype as x. -> (B, H, Co, W*s)."""
+    ``nn.ConvTranspose2d``'s layout, same dtype as x. -> (B, H, Co, W*s).
+    Its gradients run through the same conv's backward kernels; autograd
+    carries them through the packing and the interleave."""
     B, H, _, W = x.shape
     s = stride_w
     Co = weight.shape[1]
     # the JAX form (kh, kw, Ci, Co) correlates with the flipped kernel
     kp = pack_deconv_phases(weight.flip(2, 3).permute(2, 3, 0, 1), s)
-    y2 = _conv.conv3x3_bhcw(x, kp)  # (B, H, s*Co, W)
+    y2 = _conv.conv3x3(x, kp)  # (B, H, s*Co, W)
     y = y2.reshape(B, H, s, Co, W).permute(0, 1, 3, 4, 2)
     return y.reshape(B, H, Co, W * s)

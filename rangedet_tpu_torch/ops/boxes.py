@@ -1,14 +1,40 @@
-"""Box format conversions on tensors — the serving path's part of
+"""Box format conversions on tensors, counterpart of
 ``rangedet_tpu/ops/boxes.py`` (formats documented there):
 
+  csa7       [cx, cy, cz, length, width, height, yaw]
   box10      [x1,y1, x2,y2, x3,y3, x4,y4, z0, z1]
   box11      [x1..y4 (8), yaw, z0(bottom), height]
   box12      box11 + [score]
   box8_eval  [cx, cy, cz, length, width, height, heading, score]
+  corners4   (..., 4, 2) BEV corners A(+l,-w) B(-l,-w) C(-l,+w) D(+l,+w) /2
+  corners8   (..., 8, 3) 3D corners, bottom 4 then top 4
 """
 from __future__ import annotations
 
 import torch
+
+_CORNER_SIGNS = ((0.5, -0.5), (-0.5, -0.5), (-0.5, 0.5), (0.5, 0.5))
+
+
+def csa_to_corners_bev(csa: torch.Tensor) -> torch.Tensor:
+    """csa7 (..., 7) -> BEV corners (..., 4, 2)."""
+    signs = torch.tensor(_CORNER_SIGNS, dtype=csa.dtype, device=csa.device)
+    lx = signs[:, 0] * csa[..., 3:4]  # (..., 4)
+    wy = signs[:, 1] * csa[..., 4:5]
+    cos, sin = torch.cos(csa[..., 6:7]), torch.sin(csa[..., 6:7])
+    x = lx * cos - wy * sin + csa[..., 0:1]
+    y = lx * sin + wy * cos + csa[..., 1:2]
+    return torch.stack([x, y], dim=-1)
+
+
+def csa_to_corners3d(csa: torch.Tensor) -> torch.Tensor:
+    """csa7 (..., 7) -> 3D corners (..., 8, 3), bottom 4 then top 4."""
+    bev = csa_to_corners_bev(csa)
+    cz, h = csa[..., 2], csa[..., 5]
+    z_bot = (cz - 0.5 * h)[..., None, None].expand(bev[..., :1].shape)
+    z_top = (cz + 0.5 * h)[..., None, None].expand(bev[..., :1].shape)
+    return torch.cat([torch.cat([bev, z_bot], -1),
+                      torch.cat([bev, z_top], -1)], dim=-2)
 
 
 def box10_to_corners_bev(box10: torch.Tensor) -> torch.Tensor:

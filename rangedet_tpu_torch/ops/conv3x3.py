@@ -1,31 +1,58 @@
-"""3x3 convolution over (B, H, C, W) activations: the hand-written Hopper
-kernel (``csrc/conv3x3_bhcw.cu``), its wrapper, and its plain version.
+"""3x3 convolution over (B, H, C, W) activations and its gradients: the
+hand-written Hopper kernels (``csrc/conv3x3_bhcw.cu`` for the forward and
+the data gradient, ``csrc/conv3x3_wgrad.cu`` for the weight gradient), their
+wrappers and plain versions, and the autograd Function that ties them
+together.
 
-Counterpart of ``rangedet_tpu/ops/conv_pallas.py`` (forward only):
-``conv3x3_bhcw(x, w)`` is the plain conv and ``conv3x3_bhcw(x, w, scale,
-bias)`` the fused producer-BN ingest ``conv(relu(x*scale + bias))``, with
-the affine in f32 and the activation rounded to ``x.dtype`` before the
-multiply-accumulate, as ``conv_pallas._ingest`` does. ``stride_w=2`` is XLA
-SAME for an even width (pad 0 left, 1 right), taken natively by the kernel
-rather than through the TPU's phase packing.
+Counterpart of ``rangedet_tpu/ops/conv_pallas.py``:
+
+* ``conv3x3_bhcw(x, w, scale, bias, stride_w, stats)`` is ``_conv3x3_fwd``:
+  the conv of x, or of the fused producer-BN ingest relu(x*scale + bias)
+  (affine in f32, rounded to x.dtype before the multiply-accumulate, as
+  ``conv_pallas._ingest``), and with ``stats`` also the per-channel sums
+  (sum y, sum y^2) of the stored y. ``stride_w=2`` is XLA SAME for an even
+  width (pad 0 left, 1 right), taken natively by the kernel.
+* ``conv3x3_dgrad(gy, w, cot, affine)`` is ``_conv3x3_fwd`` as the dgrad:
+  the same conv of gy with the flipped, (Ci, Co)-swapped weight; ``cot``
+  folds the stats cotangents into gy on load (``_ingest_cot``) and
+  ``affine`` finishes the backward of the fused ingest (dx, dscale, dbias).
+* ``conv3x3_wgrad(x, gy, scale, bias, cot)`` is ``_conv3x3_wgrad``.
+* ``conv3x3(...)`` is the differentiable op: the four custom-VJP entry
+  points ``conv3x3_bhcw``, ``conv3x3_bnrelu_bhcw``, ``conv3x3_stats_bhcw``
+  and ``conv3x3_bnrelu_stats_bhcw`` in one ``torch.autograd.Function``.
+  A stride-2 conv differentiates through the phase identity of
+  ``rangedet_tpu/models/layers.py:conv3x3_stride2_phase``.
 
 A CPU tensor goes to the plain version; a CUDA tensor goes to the kernel or
-raises.
+raises. The Function looks the three functions up on this module at call
+time, so patching them (as chip_smoke does with the plain versions) routes
+the forward and the backward alike.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from .. import _build
 
-# kernel launches since the last reset; the wrapper adds one per launch
-LAUNCHES = 0
+# kernel launches since the last reset; each wrapper adds one per call that
+# launches its kernel (a call's second, reducing pass included)
+LAUNCHES = 0        # forward, csrc/conv3x3_bhcw.cu
+DGRAD_LAUNCHES = 0  # dgrad, the same kernel with the flipped weight
+WGRAD_LAUNCHES = 0  # csrc/conv3x3_wgrad.cu
 
 _CI_ALIGN = 16  # K-chunk of the kernel
 _CO_ALIGN = 64  # Co tile of the kernel
+
+Cot = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # (y, gs1, gs2)
+Affine = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # (x, scale, bias)
+
+
+def reset_counts() -> None:
+    global LAUNCHES, DGRAD_LAUNCHES, WGRAD_LAUNCHES
+    LAUNCHES = DGRAD_LAUNCHES = WGRAD_LAUNCHES = 0
 
 
 def _check(x, w, scale, bias, stride_w):
@@ -49,32 +76,107 @@ def _check(x, w, scale, bias, stride_w):
         raise ValueError(f"scale/bias must be ({Ci},)")
 
 
+def _vec(v: torch.Tensor) -> torch.Tensor:
+    return v.float()[None, None, :, None]
+
+
+def ingest_plain(x: torch.Tensor, scale: Optional[torch.Tensor],
+                 bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """relu(x*scale + bias) in f32, rounded to x.dtype (_ingest)."""
+    if scale is None:
+        return x
+    return torch.relu(x.float() * _vec(scale) + _vec(bias)).to(x.dtype)
+
+
+def cot_plain(gy: torch.Tensor, cot: Optional[Cot]) -> torch.Tensor:
+    """gy + gs1 + 2*y*gs2 in f32, rounded to gy.dtype (_ingest_cot)."""
+    if cot is None:
+        return gy
+    y, gs1, gs2 = cot
+    g = gy.float() + _vec(gs1)
+    return (g + 2.0 * y.float() * _vec(gs2)).to(gy.dtype)
+
+
+def _conv_f32(a: torch.Tensor, w: torch.Tensor, stride_w: int
+              ) -> torch.Tensor:
+    """f32 SAME conv of (B, H, Ci, W) with (3, 3, Ci, Co) -> (B, H, Co, Wo).
+
+    Exact f32 only with TF32 convolutions off
+    (``torch.backends.cudnn.allow_tf32``) on a CUDA tensor."""
+    af = a.float().permute(0, 2, 1, 3)  # (B, Ci, H, W)
+    wt = w.float().permute(3, 2, 0, 1)  # (Co, Ci, 3, 3)
+    if stride_w == 1:
+        y = F.conv2d(af, wt, padding=1)
+    else:
+        y = F.conv2d(F.pad(af, (0, 1, 1, 1)), wt, stride=(1, 2))
+    return y.permute(0, 2, 1, 3)
+
+
+def _channel_sums(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    tf = t.float()
+    return tf.sum(dim=(0, 1, 3)), (tf * tf).sum(dim=(0, 1, 3))
+
+
+def flip_weight(w: torch.Tensor) -> torch.Tensor:
+    """The dgrad's weight: w rotated 180 degrees, (Ci, Co) swapped."""
+    return w.flip(0, 1).transpose(2, 3)
+
+
 def conv3x3_bhcw_plain(
     x: torch.Tensor,
     w: torch.Tensor,
     scale: Optional[torch.Tensor] = None,
     bias: Optional[torch.Tensor] = None,
     stride_w: int = 1,
+    stats: bool = False,
     out_dtype: Optional[torch.dtype] = None,
-) -> torch.Tensor:
+):
     """Reference: torch ops in f32 on the same operands, the ingest rounded
-    to x.dtype; the output in ``out_dtype`` (default x.dtype).
-
-    The result is exact f32 only with TF32 convolutions off
-    (``torch.backends.cudnn.allow_tf32``) on a CUDA tensor."""
+    to x.dtype, the output in ``out_dtype`` (default x.dtype); with
+    ``stats`` also (sum y, sum y^2) of y rounded to x.dtype."""
     _check(x, w, scale, bias, stride_w)
-    a = x
-    if scale is not None:
-        af = x.float() * scale.float()[None, None, :, None]
-        af = af + bias.float()[None, None, :, None]
-        a = torch.relu(af).to(x.dtype)
-    a = a.float().permute(0, 2, 1, 3)  # (B, Ci, H, W)
-    wt = w.float().permute(3, 2, 0, 1)  # (Co, Ci, 3, 3)
-    if stride_w == 1:
-        y = F.conv2d(a, wt, padding=1)
-    else:
-        y = F.conv2d(F.pad(a, (0, 1, 1, 1)), wt, stride=(1, 2))
-    return y.permute(0, 2, 1, 3).to(out_dtype or x.dtype).contiguous()
+    acc = _conv_f32(ingest_plain(x, scale, bias), w, stride_w)
+    y = acc.to(out_dtype or x.dtype).contiguous()
+    if not stats:
+        return y
+    return (y, *_channel_sums(acc.to(x.dtype)))
+
+
+def conv3x3_dgrad_plain(gy: torch.Tensor, w: torch.Tensor,
+                        cot: Optional[Cot] = None,
+                        affine: Optional[Affine] = None,
+                        out_dtype: Optional[torch.dtype] = None):
+    """Reference dgrad (stride 1): the conv of the cot-adjusted gy with
+    flip_weight(w), in f32. With ``affine`` = (x, scale, bias) of the fused
+    forward relu(x*scale + bias): dz = acc where x*scale + bias > 0, and
+    returns (bf16(dz*scale), sum dz*x, sum dz) per channel."""
+    acc = _conv_f32(cot_plain(gy, cot), flip_weight(w), 1)
+    dtype = out_dtype or gy.dtype
+    if affine is None:
+        return acc.to(dtype).contiguous()
+    x, scale, bias = affine
+    xf = x.float()
+    dz = torch.where(xf * _vec(scale) + _vec(bias) > 0, acc,
+                     torch.zeros_like(acc))
+    dx = (dz * _vec(scale)).to(dtype).contiguous()
+    return dx, (dz * xf).sum(dim=(0, 1, 3)), dz.sum(dim=(0, 1, 3))
+
+
+def conv3x3_wgrad_plain(x: torch.Tensor, gy: torch.Tensor,
+                        scale: Optional[torch.Tensor] = None,
+                        bias: Optional[torch.Tensor] = None,
+                        cot: Optional[Cot] = None) -> torch.Tensor:
+    """Reference weight gradient (stride 1), f32 (3, 3, Ci, Co):
+    dW[dy, dx] = sum over b, h, w of a[h+dy-1, :, w+dx-1] g[h, :, w]^T with
+    a the zero-padded ingest of x and g the cot-adjusted gy."""
+    a = ingest_plain(x, scale, bias).float()
+    g = cot_plain(gy, cot).float()
+    H, W = x.shape[1], x.shape[3]
+    ap = F.pad(a, (1, 1, 0, 0, 1, 1))  # pad W and H by one on each side
+    rows = [torch.stack([
+        torch.einsum("bhiw,bhow->io", ap[:, dy:dy + H, :, dx:dx + W], g)
+        for dx in range(3)]) for dy in range(3)]
+    return torch.stack(rows)
 
 
 def pack_weight(w: torch.Tensor) -> torch.Tensor:
@@ -88,42 +190,86 @@ def pack_weight(w: torch.Tensor) -> torch.Tensor:
     return wp
 
 
-def _launch(x, w, scale, bias, stride_w):
-    global LAUNCHES
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _need(x: torch.Tensor, name: str, t: torch.Tensor, dtype, shape=None):
+    if t.dtype != dtype or not t.is_contiguous():
+        raise TypeError(f"{name} must be contiguous {dtype}, got {t.dtype}")
+    if t.device != x.device:
+        raise ValueError(f"{name} on {t.device}, x on {x.device}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must be {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+
+
+def _stream(x: torch.Tensor):
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _launch_fwd(x, w, scale=None, bias=None, stride_w=1, stats=False,
+                cot=None, affine=None):
+    """One launch of csrc/conv3x3_bhcw.cu (and its reducing pass when
+    sums are asked for). Returns y, or (y, sum0, sum1)."""
     if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
         raise TypeError(
             f"the kernel takes bf16 x and w, got {x.dtype} and {w.dtype}"
         )
-    if not x.is_contiguous():
-        raise ValueError("x must be contiguous")
+    _need(x, "x", x, torch.bfloat16)
     if w.device != x.device:
         raise ValueError(f"w on {w.device}, x on {x.device}")
-    if scale is not None:
-        for name, t in (("scale", scale), ("bias", bias)):
-            if t.dtype != torch.float32 or not t.is_contiguous():
-                raise TypeError(f"{name} must be contiguous f32")
-            if t.device != x.device:
-                raise ValueError(f"{name} on {t.device}, x on {x.device}")
     B, H, Ci, W = x.shape
     Co = w.shape[3]
     if B * H > 65535:
         raise ValueError(f"B*H={B * H} exceeds the kernel's grid")
+    Wo = W if stride_w == 1 else W // 2
+    if scale is not None:
+        _need(x, "scale", scale, torch.float32, (Ci,))
+        _need(x, "bias", bias, torch.float32, (Ci,))
+    cy = c1 = c2 = bx = bs = bb = None
+    if cot is not None:
+        cy, c1, c2 = cot
+        _need(x, "cot y", cy, torch.bfloat16, x.shape)
+        _need(x, "gs1", c1, torch.float32, (Ci,))
+        _need(x, "gs2", c2, torch.float32, (Ci,))
+    if affine is not None:
+        if stride_w != 1:
+            raise ValueError("the backward epilogue runs at stride 1")
+        bx, bs, bb = affine
+        _need(x, "affine x", bx, torch.bfloat16, (B, H, Co, W))
+        _need(x, "affine scale", bs, torch.float32, (Co,))
+        _need(x, "affine bias", bb, torch.float32, (Co,))
     lib = _build.load()
     wp = pack_weight(w)
-    Wo = W if stride_w == 1 else W // 2
     y = torch.empty((B, H, Co, Wo), dtype=x.dtype, device=x.device)
+    part = sums = None
+    if stats or affine is not None:
+        rows = lib.conv3x3_bhcw_part_rows(B, H, W, stride_w)
+        part = torch.empty((rows, 2, Co), dtype=torch.float32,
+                           device=x.device)
+        sums = torch.empty((2, Co), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.conv3x3_bhcw_fwd(
-            x.data_ptr(), wp.data_ptr(),
-            None if scale is None else scale.data_ptr(),
-            None if bias is None else bias.data_ptr(),
-            y.data_ptr(), B, H, Ci, W, Co, wp.shape[2], stride_w, stream,
+            x.data_ptr(), wp.data_ptr(), _ptr(scale), _ptr(bias),
+            _ptr(cy), _ptr(c1), _ptr(c2), _ptr(bx), _ptr(bs), _ptr(bb),
+            y.data_ptr(), _ptr(part), _ptr(sums),
+            B, H, Ci, W, Co, wp.shape[2], stride_w, _stream(x),
         )
     if err != 0:
         raise RuntimeError(f"conv3x3_bhcw_fwd launch failed: cudaError {err}")
-    LAUNCHES += 1
-    return y
+    if sums is None:
+        return y
+    return y, sums[0], sums[1]
+
+
+def _route(x: torch.Tensor) -> bool:
+    """True: launch the kernel; False: the plain version (CPU tensor)."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"no conv3x3 kernel for device {x.device}")
+    return True
 
 
 def conv3x3_bhcw(
@@ -132,12 +278,154 @@ def conv3x3_bhcw(
     scale: Optional[torch.Tensor] = None,
     bias: Optional[torch.Tensor] = None,
     stride_w: int = 1,
-) -> torch.Tensor:
+    stats: bool = False,
+):
     """y = conv3x3(x or relu(x*scale + bias), w): (B, H, Ci, W) x
-    (3, 3, Ci, Co) -> (B, H, Co, W // stride_w)."""
+    (3, 3, Ci, Co) -> (B, H, Co, W // stride_w); with ``stats`` returns
+    (y, sum y, sum y^2) per output channel. No gradient: see conv3x3."""
+    global LAUNCHES
     _check(x, w, scale, bias, stride_w)
-    if x.device.type == "cpu":
-        return conv3x3_bhcw_plain(x, w, scale, bias, stride_w)
-    if x.device.type != "cuda":
-        raise ValueError(f"no conv3x3 kernel for device {x.device}")
-    return _launch(x, w, scale, bias, stride_w)
+    if not _route(x):
+        return conv3x3_bhcw_plain(x, w, scale, bias, stride_w, stats)
+    out = _launch_fwd(x, w, scale, bias, stride_w, stats)
+    LAUNCHES += 1
+    return out
+
+
+def conv3x3_dgrad(gy: torch.Tensor, w: torch.Tensor,
+                  cot: Optional[Cot] = None,
+                  affine: Optional[Affine] = None):
+    """Data gradient of the stride-1 conv with weight w (3, 3, Ci, Co):
+    gy (B, H, Co, W) -> dx (B, H, Ci, W), or (dx, dscale, dbias) with
+    ``affine``. See conv3x3_dgrad_plain."""
+    global DGRAD_LAUNCHES
+    _check(gy, flip_weight(w), None, None, 1)
+    if not _route(gy):
+        return conv3x3_dgrad_plain(gy, w, cot, affine)
+    out = _launch_fwd(gy, flip_weight(w).contiguous(), cot=cot,
+                      affine=affine)
+    DGRAD_LAUNCHES += 1
+    return out
+
+
+def conv3x3_wgrad(x: torch.Tensor, gy: torch.Tensor,
+                  scale: Optional[torch.Tensor] = None,
+                  bias: Optional[torch.Tensor] = None,
+                  cot: Optional[Cot] = None) -> torch.Tensor:
+    """Weight gradient of the stride-1 conv: x (B, H, Ci, W), gy
+    (B, H, Co, W) -> f32 (3, 3, Ci, Co). See conv3x3_wgrad_plain."""
+    global WGRAD_LAUNCHES
+    B, H, Ci, W = x.shape
+    Co = gy.shape[2]
+    if tuple(gy.shape) != (B, H, Co, W):
+        raise ValueError(f"gy {tuple(gy.shape)} does not match x "
+                         f"{tuple(x.shape)}")
+    if not _route(x):
+        return conv3x3_wgrad_plain(x, gy, scale, bias, cot)
+    for name, t in (("x", x), ("gy", gy)):
+        _need(x, name, t, torch.bfloat16)
+    if scale is not None:
+        _need(x, "scale", scale, torch.float32, (Ci,))
+        _need(x, "bias", bias, torch.float32, (Ci,))
+    cy = c1 = c2 = None
+    if cot is not None:
+        cy, c1, c2 = cot
+        _need(x, "cot y", cy, torch.bfloat16, gy.shape)
+        _need(x, "gs1", c1, torch.float32, (Co,))
+        _need(x, "gs2", c2, torch.float32, (Co,))
+    lib = _build.load()
+    splits = lib.conv3x3_wgrad_splits(B, H, Ci, W, Co)
+    part = torch.empty((splits, 9, Ci, Co), dtype=torch.float32,
+                       device=x.device)
+    dw = torch.empty((3, 3, Ci, Co), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = lib.conv3x3_wgrad(
+            x.data_ptr(), gy.data_ptr(), _ptr(scale), _ptr(bias), _ptr(cy),
+            _ptr(c1), _ptr(c2), part.data_ptr(), dw.data_ptr(),
+            B, H, Ci, W, Co, splits, _stream(x),
+        )
+    if err != 0:
+        raise RuntimeError(f"conv3x3_wgrad launch failed: cudaError {err}")
+    WGRAD_LAUNCHES += 1
+    return dw
+
+
+# ------------------------------------------------------------- autograd
+def phase_pack(x: torch.Tensor, w: torch.Tensor):
+    """Stride-2 phase identity: the stride-2 conv of x with w equals the
+    stride-1 conv of x2 = [x_even; x_odd] (channels) with the packed
+    kp[:, 1] = [w[:, 0]; w[:, 1]], kp[:, 2] = [w[:, 2]; 0], kp[:, 0] = 0."""
+    Ci = x.shape[2]
+    x2 = torch.cat([x[..., 0::2], x[..., 1::2]], dim=2).contiguous()
+    kp = w.new_zeros((3, 3, 2 * Ci, w.shape[3]))
+    kp[:, 1, :Ci] = w[:, 0]
+    kp[:, 1, Ci:] = w[:, 1]
+    kp[:, 2, :Ci] = w[:, 2]
+    return x2, kp
+
+
+def phase_unpack_weight(dkp: torch.Tensor, Ci: int) -> torch.Tensor:
+    """Gradient of phase_pack's kp -> gradient of w."""
+    return torch.stack([dkp[:, 1, :Ci], dkp[:, 1, Ci:], dkp[:, 2, :Ci]],
+                       dim=1)
+
+
+class _Conv3x3Fn(torch.autograd.Function):
+    """y = conv3x3(x or relu(x*scale + bias), w, stride) [, sum y, sum y^2]
+    with the backward of conv_pallas.py's four custom VJPs: dgrad (cot
+    fold on load, affine-backward epilogue) and wgrad (ingest, cot)."""
+
+    @staticmethod
+    def forward(ctx, x, w, scale, bias, stride_w, stats):
+        out = conv3x3_bhcw(x, w, scale, bias, stride_w, stats)
+        y = out[0] if stats else out
+        ctx.save_for_backward(x, w, scale, bias, y if stats else None)
+        ctx.stride_w, ctx.stats = stride_w, stats
+        return out
+
+    @staticmethod
+    def backward(ctx, gy, gs1=None, gs2=None):
+        x, w, scale, bias, y = ctx.saved_tensors
+        need_x, need_w, need_s, need_b = ctx.needs_input_grad[:4]
+        gy = gy.contiguous()
+        cot = (y, gs1.float().contiguous(), gs2.float().contiguous()) \
+            if ctx.stats else None
+        ingest = scale is not None
+        Ci = x.shape[2]
+        xs, ws, ss, bs = x, w, scale, bias
+        if ctx.stride_w == 2:
+            xs, ws = phase_pack(x, w)
+            if ingest:
+                ss, bs = torch.cat([scale, scale]), torch.cat([bias, bias])
+        dx = dw = dscale = dbias = None
+        if need_x or need_s or need_b:  # skipped for the data's first conv
+            if ingest:
+                dx, dscale, dbias = conv3x3_dgrad(gy, ws, cot, (xs, ss, bs))
+            else:
+                dx = conv3x3_dgrad(gy, ws, cot)
+            if ctx.stride_w == 2:
+                B, H, _, W2 = dx.shape
+                dx = torch.stack([dx[:, :, :Ci], dx[:, :, Ci:]], dim=-1)
+                dx = dx.reshape(B, H, Ci, 2 * W2)
+                if ingest:
+                    dscale = dscale[:Ci] + dscale[Ci:]
+                    dbias = dbias[:Ci] + dbias[Ci:]
+        if need_w:
+            dw = conv3x3_wgrad(xs, gy, ss, bs, cot)
+            if ctx.stride_w == 2:
+                dw = phase_unpack_weight(dw, Ci)
+            dw = dw.to(w.dtype)
+        return dx, dw, dscale, dbias, None, None
+
+
+def conv3x3(x: torch.Tensor, w: torch.Tensor,
+            scale: Optional[torch.Tensor] = None,
+            bias: Optional[torch.Tensor] = None,
+            stride_w: int = 1, stats: bool = False):
+    """Differentiable conv3x3_bhcw: gradients flow to x, w, scale and bias
+    and, with ``stats``, from the sums back into the conv (the BatchNorm
+    statistics backward)."""
+    tensors = [t for t in (x, w, scale, bias) if t is not None]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return _Conv3x3Fn.apply(x, w, scale, bias, stride_w, stats)
+    return conv3x3_bhcw(x, w, scale, bias, stride_w, stats)

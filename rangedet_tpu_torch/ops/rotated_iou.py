@@ -76,3 +76,24 @@ def iou_bev_corners(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     inter = quad_intersection_area(a, b)
     iou = inter / torch.clamp(sa + sb - inter, min=EPS)
     return torch.where((sa < EPS) | (sb < EPS), torch.zeros_like(iou), iou)
+
+
+def max_iou_vs_gt(proposals_corners: torch.Tensor, gt_corners: torch.Tensor,
+                  topk_gt: int = 0) -> torch.Tensor:
+    """Max BEV IoU of each proposal (N, 4, 2) against a GT set (M, 4, 2) ->
+    (N,) in [0, 1], NaN/Inf/out-of-range IoUs cleaned to 0 (reference
+    operator_py/batch_rotated_iou.py:31-49). With 0 < topk_gt < M only the
+    topk_gt GTs nearest by BEV center distance are clipped, as
+    ``rangedet_tpu/ops/rotated_iou.py:max_iou_vs_gt`` does (the JAX chunking
+    only bounds TPU memory and is left out)."""
+    if topk_gt and topk_gt < gt_corners.shape[0]:
+        pc = proposals_corners.mean(dim=-2)
+        gc = gt_corners.mean(dim=-2)
+        d2 = ((pc[:, None, :] - gc[None, :, :]) ** 2).sum(-1)
+        idx = torch.topk(-d2, topk_gt, dim=-1).indices  # (N, K)
+        iou = iou_bev_corners(proposals_corners[:, None], gt_corners[idx])
+    else:
+        iou = iou_bev_corners(proposals_corners[:, None], gt_corners[None])
+    iou = torch.where(torch.isfinite(iou), iou, torch.zeros_like(iou))
+    iou = torch.where((iou < 0) | (iou > 1), torch.zeros_like(iou), iou)
+    return iou.amax(dim=-1)

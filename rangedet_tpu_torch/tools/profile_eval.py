@@ -41,7 +41,7 @@ def main(argv=None) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile_eval needs a CUDA card")
 
-    from rangedet_tpu.data.synthetic import make_batch
+    from rangedet_tpu_torch.data.synthetic import make_batch
     from rangedet_tpu_torch.configs import load_config
     from rangedet_tpu_torch.infer import build_eval_inputs
     from rangedet_tpu_torch.models import RangeDet

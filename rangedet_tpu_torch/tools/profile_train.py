@@ -1,0 +1,105 @@
+"""Where the train step's time goes on the card: the full-size train step
+of a recipe at B=2, seeded random weights, one synthetic batch, under
+``torch.profiler``.
+
+    python -m rangedet_tpu_torch.tools.profile_train [--batch 2]
+        [--out profile_train.txt]
+
+Prints the wall time of the profiled steps, the device time of each stage
+of the step (targets, forward, losses with the IoU target, optimizer, and
+the backward as the busy time no other range holds), the device busy share,
+and the kernels by total device time; writes the full table to ``--out``.
+Needs a CUDA card.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import time
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from .profile_eval import _device_us, _self_device_us
+
+RECIPE = "rangedet_veh_wo_aug_4_18e"
+ITERS = 5  # profiled steps, after 2 warm-up steps
+SEED = 0
+STAGES = ("targets", "forward", "losses", "backward", "optimizer")
+
+
+def main(argv=None) -> None:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--batch", type=int, default=2)
+    p.add_argument("--out", default=None)
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_train needs a CUDA card")
+
+    from rangedet_tpu_torch.configs import load_config
+    from rangedet_tpu_torch.data.synthetic import make_batch
+    from rangedet_tpu_torch.models import RangeDet
+    from rangedet_tpu_torch.train.state import create_train_state
+    from rangedet_tpu_torch.train.train_step import (
+        batch_to_device,
+        make_train_step,
+    )
+
+    dev = torch.device("cuda")
+    cfg = load_config(RECIPE, is_train=True).replace(base_lr=0.01,
+                                                     warmup_epochs=0)
+    model = RangeDet(**cfg.model_kwargs())
+    model.init_from(torch.Generator().manual_seed(SEED))
+    state = create_train_state(model.to(dev), cfg, 100, seed=None)
+    step = make_train_step(state, cfg)
+    batch = batch_to_device(
+        make_batch(cfg, args.batch, seed=SEED, num_boxes=20), dev)
+
+    for _ in range(2):
+        step(batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(ITERS):
+            step(batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / ITERS
+
+    # a stage's device ms: the kernels its host-side range launched (the
+    # device time of the range's CPU event sums its descendants' kernels;
+    # the device-side annotation of the same name would add its span)
+    ranges = dict.fromkeys(STAGES, 0.0)
+    for e in prof.events():
+        if e.name in STAGES and str(e.device_type).endswith("CPU"):
+            ranges[e.name] += _device_us(e) / 1e3 / ITERS
+    events = prof.key_averages()
+    kernels = [e for e in events if e.key not in STAGES
+               and str(e.device_type).endswith("CUDA")
+               and _self_device_us(e) > 0]
+    busy_ms = sum(_self_device_us(e) for e in kernels) / 1e3 / ITERS
+    # autograd runs the backward on its own thread, outside the range the
+    # main thread opened: its kernels are the busy time no range holds
+    ranges["backward"] = busy_ms - sum(v for k, v in ranges.items()
+                                       if k != "backward")
+    print(f"profile_train: {RECIPE} B={args.batch} on "
+          f"{torch.cuda.get_device_name(0)}: wall {wall_ms:.2f} ms/step, "
+          f"device busy {busy_ms:.2f} ms/step "
+          f"({100 * busy_ms / wall_ms:.1f}%); device ms by stage: "
+          + ", ".join(f"{k} {ranges.get(k, float('nan')):.2f}"
+                      for k in STAGES) + " (backward: busy minus the rest)")
+    kernels.sort(key=_self_device_us, reverse=True)
+    lines = [f"{'device ms/step':>15} {'share':>6} {'calls/step':>10}  kernel"]
+    for e in kernels:
+        ms = _self_device_us(e) / 1e3 / ITERS
+        lines.append(f"{ms:15.3f} {100 * ms / busy_ms:5.1f}% "
+                     f"{e.count / ITERS:10.1f}  {e.key[:110]}")
+    print("\n".join(lines[:30]))
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            f.write("\n".join(lines) + "\n")
+
+
+if __name__ == "__main__":
+    main()

@@ -39,7 +39,7 @@ def parse_args(argv=None):
 
 def main(argv=None) -> str:
     args = parse_args(argv)
-    from rangedet_tpu.data.synthetic import make_batch
+    from rangedet_tpu_torch.data.synthetic import make_batch
     from rangedet_tpu_torch.configs import load_config
     from rangedet_tpu_torch.convert import load_npz
     from rangedet_tpu_torch.infer import build_eval_inputs, make_eval_step

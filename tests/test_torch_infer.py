@@ -192,8 +192,8 @@ def test_package_runs_without_jax(tmp_path):
     code = textwrap.dedent(f"""
         import sys
         import torch
-        from rangedet_tpu.data.synthetic import make_batch
         from rangedet_tpu_torch.configs import load_config
+        from rangedet_tpu_torch.data.synthetic import make_batch
         from rangedet_tpu_torch.infer import build_eval_inputs, make_eval_step
         from rangedet_tpu_torch.models import RangeDet
         import rangedet_tpu_torch.convert, rangedet_tpu_torch.tools.test
@@ -204,7 +204,8 @@ def test_package_runs_without_jax(tmp_path):
         out = make_eval_step(model.eval(), cfg)(build_eval_inputs(
             make_batch(cfg, 1, seed=0), cfg, torch.device("cpu")))
         assert out["veh"]["boxes"].shape == (1, 200, 8)
-        bad = [m for m in ("jax", "flax") if m in sys.modules]
+        bad = [m for m in sys.modules if m.split(".")[0] in
+               ("jax", "flax", "optax", "rangedet_tpu")]
         assert not bad, bad
         print("OK")
     """)
