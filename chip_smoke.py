@@ -16,17 +16,20 @@ Phases, one line of output each (or a table), failing on the first error:
    median eval-step time, its weighted-NMS share and the peak memory;
 4. ``python -m rangedet_tpu_torch.tools.test`` on 2 synthetic frames;
 5. the train kernels against their plain versions at every distinct shape
-   of one B=2 train step: conv3x3 forward (stats, ingest + stats), dgrad
-   (plain, cot, affine-backward + cot), wgrad (plain, ingest + cot), the
-   stride-2 and deconv backward through the autograd Function, and the
-   IoU target at each level; max error, kernel ms, plain ms, cuDNN ms and
-   the bound;
+   of one B=2 train step of the recipe (its fused Meta-Kernel block
+   included): conv3x3 forward (stats, ingest + stats), dgrad (plain, cot,
+   affine-backward + cot), wgrad (plain, ingest + cot), the stride-2 and
+   deconv backward through the autograd Function, the IoU target at each
+   level, and every launch of the Meta-Kernel block's kernels (meta_stats,
+   meta_agg, the block backward in both modes) on the inputs the step gave
+   it; max error, kernel ms, plain ms, cuDNN ms and the bound;
 6. the full-size train step at B=2: launches per step against the counts
    the config implies, gradients of the kernel path against the plain path
    and of both bf16 paths against an f32 step, the same gates shown to
-   reject two planted faults (a zeroed dgrad, a sign-flipped wgrad), 5
-   steps with finite and falling loss, two steps from one state with
-   bit-equal losses, the median step time and peak memory;
+   reject two planted faults (a zeroed dgrad, a sign-flipped wgrad), step
+   1's losses with the fused block against the materialized block, 5 steps
+   with finite and falling loss, two steps from one state with bit-equal
+   losses, the median step time and peak memory;
 7. ``python -m rangedet_tpu_torch.tools.train`` for 3 steps on the card.
 
 It prints a JSON line of the kernels, one entry per kernel and path (the
@@ -72,17 +75,19 @@ MODEL_TOL = 5e-2
 # from an f32 step, so no per-tensor bound holds for a correct kernel.
 # The gates, each on r = max|a - b| / max|b| per parameter: each loss
 # |a - b| / |b| <= LOSS_TOL; the 1x1 head projections, whose gradients see
-# no BatchNorm backward, r <= HEAD_GRAD_TOL (measured 0.092; either bf16
-# path lies 0.195-0.201 from f32 there); the median r over all parameters
+# no BatchNorm backward, r <= HEAD_GRAD_TOL (measured 0.104; either bf16
+# path lies 0.19-0.21 from f32 there); the median r over all parameters
 # <= MEDIAN_TOL and over the 3x3 conv weights (the wgrad kernel's output)
 # <= CONV_MEDIAN_TOL. Phase 6 plants a zeroed dgrad and a sign-flipped
-# wgrad and shows the gates reject both. Measured medians, all / conv:
-# sound 0.577 / 0.586, zeroed dgrad 1 / 1, flipped wgrad 0.756 / 1.934;
-# each limit lies midway between the sound reading and the nearer fault's
+# wgrad and shows the gates reject both. Measured medians on the recipe's
+# step (fused Meta-Kernel block), all / conv: sound 0.629 / 0.624, zeroed
+# dgrad 1 / 1, flipped wgrad 0.794 / 1.937; each limit lies midway between
+# the sound reading and the nearer fault's. The fused step's step-1 losses
+# against the materialized block's step: within LOSS_TOL too
 LOSS_TOL = 1e-2
 HEAD_GRAD_TOL = 0.14
-MEDIAN_TOL = 0.67
-CONV_MEDIAN_TOL = 0.79
+MEDIAN_TOL = 0.71
+CONV_MEDIAN_TOL = 0.81
 STEPS_PER_EPOCH = 100
 # the H100 SXM's published peaks (NVIDIA data sheet) for bound_ms
 PEAK_BF16 = 989e12
@@ -195,13 +200,16 @@ class KernelTotals:
 
 
 # ---------------------------------------------------------------- phase 5
-def record_train_step(step, batch, conv3x3, iou_mod, layers):
+def record_train_step(step, batch, conv3x3, iou_mod, layers, meta):
     """Run step(batch) once, counting every distinct kernel call shape, and
-    keeping the IoU target's real inputs."""
+    keeping the real inputs of the IoU target and of the Meta-Kernel block's
+    kernels."""
     fwd, dgrad, wgrad, deconv, iou = {}, {}, {}, {}, []
+    metas = {"stats": [], "agg": [], "bwd": []}
     real_f, real_d, real_w = (conv3x3.conv3x3_bhcw, conv3x3.conv3x3_dgrad,
                               conv3x3.conv3x3_wgrad)
     real_i, real_dc = iou_mod.iou_target_blocks, layers.deconv_bhcw
+    real_ms, real_ma, real_mb = meta.meta_stats, meta.meta_agg, meta.meta_bwd
 
     def count(d, key):
         d[key] = d.get(key, 0) + 1
@@ -230,29 +238,72 @@ def record_train_step(step, batch, conv3x3, iou_mod, layers):
                        stride_w))
         return real_dc(x, weight, stride_w)
 
+    def clone(a):
+        if isinstance(a, tuple):
+            return tuple(clone(e) for e in a)
+        return a.detach().clone() if hasattr(a, "detach") else a
+
+    def keep(kind, real):
+        def rec(*args):
+            metas[kind].append(clone(args))
+            return real(*args)
+        return rec
+
     with mock.patch.object(conv3x3, "conv3x3_bhcw", rec_f), \
             mock.patch.object(conv3x3, "conv3x3_dgrad", rec_d), \
             mock.patch.object(conv3x3, "conv3x3_wgrad", rec_w), \
             mock.patch.object(iou_mod, "iou_target_blocks", rec_i), \
-            mock.patch.object(layers, "deconv_bhcw", rec_dc):
+            mock.patch.object(layers, "deconv_bhcw", rec_dc), \
+            mock.patch.multiple(meta, meta_stats=keep("stats", real_ms),
+                                meta_agg=keep("agg", real_ma),
+                                meta_bwd=keep("bwd", real_mb)):
         step(batch)
-    return fwd, dgrad, wgrad, deconv, iou
+    return fwd, dgrad, wgrad, deconv, iou, metas
 
 
-def _plain_convs(conv3x3, plain=True):
-    """A context in which the conv Function runs the plain versions (or,
-    with plain=False, the kernels as usual)."""
-    if not plain:
-        return contextlib.nullcontext()
-    return mock.patch.multiple(
-        conv3x3, conv3x3_bhcw=conv3x3.conv3x3_bhcw_plain,
-        conv3x3_dgrad=conv3x3.conv3x3_dgrad_plain,
-        conv3x3_wgrad=conv3x3.conv3x3_wgrad_plain)
+def _plain_convs(conv3x3, plain=True, meta=None):
+    """A context in which the conv Function (and, given ``meta``, the
+    Meta-Kernel block's Functions) runs the plain versions (or, with
+    plain=False, the kernels as usual)."""
+    stack = contextlib.ExitStack()
+    if plain:
+        stack.enter_context(mock.patch.multiple(
+            conv3x3, conv3x3_bhcw=conv3x3.conv3x3_bhcw_plain,
+            conv3x3_dgrad=conv3x3.conv3x3_dgrad_plain,
+            conv3x3_wgrad=conv3x3.conv3x3_wgrad_plain))
+    if plain and meta is not None:
+        stack.enter_context(mock.patch.multiple(
+            meta, meta_stats=meta.meta_stats_plain,
+            meta_agg=meta.meta_agg_plain, meta_bwd=meta.meta_bwd_plain))
+    return stack
 
 
-def phase5(torch, conv3x3, iou_mod, layers, recorded, H, dev):
+def meta_work(kind, B, H, W, C, Cm, Co):
+    """(f32 operations, bytes) of one launch of a Meta-Kernel block kernel
+    over B*H*W pixels: each input read once, each output written once.
+    Per pixel and tap the taps cost 2*C*Cm (MLP out) + 7*Cm (rel, MLP in,
+    relu) + 2*C (bias, product); stats adds 3*C; agg 3*C (fold, relu) +
+    2*C*Co; the agg backward 4*C*Co (A.gy, dA) + 8*C (dz, ds9, db9, da, dnb,
+    dwt, dfeat) + 4*C*Cm + 9*Cm (MLP backward); the stats backward 6*C +
+    4*C*Cm + 9*Cm."""
+    taps = 2 * C * Cm + 7 * Cm + 2 * C
+    per = {"stats": taps + 3 * C,
+           "agg": taps + 3 * C + 2 * C * Co,
+           "bwd_agg": taps + 4 * C * Co + 8 * C + 4 * C * Cm + 9 * Cm,
+           "bwd_stats": taps + 6 * C + 4 * C * Cm + 9 * Cm}[kind]
+    n = B * H * W
+    feat = 2 * n * (C + 3)  # bf16 features and coordinates
+    weights = 4 * (4 * Cm + Cm * C + C + 2 * 9 * C)
+    out = {"stats": 4 * 2 * 9 * C, "agg": 2 * n * Co + 2 * 9 * C * Co,
+           "bwd_agg": 2 * n * (C + 2 * Co) + 2 * 9 * C * Co
+           + 4 * (9 * C * Co + 2 * 9 * C + 4 * Cm + Cm * C + C),
+           "bwd_stats": 2 * n * C + 4 * (4 * Cm + Cm * C + C)}[kind]
+    return 9 * n * per, feat + weights + out
+
+
+def phase5(torch, conv3x3, iou_mod, layers, meta, recorded, H, dev):
     F = torch.nn.functional
-    fwd, dgrad, wgrad, deconv, iou = recorded
+    fwd, dgrad, wgrad, deconv, iou, metas = recorded
     g = torch.Generator(device=dev).manual_seed(SEED + 5)
 
     def rn(*shape, scale=1.0):
@@ -268,7 +319,9 @@ def phase5(torch, conv3x3, iou_mod, layers, recorded, H, dev):
     def fail(msg):
         raise SystemExit(f"[5] {msg}")
 
-    totals = {k: KernelTotals() for k in ("fwd", "dgrad", "wgrad", "iou")}
+    totals = {k: KernelTotals() for k in ("fwd", "dgrad", "wgrad", "iou",
+                                          "meta_stats", "meta_agg",
+                                          "meta_block_bwd")}
     print(f"[5] one B=2 train step: {len(fwd)} forward, {len(dgrad)} dgrad,"
           f" {len(wgrad)} wgrad shapes, {len(deconv)} deconvs, {len(iou)} "
           f"IoU-target levels")
@@ -442,16 +495,70 @@ def phase5(torch, conv3x3, iou_mod, layers, recorded, H, dev):
               f"{pairs} (pixel, candidate) pairs, {int((out > 0).sum())} "
               f"pixels with IoU > 0, max abs err {err:.3g}; kernel "
               f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {bound[0]:.4f} ms")
+    # the fused Meta-Kernel block: every launch of the step, on the inputs
+    # it had there
+    for kind, calls in metas.items():
+        for args in calls:
+            feat, _, w0 = args[:3]
+            B, Hm, C, W = feat.shape
+            Cm = w0.shape[1]
+            if kind == "stats":
+                out = meta.meta_stats(*args)
+                torch.cuda.synchronize()
+                ref = meta.meta_stats_plain(*args)
+                rels = [_rel(a, b) for a, b in zip(out, ref)]
+                ok = max(rels) <= F32_SUM_TOL
+                err = max((a - b).abs().max().item() for a, b in zip(out, ref))
+                name, work, Co = "meta_stats", "stats", 0
+                detail = f"sum a, sum a^2 max|a-b|/max|b| {rels[0]:.3g}, " \
+                         f"{rels[1]:.3g}"
+            elif kind == "agg":
+                Co = args[8].shape[1]
+                y = meta.meta_agg(*args)
+                torch.cuda.synchronize()
+                ref = meta.meta_agg_plain(*args, out_dtype=torch.float32)
+                ok, err = _bf16_ok(y, ref)
+                name, work = "meta_agg", "agg"
+                detail = f"y max abs err {err:.4g} (max|ref| " \
+                         f"{ref.abs().max().item():.4g})"
+            else:
+                mode = args[7]
+                Co = args[6][2].shape[1] if mode == "agg" else 0
+                out = meta.meta_bwd(*args)
+                torch.cuda.synchronize()
+                ref = meta.meta_bwd_plain(*args, out_dtype=torch.float32)
+                ok, err = _bf16_ok(out[0], ref[0])
+                rels = [_rel(a, b) for a, b in zip(out[1:], ref[1:])]
+                ok &= max(rels) <= F32_SUM_TOL
+                ok &= all(bool(a.isfinite().all()) for a in out[1:])
+                name, work = "meta_block_bwd", f"bwd_{mode}"
+                detail = (f"mode {mode}: dfeat max abs err {err:.4g}; f32 "
+                          f"outputs max|a-b|/max|b| " + " ".join(
+                              f"{r:.3g}" for r in rels))
+            if not ok:
+                fail(f"{name} disagrees with its plain version: {detail}")
+            k_ms = _time_ms(lambda: getattr(meta, f"meta_{kind}")(*args))
+            plain = getattr(meta, f"meta_{kind}_plain")
+            p_ms = _time_ms(lambda: plain(*args), iters=3, warmup=1)
+            flops, nbytes = meta_work(work, B, Hm, W, C, Cm, Co)
+            bound = _bound_ms(flops, nbytes, PEAK_F32)
+            totals[name].add(1, k_ms, p_ms, bound, None, err)
+            print(f"[5] {name} (B={B} H={Hm} C={C} W={W} Cm={Cm} Co={Co}): "
+                  f"{detail}; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+                  f"bound {bound[0]:.4f} ms ({flops / 1e9:.2f} GFLOP f32)")
     for name, t in totals.items():
+        lib = (f"cuDNN {t.library_ms:.3f} ms" if name in ("fwd", "dgrad",
+                                                          "wgrad")
+               else "no library call")
         print(f"[5] {name}: {t.n} launches per step, kernel {t.ms:.3f} ms, "
               f"plain {t.plain_ms:.3f} ms, bound {t.bound_ms:.3f} ms "
-              f"({t.bound_by()}), cuDNN {t.library_ms:.3f} ms")
+              f"({t.bound_by()}), {lib}")
     return totals
 
 
 # ---------------------------------------------------------------- phase 6
 def phase6(torch, m, cfg, dev):
-    conv3x3, iou_mod = m["conv3x3"], m["iou"]
+    conv3x3, iou_mod, meta = m["conv3x3"], m["iou"], m["meta"]
 
     def fail(msg):
         raise SystemExit(f"[6] {msg}")
@@ -475,15 +582,16 @@ def phase6(torch, m, cfg, dev):
     faults = {"zeroed-dgrad": dict(conv3x3_dgrad=zeroed_dgrad),
               "flipped-wgrad": dict(conv3x3_wgrad=lambda *a: -real_w(*a))}
 
-    def grads(dtype, plain, fault=None):
-        model = m["RangeDet"](**dict(cfg.model_kwargs(), dtype=dtype))
+    def grads(dtype, plain, fault=None, fused=cfg.use_pallas_meta):
+        model = m["RangeDet"](**dict(cfg.model_kwargs(), dtype=dtype,
+                                     use_pallas_meta=fused))
         model.load_state_dict(init_sd)
         model = model.to(dev).train()
         iou_fn = (iou_mod.iou_target_plain_blocks if plain
                   else iou_mod.iou_target_blocks)
         planted = (mock.patch.multiple(conv3x3, **faults[fault]) if fault
                    else contextlib.nullcontext())
-        with _plain_convs(conv3x3, plain), planted, \
+        with _plain_convs(conv3x3, plain, meta), planted, \
                 mock.patch.object(iou_mod, "iou_target_blocks", iou_fn):
             targets = m["build_train_targets"](batch, cfg)
             cls, reg = model(batch["input_data"], batch["coord"])
@@ -495,11 +603,14 @@ def phase6(torch, m, cfg, dev):
 
     runs = {"kernel-bf16": grads(torch.bfloat16, False),
             "plain-bf16": grads(torch.bfloat16, True),
-            "plain-f32": grads(torch.float32, True)}
+            "plain-f32": grads(torch.float32, True),
+            # the same step with the materialized Meta-Kernel block
+            "materialized-bf16": grads(torch.bfloat16, False, fused=False)}
     runs.update({f: grads(torch.bfloat16, False, f) for f in faults})
     stat = {}
     for a, b in (("kernel-bf16", "plain-bf16"), ("kernel-bf16", "plain-f32"),
                  ("plain-bf16", "plain-f32"),
+                 ("kernel-bf16", "materialized-bf16"),
                  *((f, "plain-bf16") for f in faults)):
         (ma, ga), (mb, gb) = runs[a], runs[b]
         rels = sorted((_rel(ga[n], gb[n]), n) for n in ga)
@@ -540,6 +651,12 @@ def phase6(torch, m, cfg, dev):
     for f in faults:
         if passes(stat[f, "plain-bf16"]):
             fail(f"the gates pass the planted fault {f}")
+    fused_vs_mat = stat["kernel-bf16", "materialized-bf16"]["loss"]
+    print(f"[6] step 1, fused Meta-Kernel block vs materialized: losses max "
+          f"rel diff {fused_vs_mat:.4g} <= {LOSS_TOL}")
+    if not fused_vs_mat <= LOSS_TOL:
+        fail("the fused block's step-1 losses differ from the materialized "
+             "block's")
 
     model = m["RangeDet"](**cfg.model_kwargs())
     model.load_state_dict(init_sd)
@@ -548,21 +665,32 @@ def phase6(torch, m, cfg, dev):
     step = m["make_train_step"](state, cfg)
     n_levels = len(cfg.fpn_strides)
     n_fwd = conv_launches(cfg)[0]
+    from rangedet_tpu_torch.models.dla_backbone import DEFAULT_META_UNITS
+
+    n_meta = len(DEFAULT_META_UNITS if cfg.meta_units is None
+                 else cfg.meta_units) if cfg.use_pallas_meta else 0
     expected = {"fwd": n_fwd, "dgrad": n_fwd - 1, "wgrad": n_fwd,
-                "iou": n_levels * cfg.num_classes}
+                "iou": n_levels * cfg.num_classes, "meta_stats": n_meta,
+                "meta_agg": n_meta, "meta_block_bwd": 2 * n_meta}
     print(f"[6] expected launches per step: forward {n_fwd} (as the eval "
           f"forward), dgrad {n_fwd - 1} (all but res1_unit1.conv1, whose "
           f"input is the data), wgrad {n_fwd}, IoU target {n_levels} levels "
-          f"x {cfg.num_classes} classes = {expected['iou']}")
+          f"x {cfg.num_classes} classes = {expected['iou']}; per fused "
+          f"Meta-Kernel block ({n_meta}) one meta_stats, one meta_agg, two "
+          f"meta_block_bwd (one per mode)")
     losses, launches = [], None
     for i in range(5):
         torch.cuda.synchronize()
         conv3x3.reset_counts()
         iou_mod.LAUNCHES = 0
+        meta.reset_counts()
         metrics = step(batch)
         torch.cuda.synchronize()
         launches = {"fwd": conv3x3.LAUNCHES, "dgrad": conv3x3.DGRAD_LAUNCHES,
-                    "wgrad": conv3x3.WGRAD_LAUNCHES, "iou": iou_mod.LAUNCHES}
+                    "wgrad": conv3x3.WGRAD_LAUNCHES, "iou": iou_mod.LAUNCHES,
+                    "meta_stats": meta.STATS_LAUNCHES,
+                    "meta_agg": meta.AGG_LAUNCHES,
+                    "meta_block_bwd": meta.BWD_LAUNCHES}
         if launches != expected:
             fail(f"step {i}: launches {launches}, expected {expected}")
         losses.append(float(metrics["total_loss"]))
@@ -613,6 +741,7 @@ def main():
     )
     from rangedet_tpu_torch.ops import conv3x3, nms
     from rangedet_tpu_torch.ops import iou_target as iou_mod
+    from rangedet_tpu_torch.ops import meta_block
     from rangedet_tpu_torch.tools import test as test_cli
     from rangedet_tpu_torch.tools import train as train_cli
     from rangedet_tpu_torch.train.state import create_train_state
@@ -814,12 +943,14 @@ def main():
         make_train_step(rstate, tcfg),
         batch_to_device(make_batch(tcfg, 2, seed=SEED, num_boxes=20),
                         dev),
-        conv3x3, iou_mod, layers)
+        conv3x3, iou_mod, layers, meta_block)
     del rmodel, rstate
-    totals = phase5(torch, conv3x3, iou_mod, layers, recorded, H, dev)
+    totals = phase5(torch, conv3x3, iou_mod, layers, meta_block, recorded,
+                    H, dev)
 
     # ------------------------------------------------------------ phase 6
-    mods = dict(conv3x3=conv3x3, iou=iou_mod, RangeDet=RangeDet,
+    mods = dict(conv3x3=conv3x3, iou=iou_mod, meta=meta_block,
+                RangeDet=RangeDet,
                 make_batch=make_batch, batch_to_device=batch_to_device,
                 create_train_state=create_train_state,
                 make_train_step=make_train_step,
@@ -841,6 +972,7 @@ def main():
     # 2), then the B=2 train step (phases 6 and 5)
     conv_src = "rangedet_tpu_torch/csrc/conv3x3_bhcw.cu"
     conv_tpu = "rangedet_tpu/ops/conv_pallas.py:252"
+    meta_src = "rangedet_tpu_torch/csrc/meta_block.cu"
     entries = []
     for path, name, t, n, source, replaces in (
         ("serve", "conv3x3_bhcw", serve, serve_launches, conv_src, conv_tpu),
@@ -854,13 +986,21 @@ def main():
         ("train", "iou_target", totals["iou"], launches["iou"],
          "rangedet_tpu_torch/csrc/iou_target.cu",
          "rangedet_tpu/ops/iou_target_pallas.py:193"),
+        ("train", "meta_stats", totals["meta_stats"], launches["meta_stats"],
+         meta_src, "rangedet_tpu/ops/meta_block_pallas.py:338"),
+        ("train", "meta_agg", totals["meta_agg"], launches["meta_agg"],
+         meta_src, "rangedet_tpu/ops/meta_block_pallas.py:368"),
+        ("train", "meta_block_bwd", totals["meta_block_bwd"],
+         launches["meta_block_bwd"], meta_src,
+         "rangedet_tpu/ops/meta_block_pallas.py:411"),
     ):
         entries.append({
             "name": name, "path": path, "route": "cuda", "source": source,
             "replaces": replaces, "launches": n, "max_abs_err": t.err,
             "ms": t.ms, "plain_ms": t.plain_ms, "bound_ms": t.bound_ms,
             "bound_by": t.bound_by(),
-            "library_ms": t.library_ms if name != "iou_target" else None,
+            "library_ms": (t.library_ms if name.startswith("conv3x3")
+                           else None),
         })
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

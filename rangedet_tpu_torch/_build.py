@@ -116,5 +116,16 @@ def load() -> ctypes.CDLL:
     lib.conv3x3_wgrad.restype = i32
     lib.iou_target_run.argtypes = [vp] * 5 + [i32] * 2 + [vp]
     lib.iou_target_run.restype = i32
+    lib.meta_block_widths.argtypes = [i32]
+    lib.meta_block_grid.argtypes = [i32] * 4
+    lib.meta_block_part_floats.argtypes = [i32]
+    for fn in (lib.meta_block_widths, lib.meta_block_grid,
+               lib.meta_block_part_floats):
+        fn.restype = i32
+    lib.meta_stats_fwd.argtypes = [vp] * 8 + [i32] * 4 + [vp]
+    lib.meta_agg_fwd.argtypes = [vp] * 10 + [i32] * 4 + [vp]
+    lib.meta_block_bwd.argtypes = [vp] * 14 + [i32] * 5 + [vp]
+    for fn in (lib.meta_stats_fwd, lib.meta_agg_fwd, lib.meta_block_bwd):
+        fn.restype = i32
     _lib = lib
     return lib

@@ -1,13 +1,13 @@
 """RangeDetConfig for the PyTorch port: every field of
 ``rangedet_tpu.configs.base.RangeDetConfig`` but the TPU-only ones, with the
-same names and defaults, and ``dtype`` as a ``torch.dtype``. The serving
-path reads the pyramid, model and test fields; the others wait for the
-train slice.
+same names and defaults, and ``dtype`` as a ``torch.dtype``.
+``use_pallas_meta`` keeps its name: in the port it selects the fused
+Meta-Kernel block in training (``ops/meta_block.py``).
 
 Left out are the JAX package's TPU-only knobs: ``layout``,
-``use_pallas_meta``, ``use_pallas_conv``, ``use_pallas_iou``,
-``topk_method``, ``iou_chunk``, ``width_axis``, ``bn_sync_axis``, ``remat``,
-``remat_meta``, ``mesh_shape``, and ``wnms_prefilter_topm``, which only the
+``use_pallas_conv``, ``use_pallas_iou``, ``topk_method``, ``iou_chunk``,
+``width_axis``, ``bn_sync_axis``, ``remat``, ``remat_meta``,
+``mesh_shape``, and ``wnms_prefilter_topm``, which only the
 serial WNMS form reads (the port runs the blocked form, ``wnms_block > 0``).
 ``tests/test_torch_model.py`` holds the two dataclasses against each other.
 """
@@ -48,6 +48,9 @@ class RangeDetConfig:
     reg_conv_layers: int = 4
     reg_conv_channel: int = 128
     dtype: Any = torch.bfloat16
+    # train the fused Meta-Kernel block (kernels 3-5); eval stays
+    # materialized
+    use_pallas_meta: bool = False
 
     # ------------------------------------------------------------- loss
     vfl_alpha: float = 1.0
@@ -142,6 +145,7 @@ class RangeDetConfig:
             reg_conv_layers=self.reg_conv_layers,
             reg_conv_channel=self.reg_conv_channel,
             dtype=self.dtype,
+            use_pallas_meta=self.use_pallas_meta,
         )
 
     def replace(self, **kw) -> "RangeDetConfig":

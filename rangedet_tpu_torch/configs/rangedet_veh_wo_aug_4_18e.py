@@ -9,6 +9,8 @@ def get_config(is_train: bool) -> RangeDetConfig:
     return RangeDetConfig(
         name="rangedet_veh_wo_aug_4_18e",
         is_train=is_train,
+        # the fused Meta-Kernel block in training, as the JAX recipe ships
+        use_pallas_meta=True,
         batch_image=2 if is_train else 1,
         label_set=(1,),
         class_names=("veh",),

@@ -1,9 +1,10 @@
 """DLA-style backbone over the range image, counterpart of
 ``rangedet_tpu/models/dla_backbone.py`` (reference
 rangedet/symbol/backbone/dla_backbone.py:13-175), (B, H, C, W). Train and
-eval follow ``self.training``; the Meta-Kernel block is the materialized
-form (the JAX package's MetaBlock with use_pallas=False), differentiated by
-autograd.
+eval follow ``self.training``. The Meta-Kernel block trains in the fused
+form when ``use_pallas_meta`` is set (the JAX MetaBlock with use_pallas=True,
+layout "bhcw": ``ops/meta_block.py``); otherwise, and always in eval, it is
+the materialized form, differentiated by autograd.
 
 The network downsamples the width only (stride (1, 2) at res2a, res2,
 res3a, res3) and re-aggregates with deconv "agg" nodes into per-stride
@@ -17,7 +18,9 @@ from typing import Dict, List, Mapping, Optional, Sequence
 
 import torch
 from torch import nn
+from torch.profiler import record_function
 
+from ..ops import meta_block
 from .layers import (
     BatchNorm,
     ConvNormRelu,
@@ -51,19 +54,45 @@ LEVELS = {1: "agg3", 2: "agg2a", 4: "agg2", 16: "res3"}  # stride -> output
 
 class MetaBlock(nn.Module):
     """Meta-Kernel -> BN -> relu -> 1x1 aggregation conv -> BN -> relu
-    (reference meta_kernel_conv, dla_backbone.py:59-103)."""
+    (reference meta_kernel_conv, dla_backbone.py:59-103).
+
+    With ``use_pallas_meta``, training runs the fused block
+    (``rangedet_tpu/models/dla_backbone.py:137-168``): the kernels' channel
+    sums, meta_bn as a BatchNormFold, then the aggregation straight from
+    the recomputed taps, so the (B, H, 9C, W) tensor never exists. Eval
+    keeps the materialized form, as the JAX block does. The parameters are
+    the same in both forms."""
 
     def __init__(self, channel_list: Sequence[int], features: int,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16,
+                 use_pallas_meta: bool = False):
         super().__init__()
         c = channel_list[-1]
+        self.dtype = dtype
+        self.use_pallas_meta = use_pallas_meta
         self.meta_kernel = MetaKernel(channel_list, dtype)
         self.meta_bn = BatchNorm(9 * c, dtype)
         self.meta_agg = ConvNormRelu(9 * c, features, kernel=1, dtype=dtype)
 
     def forward(self, x: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
-        mk = torch.relu(self.meta_bn(self.meta_kernel(x, coords)))
-        return self.meta_agg(mk)
+        with record_function("meta_block"):
+            if self.training and self.use_pallas_meta:
+                return self._fused(x, coords)
+            mk = torch.relu(self.meta_bn(self.meta_kernel(x, coords)))
+            return self.meta_agg(mk)
+
+    def _fused(self, x: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+        B, H, _, W = x.shape
+        x = x.to(self.dtype).contiguous()
+        mk = self.meta_kernel
+        mlp = (mk.mlp0.weight.t(), mk.mlp0.bias, mk.mlp1.weight.t(),
+               mk.mlp1.bias)  # the JAX layout: (3, Cm), (Cm,), (Cm, C), (C,)
+        cb = coords.permute(0, 1, 3, 2).to(x.dtype).contiguous()
+        s1, s2 = meta_block.MetaStats.apply(x, cb, *mlp)
+        s9, b9 = self.meta_bn.fold_sums(s1, s2, float(B * H * W))
+        agg = self.meta_agg.weight[:, :, 0, 0].t()  # (9C, Co)
+        y = meta_block.MetaAgg.apply(x, cb, *mlp, s9, b9, agg)
+        return torch.relu(self.meta_agg.bn(y))
 
 
 class BasicBlock(nn.Module):
@@ -74,11 +103,13 @@ class BasicBlock(nn.Module):
     def __init__(self, in_channels: int, features: int, stride_w: int = 1,
                  proj: bool = False,
                  meta_channel_list: Optional[Sequence[int]] = None,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16,
+                 use_pallas_meta: bool = False):
         super().__init__()
         self.stride_w, self.proj, self.dtype = stride_w, proj, dtype
         if meta_channel_list is not None:
-            self.meta_block = MetaBlock(meta_channel_list, features, dtype)
+            self.meta_block = MetaBlock(meta_channel_list, features, dtype,
+                                        use_pallas_meta)
             self.conv1 = None
         else:
             self.meta_block = None
@@ -122,7 +153,8 @@ class ResStage(nn.Module):
     def __init__(self, name: str, num_block: int, in_channels: int,
                  features: int, stride_w: int = 1,
                  meta_units: Optional[Mapping[str, dict]] = None,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16,
+                 use_pallas_meta: bool = False):
         super().__init__()
         self.unit_names: List[str] = []
         for i in range(1, num_block + 1):
@@ -132,7 +164,7 @@ class ResStage(nn.Module):
                 in_channels if i == 1 else features, features,
                 stride_w=stride_w if i == 1 else 1, proj=(i == 1),
                 meta_channel_list=meta["channel_list"] if meta else None,
-                dtype=dtype,
+                dtype=dtype, use_pallas_meta=use_pallas_meta,
             ))
             self.unit_names.append(unit)
 
@@ -151,7 +183,8 @@ class DLABackbone(nn.Module):
                  num_filter: Optional[Mapping[str, int]] = None,
                  meta_units: Optional[Mapping[str, dict]] = None,
                  add_data_sc: bool = True, in_channels: int = 8,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16,
+                 use_pallas_meta: bool = False):
         super().__init__()
         nb = dict(num_block or DEFAULT_NUM_BLOCK)
         nf = dict(num_filter or DEFAULT_NUM_FILTER)
@@ -164,7 +197,8 @@ class DLABackbone(nn.Module):
                                   ("res2", "res2a", 2), ("res3a", "res2", 2),
                                   ("res3", "res3a", 2)):
             self.add_module(name, ResStage(name, nb[name], ch[src], nf[name],
-                                           stride, meta, dtype))
+                                           stride, meta, dtype,
+                                           use_pallas_meta))
             ch[name] = nf[name]
         for name, const, up, kernel, stride in AGG_NODES:
             self.add_module(f"{name}_deconv", DeconvNormRelu(
@@ -173,7 +207,7 @@ class DLABackbone(nn.Module):
                 raise ValueError(f"{name}: {const} has {ch[const]} channels, "
                                  f"the deconv {nf[name]}")
             self.add_module(name, ResStage(name, nb[name], nf[name], nf[name],
-                                           1, meta, dtype))
+                                           1, meta, dtype, use_pallas_meta))
             ch[name] = nf[name]
         self.out_channels = [
             ch[LEVELS[s]] + (in_channels if s == 1 and add_data_sc else 0)

@@ -90,7 +90,44 @@ def normal_(w: torch.Tensor, std: float, g: torch.Generator) -> None:
         w.normal_(0.0, std, generator=g)
 
 
-class BatchNorm(nn.Module):
+class BatchNormFold(nn.Module):
+    """BatchNorm that takes the per-channel sums and returns only the f32
+    fold (scale, bias), for a kernel that applies it without materializing
+    the tensor (``rangedet_tpu/models/layers.py:181-222``, the fused
+    Meta-Kernel block's). Training: mean = s1/n, var = s2/n - mean^2
+    clamped at 0, running statistics moved by momentum 0.9; eval: the
+    running statistics. Parameter and buffer names are BatchNorm's, so
+    state dicts are interchangeable."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def forward(self, s1: torch.Tensor, s2: torch.Tensor, count: float
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        if not self.training:
+            return self._fold(self.running_mean, self.running_var)
+        mean = s1 / count
+        return self._update_fold(mean, s2 / count - mean * mean)
+
+    def _update_fold(self, mean, var):
+        var = var.clamp(min=0.0)
+        with torch.no_grad():
+            self.running_mean.copy_(BN_MOMENTUM * self.running_mean
+                                    + (1 - BN_MOMENTUM) * mean)
+            self.running_var.copy_(BN_MOMENTUM * self.running_var
+                                   + (1 - BN_MOMENTUM) * var)
+        return self._fold(mean, var)
+
+    def _fold(self, mean, var):
+        inv = torch.rsqrt(var + BN_EPSILON) * self.weight
+        return inv, self.bias - mean * inv
+
+
+class BatchNorm(BatchNormFold):
     """BatchNorm over channel axis 2 (``rangedet_tpu/models/layers.py:
     102-178``). Eval: the running statistics. Training: the batch's, in
     f32, from ``sums`` = (sum x, sum x^2) when the producer kernel gave them
@@ -99,39 +136,29 @@ class BatchNorm(nn.Module):
 
     With ``affine_out`` it returns ``PendingBN(x, scale, bias)`` with the f32
     fold; otherwise ``x * mul + add`` in ``dtype``, with the fold cast to
-    it."""
+    it. ``fold_sums`` is the BatchNormFold of the same parameters."""
 
     def __init__(self, channels: int, dtype: torch.dtype = torch.float32,
                  affine_out: bool = False):
-        super().__init__()
+        super().__init__(channels)
         self.dtype = dtype
         self.affine_out = affine_out
-        self.weight = nn.Parameter(torch.ones(channels))
-        self.bias = nn.Parameter(torch.zeros(channels))
-        self.register_buffer("running_mean", torch.zeros(channels))
-        self.register_buffer("running_var", torch.ones(channels))
+
+    fold_sums = BatchNormFold.forward
 
     def fold(self, sums=None, x: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
         if not self.training:
-            mean, var = self.running_mean, self.running_var
+            return self._fold(self.running_mean, self.running_var)
+        if sums is not None:
+            n = x.numel() // x.shape[2]
+            mean = sums[0] / n
+            var = sums[1] / n - mean * mean
         else:
-            if sums is not None:
-                n = x.numel() // x.shape[2]
-                mean = sums[0] / n
-                var = sums[1] / n - mean * mean
-            else:
-                xf = x.float()
-                mean = xf.mean(dim=(0, 1, 3))
-                var = (xf * xf).mean(dim=(0, 1, 3)) - mean * mean
-            var = var.clamp(min=0.0)
-            with torch.no_grad():
-                self.running_mean.copy_(BN_MOMENTUM * self.running_mean
-                                        + (1 - BN_MOMENTUM) * mean)
-                self.running_var.copy_(BN_MOMENTUM * self.running_var
-                                       + (1 - BN_MOMENTUM) * var)
-        inv = torch.rsqrt(var + BN_EPSILON) * self.weight
-        return inv, self.bias - mean * inv
+            xf = x.float()
+            mean = xf.mean(dim=(0, 1, 3))
+            var = (xf * xf).mean(dim=(0, 1, 3)) - mean * mean
+        return self._update_fold(mean, var)
 
     def forward(self, x: torch.Tensor, sums=None) -> MaybePending:
         inv, add = self.fold(sums, x)

@@ -263,12 +263,12 @@ def _launch_fwd(x, w, scale=None, bias=None, stride_w=1, stats=False,
     return y, sums[0], sums[1]
 
 
-def _route(x: torch.Tensor) -> bool:
+def _route(x: torch.Tensor, kernel: str = "conv3x3") -> bool:
     """True: launch the kernel; False: the plain version (CPU tensor)."""
     if x.device.type == "cpu":
         return False
     if x.device.type != "cuda":
-        raise ValueError(f"no conv3x3 kernel for device {x.device}")
+        raise ValueError(f"no {kernel} kernel for device {x.device}")
     return True
 
 

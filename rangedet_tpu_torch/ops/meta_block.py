@@ -1,0 +1,351 @@
+"""The fused Meta-Kernel block over (B, H, C, W): Meta-Kernel taps ->
+BatchNorm(9C) fold -> relu -> 1x1 aggregation, with the (B, H, 9C, W)
+tensor of tap products never materialized. Counterpart of
+``rangedet_tpu/ops/meta_block_pallas.py``; the kernels are
+``csrc/meta_block.cu``.
+
+* ``meta_stats(feat, cb, w0, b0, w1, b1)`` is ``meta_stats_pallas``:
+  (sum a, sum a^2) per channel of the 9C tap products a.
+* ``meta_agg(..., s9, b9, agg)`` is ``meta_agg_pallas``: relu(a*s9 + b9)
+  contracted with agg (9C, Co) in f32 -> (B, H, Co, W).
+* ``meta_bwd(..., extras, mode)`` is ``_bwd_call``: "agg" with extras
+  (s9, b9, agg, gy) -> dfeat, dA, ds9, db9 and the MLP gradients;
+  "stats" with extras (c1, c2), da = c1 + c2*a -> dfeat and the MLP
+  gradients.
+* ``MetaStats`` and ``MetaAgg`` are the custom VJPs ``meta_stats_bhcw``
+  and ``meta_agg_bhcw`` as ``torch.autograd.Function``s.
+
+A tap (``_taps_row``): rel = coords of the neighbour - coords of the centre
+in f32 (zero padding, so a border tap's rel is -centre); h1 = relu(rel @ w0
++ b0); wt = h1 @ w1 + b1; a = neighbour features * wt rounded to the
+features' dtype. Weights are in the JAX package's layout: w0 (3, Cm), b0
+(Cm,), w1 (Cm, C), b1 (C,); the ops round them to feat.dtype and compute in
+f32, as the block casts them before the Pallas call. Gradients come back in
+f32. Coordinates get no gradient.
+
+A CPU tensor goes to the plain version; a CUDA tensor goes to the kernel or
+raises. The Functions look the three ops up on this module at call time, so
+patching them (as chip_smoke does with the plain versions) routes the
+forward and the backward alike.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+
+from .. import _build
+from .conv3x3 import _need, _ptr, _route, _stream
+
+TAPS = [(dy, dx) for dy in range(3) for dx in range(3)]
+
+# kernel launches since the last reset; each wrapper adds one per call that
+# launches its kernel (its reducing pass included)
+STATS_LAUNCHES = 0  # meta_stats_fwd
+AGG_LAUNCHES = 0    # meta_agg_fwd
+BWD_LAUNCHES = 0    # meta_block_bwd, either mode
+
+
+def reset_counts() -> None:
+    global STATS_LAUNCHES, AGG_LAUNCHES, BWD_LAUNCHES
+    STATS_LAUNCHES = AGG_LAUNCHES = BWD_LAUNCHES = 0
+
+
+def _check(feat, cb, w0, b0, w1, b1):
+    if feat.dim() != 4:
+        raise ValueError(f"feat must be (B, H, C, W), got {tuple(feat.shape)}")
+    B, H, C, W = feat.shape
+    Cm = w0.shape[1]
+    if tuple(cb.shape) != (B, H, 3, W):
+        raise ValueError(f"cb must be {(B, H, 3, W)}, got {tuple(cb.shape)}")
+    for name, t, shape in (("w0", w0, (3, Cm)), ("b0", b0, (Cm,)),
+                           ("w1", w1, (Cm, C)), ("b1", b1, (C,))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+
+
+def _weights(feat, ws: Sequence[torch.Tensor]):
+    """Round to feat.dtype, then f32 (the block's cast before the call)."""
+    return [w.to(feat.dtype).float().contiguous() for w in ws]
+
+
+# ---------------------------------------------------------------- plain
+def _taps(feat, cb, w0, b0, w1, b1):
+    """Yields (t, a, h1, rel, wt, nb) per tap, all f32 (B, H, ., W)."""
+    B, H, C, W = feat.shape
+    w0, b0, w1, b1 = _weights(feat, (w0, b0, w1, b1))
+    center = cb.to(feat.dtype).float()
+    cp = F.pad(center, (1, 1, 0, 0, 1, 1))
+    fp = F.pad(feat.float(), (1, 1, 0, 0, 1, 1))
+    for t, (dy, dx) in enumerate(TAPS):
+        rel = cp[:, dy:dy + H, :, dx:dx + W] - center  # (B, H, 3, W)
+        h1 = (w0[0][:, None] * rel[:, :, 0:1] + w0[1][:, None] * rel[:, :, 1:2]
+              + w0[2][:, None] * rel[:, :, 2:3] + b0[:, None])
+        h1 = torch.relu(h1)  # (B, H, Cm, W)
+        wt = torch.einsum("bhkw,kc->bhcw", h1, w1) + b1[:, None]
+        nb = fp[:, dy:dy + H, :, dx:dx + W]
+        a = (nb * wt).to(feat.dtype).float()
+        yield t, a, h1, rel, wt, nb
+
+
+def meta_stats_plain(feat, cb, w0, b0, w1, b1):
+    """(sum a, sum a^2) over B, H, W per channel of 9C, f32."""
+    _check(feat, cb, w0, b0, w1, b1)
+    s1, s2 = [], []
+    for _, a, *_ in _taps(feat, cb, w0, b0, w1, b1):
+        s1.append(a.sum(dim=(0, 1, 3)))
+        s2.append((a * a).sum(dim=(0, 1, 3)))
+    return torch.cat(s1), torch.cat(s2)
+
+
+def meta_agg_plain(feat, cb, w0, b0, w1, b1, s9, b9, agg,
+                   out_dtype: Optional[torch.dtype] = None):
+    """sum over taps of agg_t^T relu(a_t*s9_t + b9_t), f32, returned in
+    ``out_dtype`` (default feat.dtype)."""
+    _check(feat, cb, w0, b0, w1, b1)
+    C = feat.shape[2]
+    A = agg.to(feat.dtype).float()
+    s9, b9 = s9.float(), b9.float()
+    acc = None
+    for t, a, *_ in _taps(feat, cb, w0, b0, w1, b1):
+        sl = slice(t * C, (t + 1) * C)
+        r = torch.relu(a * s9[sl, None] + b9[sl, None])
+        o = torch.einsum("bhcw,co->bhow", r, A[sl])
+        acc = o if acc is None else acc + o
+    return acc.to(out_dtype or feat.dtype).contiguous()
+
+
+def meta_bwd_plain(feat, cb, w0, b0, w1, b1, extras, mode: str,
+                   out_dtype: Optional[torch.dtype] = None):
+    """The block backward, written out tap by tap as ``_bwd_kernel``.
+    mode "agg", extras (s9, b9, agg, gy): returns (dfeat, dA (9C, Co), ds9,
+    db9, dw0 (3, Cm), db0, dw1 (Cm, C), db1); mode "stats", extras (c1,
+    c2): (dfeat, dw0, db0, dw1, db1). dfeat in ``out_dtype`` (default
+    feat.dtype), the rest f32."""
+    _check(feat, cb, w0, b0, w1, b1)
+    B, H, C, W = feat.shape
+    Cm = w0.shape[1]
+    w1f = _weights(feat, (w1,))[0]
+    dfp = feat.new_zeros((B, H + 2, C, W + 2), dtype=torch.float32)
+    dw0 = feat.new_zeros((3, Cm), dtype=torch.float32)
+    db0 = feat.new_zeros((Cm,), dtype=torch.float32)
+    dw1 = feat.new_zeros((Cm, C), dtype=torch.float32)
+    db1 = feat.new_zeros((C,), dtype=torch.float32)
+    dA, ds9, db9 = [], [], []
+    if mode == "agg":
+        s9, b9, agg, gy = extras
+        A = agg.to(feat.dtype).float()
+        gyf = gy.float()
+        s9, b9 = s9.float(), b9.float()
+    elif mode == "stats":
+        c1, c2 = (e.float() for e in extras)
+    else:
+        raise ValueError(f"mode must be 'agg' or 'stats', got {mode!r}")
+    for t, a, h1, rel, wt, nb in _taps(feat, cb, w0, b0, w1, b1):
+        dy, dx = TAPS[t]
+        sl = slice(t * C, (t + 1) * C)
+        if mode == "agg":
+            z = a * s9[sl, None] + b9[sl, None]
+            darelu = torch.einsum("bhow,co->bhcw", gyf, A[sl])
+            dz = torch.where(z > 0, darelu, torch.zeros_like(darelu))
+            dA.append(torch.einsum("bhcw,bhow->co", torch.relu(z), gyf))
+            ds9.append((dz * a).sum(dim=(0, 1, 3)))
+            db9.append(dz.sum(dim=(0, 1, 3)))
+            da = dz * s9[sl, None]
+        else:
+            da = c1[sl, None] + c2[sl, None] * a
+        dfp[:, dy:dy + H, :, dx:dx + W] += da * wt
+        dwt = da * nb
+        db1 += dwt.sum(dim=(0, 1, 3))
+        dw1 += torch.einsum("bhcw,bhkw->kc", dwt, h1)
+        dh1 = torch.einsum("bhcw,kc->bhkw", dwt, w1f)
+        dh1 = torch.where(h1 > 0, dh1, torch.zeros_like(dh1))
+        db0 += dh1.sum(dim=(0, 1, 3))
+        for j in range(3):
+            dw0[j] += (dh1 * rel[:, :, j:j + 1]).sum(dim=(0, 1, 3))
+    dfeat = dfp[:, 1:H + 1, :, 1:W + 1].to(out_dtype or feat.dtype)
+    dfeat = dfeat.contiguous()
+    if mode == "agg":
+        return (dfeat, torch.stack(dA).reshape(9 * C, -1), torch.cat(ds9),
+                torch.cat(db9), dw0, db0, dw1, db1)
+    return dfeat, dw0, db0, dw1, db1
+
+
+# ---------------------------------------------------------------- kernels
+def _kernel_inputs(feat, cb, w0, b0, w1, b1):
+    """Checks for the kernel and its f32 weights."""
+    if feat.dtype != torch.bfloat16:
+        raise TypeError(f"the kernels take bf16 features, got {feat.dtype}")
+    _need(feat, "feat", feat, torch.bfloat16)
+    B, H, C, W = feat.shape
+    lib = _build.load()
+    widths = tuple(lib.meta_block_widths(i) for i in range(3))
+    if (C, w0.shape[1]) != widths[:2]:
+        raise ValueError(f"the kernels are built for C={widths[0]}, "
+                         f"Cm={widths[1]}; got C={C}, Cm={w0.shape[1]}")
+    cbb = cb.to(torch.bfloat16).contiguous()
+    _need(feat, "cb", cbb, torch.bfloat16)
+    ws = _weights(feat, (w0, b0, w1, b1))
+    for name, t in zip(("w0", "b0", "w1", "b1"), ws):
+        _need(feat, name, t, torch.float32)
+    return lib, cbb, ws, widths
+
+
+def _vec9(feat, name, v, C):
+    v = v.float().contiguous()
+    _need(feat, name, v, torch.float32, (9 * C,))
+    return v
+
+
+def _agg_weight(feat, agg, C, Co):
+    a = agg.to(torch.bfloat16).contiguous()
+    _need(feat, "agg", a, torch.bfloat16, (9 * C, Co))
+    return a
+
+
+def _grid(lib, kind, B, H, W):
+    n = lib.meta_block_grid(kind, B, H, W)
+    if n <= 0:
+        raise RuntimeError(f"meta_block_grid({kind}) failed: {n}")
+    return n
+
+
+def meta_stats(feat, cb, w0, b0, w1, b1):
+    """(sum a, sum a^2) per channel of the 9C tap products. No gradient:
+    see MetaStats."""
+    global STATS_LAUNCHES
+    _check(feat, cb, w0, b0, w1, b1)
+    if not _route(feat, "meta_block"):
+        return meta_stats_plain(feat, cb, w0, b0, w1, b1)
+    lib, cbb, ws, _ = _kernel_inputs(feat, cb, w0, b0, w1, b1)
+    B, H, C, W = feat.shape
+    blocks = _grid(lib, 0, B, H, W)
+    n = lib.meta_block_part_floats(0)
+    part = torch.empty((blocks, n), dtype=torch.float32, device=feat.device)
+    sums = torch.empty((2, 9 * C), dtype=torch.float32, device=feat.device)
+    with torch.cuda.device(feat.device):
+        err = lib.meta_stats_fwd(
+            feat.data_ptr(), cbb.data_ptr(), *(w.data_ptr() for w in ws),
+            part.data_ptr(), sums.data_ptr(), B, H, W, blocks, _stream(feat))
+    if err != 0:
+        raise RuntimeError(f"meta_stats_fwd launch failed: cudaError {err}")
+    STATS_LAUNCHES += 1
+    return sums[0], sums[1]
+
+
+def meta_agg(feat, cb, w0, b0, w1, b1, s9, b9, agg):
+    """The fused block output (B, H, Co, W) in feat.dtype. No gradient:
+    see MetaAgg."""
+    global AGG_LAUNCHES
+    _check(feat, cb, w0, b0, w1, b1)
+    if not _route(feat, "meta_block"):
+        return meta_agg_plain(feat, cb, w0, b0, w1, b1, s9, b9, agg)
+    lib, cbb, ws, widths = _kernel_inputs(feat, cb, w0, b0, w1, b1)
+    B, H, C, W = feat.shape
+    Co = widths[2]
+    s9f, b9f = _vec9(feat, "s9", s9, C), _vec9(feat, "b9", b9, C)
+    a = _agg_weight(feat, agg, C, Co)
+    blocks = _grid(lib, 1, B, H, W)
+    y = torch.empty((B, H, Co, W), dtype=feat.dtype, device=feat.device)
+    with torch.cuda.device(feat.device):
+        err = lib.meta_agg_fwd(
+            feat.data_ptr(), cbb.data_ptr(), *(w.data_ptr() for w in ws),
+            s9f.data_ptr(), b9f.data_ptr(), a.data_ptr(), y.data_ptr(),
+            B, H, W, blocks, _stream(feat))
+    if err != 0:
+        raise RuntimeError(f"meta_agg_fwd launch failed: cudaError {err}")
+    AGG_LAUNCHES += 1
+    return y
+
+
+def meta_bwd(feat, cb, w0, b0, w1, b1, extras, mode: str):
+    """The block backward (see meta_bwd_plain for what it returns)."""
+    global BWD_LAUNCHES
+    _check(feat, cb, w0, b0, w1, b1)
+    if mode not in ("agg", "stats"):
+        raise ValueError(f"mode must be 'agg' or 'stats', got {mode!r}")
+    if not _route(feat, "meta_block"):
+        return meta_bwd_plain(feat, cb, w0, b0, w1, b1, extras, mode)
+    lib, cbb, ws, widths = _kernel_inputs(feat, cb, w0, b0, w1, b1)
+    B, H, C, W = feat.shape
+    Cm, Co = widths[1], widths[2]
+    a = gy = None
+    if mode == "agg":
+        s9, b9, agg, gy = extras
+        e0, e1 = _vec9(feat, "s9", s9, C), _vec9(feat, "b9", b9, C)
+        a = _agg_weight(feat, agg, C, Co)
+        gy = gy.contiguous()
+        _need(feat, "gy", gy, torch.bfloat16, (B, H, Co, W))
+    else:
+        e0, e1 = (_vec9(feat, n, e, C) for n, e in zip(("c1", "c2"), extras))
+    kind = 3 if mode == "agg" else 2
+    blocks = _grid(lib, kind, B, H, W)
+    n = lib.meta_block_part_floats(kind)
+    dev = feat.device
+    part = torch.empty((blocks, n), dtype=torch.float32, device=dev)
+    sums = torch.empty((n,), dtype=torch.float32, device=dev)
+    scratch = torch.empty((B, H, C, W), dtype=torch.float32, device=dev)
+    dfeat = torch.empty_like(feat)
+    with torch.cuda.device(dev):
+        err = lib.meta_block_bwd(
+            feat.data_ptr(), cbb.data_ptr(), *(w.data_ptr() for w in ws),
+            e0.data_ptr(), e1.data_ptr(), _ptr(a), _ptr(gy),
+            scratch.data_ptr(), dfeat.data_ptr(), part.data_ptr(),
+            sums.data_ptr(), B, H, W, blocks, int(mode == "agg"),
+            _stream(feat))
+    if err != 0:
+        raise RuntimeError(f"meta_block_bwd launch failed: cudaError {err}")
+    BWD_LAUNCHES += 1
+    mlp = sums
+    out = [dfeat]
+    if mode == "agg":
+        n9 = 9 * C
+        out += [sums[:n9 * Co].view(n9, Co), sums[n9 * Co:n9 * (Co + 1)],
+                sums[n9 * (Co + 1):n9 * (Co + 2)]]
+        mlp = sums[n9 * (Co + 2):]
+    o = 0
+    for shape in ((3, Cm), (Cm,), (Cm, C), (C,)):
+        size = 1
+        for d in shape:
+            size *= d
+        out.append(mlp[o:o + size].view(shape))
+        o += size
+    return tuple(out)
+
+
+# ---------------------------------------------------------------- autograd
+class MetaStats(torch.autograd.Function):
+    """(s1, s2) = meta_stats(...), with the backward of ``_stats_bwd``:
+    the block backward in "stats" mode with (ds1, 2*ds2)."""
+
+    @staticmethod
+    def forward(ctx, feat, cb, w0, b0, w1, b1):
+        ctx.save_for_backward(feat, cb, w0, b0, w1, b1)
+        return meta_stats(feat, cb, w0, b0, w1, b1)
+
+    @staticmethod
+    def backward(ctx, ds1, ds2):
+        feat, cb, w0, b0, w1, b1 = ctx.saved_tensors
+        dfeat, dw0, db0, dw1, db1 = meta_bwd(
+            feat, cb, w0, b0, w1, b1, (ds1, 2.0 * ds2), "stats")
+        return dfeat, None, dw0, db0, dw1, db1
+
+
+class MetaAgg(torch.autograd.Function):
+    """y = meta_agg(...), with the backward of ``_agg_bwd``: the block
+    backward in "agg" mode, giving dfeat, the MLP gradients, ds9, db9 and
+    dA."""
+
+    @staticmethod
+    def forward(ctx, feat, cb, w0, b0, w1, b1, s9, b9, agg):
+        ctx.save_for_backward(feat, cb, w0, b0, w1, b1, s9, b9, agg)
+        return meta_agg(feat, cb, w0, b0, w1, b1, s9, b9, agg)
+
+    @staticmethod
+    def backward(ctx, gy):
+        feat, cb, w0, b0, w1, b1, s9, b9, agg = ctx.saved_tensors
+        dfeat, dA, ds9, db9, dw0, db0, dw1, db1 = meta_bwd(
+            feat, cb, w0, b0, w1, b1, (s9, b9, agg, gy.contiguous()), "agg")
+        return dfeat, None, dw0, db0, dw1, db1, ds9, db9, dA
+

@@ -7,9 +7,12 @@ of a recipe at B=2, seeded random weights, one synthetic batch, under
 
 Prints the wall time of the profiled steps, the device time of each stage
 of the step (targets, forward, losses with the IoU target, optimizer, and
-the backward as the busy time no other range holds), the device busy share,
-and the kernels by total device time; writes the full table to ``--out``.
-Needs a CUDA card.
+the backward as the busy time no other range holds), the forward's
+Meta-Kernel block (the "meta_block" range, inside the forward), the device
+busy share, and the kernels by total device time; writes the full table to
+``--out``. It profiles the recipe as it ships (the fused block in training),
+then the same step with the materialized block, for its stage line. Needs a
+CUDA card.
 """
 from __future__ import annotations
 
@@ -26,17 +29,13 @@ RECIPE = "rangedet_veh_wo_aug_4_18e"
 ITERS = 5  # profiled steps, after 2 warm-up steps
 SEED = 0
 STAGES = ("targets", "forward", "losses", "backward", "optimizer")
+NESTED = ("meta_block",)  # ranges inside a stage
 
 
-def main(argv=None) -> None:
-    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--batch", type=int, default=2)
-    p.add_argument("--out", default=None)
-    args = p.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_train needs a CUDA card")
-
-    from rangedet_tpu_torch.configs import load_config
+def profile_step(cfg, batch_size):
+    """Profile ITERS steps after 2 warm-up steps. Returns the wall ms per
+    step, the busy device ms per step, the device ms of each range and the
+    kernel events."""
     from rangedet_tpu_torch.data.synthetic import make_batch
     from rangedet_tpu_torch.models import RangeDet
     from rangedet_tpu_torch.train.state import create_train_state
@@ -46,14 +45,12 @@ def main(argv=None) -> None:
     )
 
     dev = torch.device("cuda")
-    cfg = load_config(RECIPE, is_train=True).replace(base_lr=0.01,
-                                                     warmup_epochs=0)
     model = RangeDet(**cfg.model_kwargs())
     model.init_from(torch.Generator().manual_seed(SEED))
     state = create_train_state(model.to(dev), cfg, 100, seed=None)
     step = make_train_step(state, cfg)
     batch = batch_to_device(
-        make_batch(cfg, args.batch, seed=SEED, num_boxes=20), dev)
+        make_batch(cfg, batch_size, seed=SEED, num_boxes=20), dev)
 
     for _ in range(2):
         step(batch)
@@ -69,36 +66,61 @@ def main(argv=None) -> None:
     # a stage's device ms: the kernels its host-side range launched (the
     # device time of the range's CPU event sums its descendants' kernels;
     # the device-side annotation of the same name would add its span)
-    ranges = dict.fromkeys(STAGES, 0.0)
+    names = STAGES + NESTED
+    ranges = dict.fromkeys(names, 0.0)
     for e in prof.events():
-        if e.name in STAGES and str(e.device_type).endswith("CPU"):
+        if e.name in names and str(e.device_type).endswith("CPU"):
             ranges[e.name] += _device_us(e) / 1e3 / ITERS
     events = prof.key_averages()
-    kernels = [e for e in events if e.key not in STAGES
+    kernels = [e for e in events if e.key not in names
                and str(e.device_type).endswith("CUDA")
                and _self_device_us(e) > 0]
     busy_ms = sum(_self_device_us(e) for e in kernels) / 1e3 / ITERS
     # autograd runs the backward on its own thread, outside the range the
     # main thread opened: its kernels are the busy time no range holds
-    ranges["backward"] = busy_ms - sum(v for k, v in ranges.items()
+    ranges["backward"] = busy_ms - sum(ranges[k] for k in STAGES
                                        if k != "backward")
-    print(f"profile_train: {RECIPE} B={args.batch} on "
-          f"{torch.cuda.get_device_name(0)}: wall {wall_ms:.2f} ms/step, "
-          f"device busy {busy_ms:.2f} ms/step "
-          f"({100 * busy_ms / wall_ms:.1f}%); device ms by stage: "
-          + ", ".join(f"{k} {ranges.get(k, float('nan')):.2f}"
-                      for k in STAGES) + " (backward: busy minus the rest)")
-    kernels.sort(key=_self_device_us, reverse=True)
-    lines = [f"{'device ms/step':>15} {'share':>6} {'calls/step':>10}  kernel"]
-    for e in kernels:
-        ms = _self_device_us(e) / 1e3 / ITERS
-        lines.append(f"{ms:15.3f} {100 * ms / busy_ms:5.1f}% "
-                     f"{e.count / ITERS:10.1f}  {e.key[:110]}")
-    print("\n".join(lines[:30]))
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-        with open(args.out, "w") as f:
-            f.write("\n".join(lines) + "\n")
+    return wall_ms, busy_ms, ranges, kernels
+
+
+def main(argv=None) -> None:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--batch", type=int, default=2)
+    p.add_argument("--out", default=None)
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_train needs a CUDA card")
+
+    from rangedet_tpu_torch.configs import load_config
+
+    cfg = load_config(RECIPE, is_train=True).replace(base_lr=0.01,
+                                                     warmup_epochs=0)
+    forms = [("fused", cfg)] if cfg.use_pallas_meta else []
+    forms.append(("materialized", cfg.replace(use_pallas_meta=False)))
+    for i, (form, c) in enumerate(forms):
+        wall_ms, busy_ms, ranges, kernels = profile_step(c, args.batch)
+        print(f"profile_train: {RECIPE} B={args.batch}, {form} Meta-Kernel "
+              f"block, on {torch.cuda.get_device_name(0)}: wall "
+              f"{wall_ms:.2f} ms/step, device busy {busy_ms:.2f} ms/step "
+              f"({100 * busy_ms / wall_ms:.1f}%); device ms by stage: "
+              + ", ".join(f"{k} {ranges[k]:.2f}" for k in STAGES)
+              + f" (backward: busy minus the rest); meta_block "
+              f"{ranges['meta_block']:.2f} (of the forward)")
+        if i:  # the kernel table of the recipe's own step only
+            continue
+        kernels.sort(key=_self_device_us, reverse=True)
+        lines = [f"{'device ms/step':>15} {'share':>6} {'calls/step':>10}  "
+                 f"kernel"]
+        for e in kernels:
+            ms = _self_device_us(e) / 1e3 / ITERS
+            lines.append(f"{ms:15.3f} {100 * ms / busy_ms:5.1f}% "
+                         f"{e.count / ITERS:10.1f}  {e.key[:110]}")
+        print("\n".join(lines[:30]))
+        if args.out:
+            os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                        exist_ok=True)
+            with open(args.out, "w") as f:
+                f.write("\n".join(lines) + "\n")
 
 
 if __name__ == "__main__":

@@ -20,6 +20,9 @@ from rangedet_tpu_torch.models.layers import deconv_bhcw
 from rangedet_tpu_torch.ops import conv3x3
 from rangedet_tpu_torch.ops.conv3x3 import conv3x3_bhcw, conv3x3_bhcw_plain
 
+# one intra-op thread per test process: several workers share the cores
+torch.set_num_threads(1)
+
 F32_ATOL = 1e-4  # tests/test_conv_pallas.py's tolerance for the f32 kernel
 # bf16: both accumulate in f32 and round the output to bf16 once; the
 # summation order differs, so a result may land one bf16 step (2^-8

@@ -23,6 +23,9 @@ from rangedet_tpu_torch.models.detector import run_inference
 from tiny import tiny_config
 from torch_parity import init_jax, perturb, port_config, port_model
 
+# one intra-op thread per test process: several workers share the cores
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BOX_ATOL = 1e-3
 # scores the two frameworks compute differ by ~1e-7 in f32; candidates

@@ -24,6 +24,9 @@ from torch_parity import (
     port_model,
 )
 
+# one intra-op thread per test process: several workers share the cores
+torch.set_num_threads(1)
+
 # f32 forward tolerance: the same math in another summation order
 FWD_TOL = dict(atol=2e-4, rtol=1e-3)
 

@@ -17,6 +17,9 @@ from rangedet_tpu.ops import rotated_iou as jiou
 from rangedet_tpu.ops import targets as jtargets
 from rangedet_tpu_torch.ops import boxes, decode, nms, rotated_iou, targets
 
+# one intra-op thread per test process: several workers share the cores
+torch.set_num_threads(1)
+
 T = torch.from_numpy
 
 

@@ -1,6 +1,7 @@
 """One train step of the port against the JAX package's, on the CPU: the
 tiny bhcw config in f32 with the materialized Meta-Kernel
-(use_pallas_meta=False), the same weights and the same numpy batch through
+(use_pallas_meta=False) and with the recipe's fused block
+(use_pallas_meta=True), the same weights and the same numpy batch through
 JAX's make_train_step + build_optimizer and the port's; then the port's
 loss falls over a few steps, as tests/test_model_train.py checks for JAX.
 The JAX step runs its convs through XLA on the CPU and the IoU target
@@ -22,6 +23,9 @@ from rangedet_tpu_torch.train.state import create_train_state
 from rangedet_tpu_torch.train.train_step import batch_to_device, make_train_step
 from tiny import tiny_config
 from torch_parity import init_jax, perturb, port_config, port_model
+
+# one intra-op thread per test process: several workers share the cores
+torch.set_num_threads(1)
 
 STEPS_PER_EPOCH = 100
 # f32 on both sides; the convs sum in another order and the IoU target
@@ -60,13 +64,44 @@ def _leaves(tree, prefix=()):
 
 @pytest.fixture(scope="module")
 def one_step():
-    return _one_step()
+    return _one_step(_cfg())
 
 
-def _one_step():
-    cfg = _cfg()
+@pytest.fixture(scope="module")
+def fused_step():
+    # the recipe's fused Meta-Kernel block (use_pallas_meta=True) on both
+    # sides. Smaller than the step above, to keep the test near 30 s: the
+    # JAX step lowers the block's four Pallas kernels in interpret mode
+    # (~9 s), whose size grows with the rows per grid step (5 rows: one), so
+    # 5x64 frames, one FPN level, no head tower convs; and the weights come
+    # from the port's seeded init, not a jitted JAX init. XLA compiles it
+    # with most optimizations off (the same program, ~4 s sooner).
+    cfg = _cfg().replace(use_pallas_meta=True, feat_size=(5, 64),
+                         pad_field=(5, 64), fpn_strides=(1,),
+                         fpn_intervals={1: (0.0, 200.0)}, cls_conv_layers=0,
+                         reg_conv_layers=0)
+    flag = "jax_disable_most_optimizations"
+    before = jax.config.read(flag)
+    jax.config.update(flag, True)
+    try:
+        return _one_step(cfg, port_init=True)
+    finally:
+        jax.config.update(flag, before)
+
+
+def _one_step(cfg, port_init=False):
     batch = make_batch(cfg, 2, seed=0, num_boxes=4)
-    jmodel, v = init_jax(cfg, batch)
+    if port_init:
+        from rangedet_tpu.models import RangeDet as JaxRangeDet
+        from rangedet_tpu_torch.models import RangeDet
+
+        model = RangeDet(**port_config(cfg).model_kwargs())
+        model.init_from(torch.Generator().manual_seed(0))
+        jmodel = JaxRangeDet(**cfg.model_kwargs())
+        params, stats = to_flax(model.state_dict())
+        v = {"params": params, "batch_stats": stats}
+    else:
+        jmodel, v = init_jax(cfg, batch)
     params, stats = perturb(v, seed=3)
     tx, _ = jax_optimizer(cfg, STEPS_PER_EPOCH)
     jstate = TrainState.create(apply_fn=jmodel.apply, params=params,
@@ -83,6 +118,18 @@ def _one_step():
 
 
 def test_metrics_match_jax(one_step):
+    _assert_metrics_match(one_step)
+
+
+def test_fused_meta_step_metrics_match_jax(fused_step):
+    _assert_metrics_match(fused_step)
+
+
+def test_fused_meta_step_updates_match_jax(fused_step):
+    _assert_updates_match(fused_step)
+
+
+def _assert_metrics_match(one_step):
     jm, _, tm, _, _ = one_step
     assert sorted(tm) == sorted(jm)
     for k in jm:
@@ -91,6 +138,10 @@ def test_metrics_match_jax(one_step):
 
 
 def test_updated_params_and_batch_stats_match_jax(one_step):
+    _assert_updates_match(one_step)
+
+
+def _assert_updates_match(one_step):
     _, jstate, _, state, (params0, stats0) = one_step
     assert state.step == 1
     params, stats = to_flax(state.model.state_dict())

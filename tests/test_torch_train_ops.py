@@ -36,6 +36,9 @@ from rangedet_tpu_torch.ops import targets
 from torch_parity import port_config
 from tiny import tiny_config
 
+# one intra-op thread per test process: several workers share the cores
+torch.set_num_threads(1)
+
 REPO = pathlib.Path(__file__).resolve().parents[1]
 # the same f32 math in another order (or another libm's transcendental,
 # a few ulp): per element |a - b| <= 1e-5 + 1e-5 |b|

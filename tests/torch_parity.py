@@ -17,7 +17,7 @@ from rangedet_tpu_torch.models import RangeDet
 # JAX-only knobs the port's config leaves out (TPU layout, kernels, sharding,
 # remat, and the serial-WNMS prefilter the blocked form never reads)
 SKIPPED_FIELDS = {
-    "layout", "use_pallas_meta", "use_pallas_conv", "use_pallas_iou",
+    "layout", "use_pallas_conv", "use_pallas_iou",
     "topk_method", "iou_chunk", "width_axis", "bn_sync_axis", "remat",
     "remat_meta", "mesh_shape", "wnms_prefilter_topm",
 }
