@@ -11,9 +11,10 @@ Phases, one line of output each (or a table), failing on the first error:
    card, at every (Ci, Co, W, stride, ingest) the B=1 forward launches and
    at the largest shape for B=4: max error and ms of both;
 3. the full serving path of ``rangedet_veh_wo_aug_4_18e`` at 64x2656 with
-   seeded random weights, at B=4 and B=1: the kernel's launch count per
-   forward, finite outputs, logits and deltas against the plain path, the
-   median eval-step time, its weighted-NMS share and the peak memory;
+   seeded random weights, at B=4 and B=1: the launch counts per forward
+   of the conv kernel and of the Meta-Kernel taps kernel (one), finite
+   outputs, logits and deltas against the plain path, the median eval-step
+   time, its weighted-NMS share and the peak memory;
 4. ``python -m rangedet_tpu_torch.tools.test`` on 2 synthetic frames;
 5. the train kernels against their plain versions at every distinct shape
    of one B=2 train step of the recipe (its fused Meta-Kernel block
@@ -28,13 +29,23 @@ Phases, one line of output each (or a table), failing on the first error:
    and of both bf16 paths against an f32 step, the same gates shown to
    reject two planted faults (a zeroed dgrad, a sign-flipped wgrad), step
    1's losses with the fused block against the materialized block, 5 steps
-   with finite and falling loss, two steps from one state with bit-equal
-   losses, the median step time and peak memory;
-7. ``python -m rangedet_tpu_torch.tools.train`` for 3 steps on the card.
+   with finite and falling loss (no launch of the taps' kernel), two steps
+   from one state with bit-equal losses, the median step time and peak
+   memory;
+7. the Meta-Kernel's taps (kernel 7) and the serving path from files: the
+   kernel against its plain version on the inputs a B=4 and a B=1 eval
+   forward give it (max error, kernel ms, plain ms, bound), its gradient
+   against the plain version's, the eval step with and without it (outputs
+   within the model gate, step ms, peak memory); then 8 full-size frames
+   written as roidb + npz files, ``tools.train`` for 2 steps into a
+   checkpoint, ``tools.test`` from the files at that epoch (every frame in
+   the pickle, the launches of its steps), ``tools.evaluate_pred`` on the
+   pickle, the restored model's eval outputs bit-equal to the trained
+   model's, and ``tools.eval_checkpoint`` (finite lines).
 
 It prints a JSON line of the kernels, one entry per kernel and path (the
-serving forward of phases 2-3, the train step of phases 5-6), then as its
-last line ``{"ok": true, "device": {...}}``. Without CUDA it exits
+serving forward of phases 2-3 and 7, the train step of phases 5-6), then as
+its last line ``{"ok": true, "device": {...}}``. Without CUDA it exits
 non-zero.
 """
 import contextlib
@@ -89,6 +100,14 @@ HEAD_GRAD_TOL = 0.14
 MEDIAN_TOL = 0.71
 CONV_MEDIAN_TOL = 0.81
 STEPS_PER_EPOCH = 100
+# kernel 7 against the plain version in bf16 (the XLA form's counterpart):
+# JAX's own bound between the TPU kernel and that form
+# (tests/test_meta_kernel.py), |a - b| <= TAPS_TOL * (1 + |b|). Where the
+# bf16 form's own rounding (h and w to bf16, then the product) puts it
+# outside, the kernel must be the nearer of the two to the f32 reference
+TAPS_TOL = 4e-2
+FILE_FRAMES = 8  # full-size frames of the dataset path, 64 x 2650
+FILE_BATCH = 4
 # the H100 SXM's published peaks (NVIDIA data sheet) for bound_ms
 PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
@@ -147,13 +166,9 @@ def _bound_ms(flops, nbytes, peak):
 def conv_launches(cfg):
     """conv3x3 forward launches per forward pass that the config implies,
     and how they add up."""
-    from rangedet_tpu_torch.models.dla_backbone import (
-        DEFAULT_META_UNITS,
-        DEFAULT_NUM_BLOCK,
-    )
+    from rangedet_tpu_torch.models.dla_backbone import DEFAULT_NUM_BLOCK
 
-    n_meta = len(DEFAULT_META_UNITS if cfg.meta_units is None
-                 else cfg.meta_units)
+    n_meta = meta_units(cfg)
     n_blocks = sum((cfg.num_block or DEFAULT_NUM_BLOCK).values())
     n_levels = len(cfg.fpn_strides)
     n = (2 * n_blocks - n_meta + 4
@@ -161,6 +176,14 @@ def conv_launches(cfg):
     return n, (f"2*{n_blocks} block convs - {n_meta} Meta-Kernel conv1 + 4 "
                f"agg deconvs + {n_levels}*({cfg.cls_conv_layers}+"
                f"{cfg.reg_conv_layers}) head = {n}")
+
+
+def meta_units(cfg):
+    """The number of Meta-Kernel blocks the config builds."""
+    from rangedet_tpu_torch.models.dla_backbone import DEFAULT_META_UNITS
+
+    return len(DEFAULT_META_UNITS if cfg.meta_units is None
+               else cfg.meta_units)
 
 
 def _rel(a, b):
@@ -279,22 +302,23 @@ def _plain_convs(conv3x3, plain=True, meta=None):
 
 
 def meta_work(kind, B, H, W, C, Cm, Co):
-    """(f32 operations, bytes) of one launch of a Meta-Kernel block kernel
-    over B*H*W pixels: each input read once, each output written once.
-    Per pixel and tap the taps cost 2*C*Cm (MLP out) + 7*Cm (rel, MLP in,
-    relu) + 2*C (bias, product); stats adds 3*C; agg 3*C (fold, relu) +
-    2*C*Co; the agg backward 4*C*Co (A.gy, dA) + 8*C (dz, ds9, db9, da, dnb,
-    dwt, dfeat) + 4*C*Cm + 9*Cm (MLP backward); the stats backward 6*C +
-    4*C*Cm + 9*Cm."""
+    """(f32 operations, bytes) of one launch of a Meta-Kernel kernel over
+    B*H*W pixels: each input read once, each output written once. Per
+    pixel and tap the taps cost 2*C*Cm (MLP out) + 7*Cm (rel, MLP in, relu)
+    + 2*C (bias, product), which is all kernel 7 ("taps") does; stats adds
+    3*C; agg 3*C (fold, relu) + 2*C*Co; the agg backward 4*C*Co (A.gy, dA)
+    + 8*C (dz, ds9, db9, da, dnb, dwt, dfeat) + 4*C*Cm + 9*Cm (MLP
+    backward); the stats backward 6*C + 4*C*Cm + 9*Cm."""
     taps = 2 * C * Cm + 7 * Cm + 2 * C
-    per = {"stats": taps + 3 * C,
+    per = {"taps": taps, "stats": taps + 3 * C,
            "agg": taps + 3 * C + 2 * C * Co,
            "bwd_agg": taps + 4 * C * Co + 8 * C + 4 * C * Cm + 9 * Cm,
            "bwd_stats": taps + 6 * C + 4 * C * Cm + 9 * Cm}[kind]
     n = B * H * W
     feat = 2 * n * (C + 3)  # bf16 features and coordinates
-    weights = 4 * (4 * Cm + Cm * C + C + 2 * 9 * C)
-    out = {"stats": 4 * 2 * 9 * C, "agg": 2 * n * Co + 2 * 9 * C * Co,
+    weights = 4 * (4 * Cm + Cm * C + C + (0 if kind == "taps" else 2 * 9 * C))
+    out = {"taps": 2 * n * 9 * C,
+           "stats": 4 * 2 * 9 * C, "agg": 2 * n * Co + 2 * 9 * C * Co,
            "bwd_agg": 2 * n * (C + 2 * Co) + 2 * 9 * C * Co
            + 4 * (9 * C * Co + 2 * 9 * C + 4 * Cm + Cm * C + C),
            "bwd_stats": 2 * n * C + 4 * (4 * Cm + Cm * C + C)}[kind]
@@ -558,7 +582,7 @@ def phase5(torch, conv3x3, iou_mod, layers, meta, recorded, H, dev):
 
 # ---------------------------------------------------------------- phase 6
 def phase6(torch, m, cfg, dev):
-    conv3x3, iou_mod, meta = m["conv3x3"], m["iou"], m["meta"]
+    conv3x3, iou_mod, meta, taps = m["conv3x3"], m["iou"], m["meta"], m["taps"]
 
     def fail(msg):
         raise SystemExit(f"[6] {msg}")
@@ -665,32 +689,32 @@ def phase6(torch, m, cfg, dev):
     step = m["make_train_step"](state, cfg)
     n_levels = len(cfg.fpn_strides)
     n_fwd = conv_launches(cfg)[0]
-    from rangedet_tpu_torch.models.dla_backbone import DEFAULT_META_UNITS
-
-    n_meta = len(DEFAULT_META_UNITS if cfg.meta_units is None
-                 else cfg.meta_units) if cfg.use_pallas_meta else 0
+    n_meta = meta_units(cfg) if cfg.use_pallas_meta else 0
     expected = {"fwd": n_fwd, "dgrad": n_fwd - 1, "wgrad": n_fwd,
                 "iou": n_levels * cfg.num_classes, "meta_stats": n_meta,
-                "meta_agg": n_meta, "meta_block_bwd": 2 * n_meta}
+                "meta_agg": n_meta, "meta_block_bwd": 2 * n_meta,
+                "meta_kernel_taps": 0}
     print(f"[6] expected launches per step: forward {n_fwd} (as the eval "
           f"forward), dgrad {n_fwd - 1} (all but res1_unit1.conv1, whose "
           f"input is the data), wgrad {n_fwd}, IoU target {n_levels} levels "
           f"x {cfg.num_classes} classes = {expected['iou']}; per fused "
           f"Meta-Kernel block ({n_meta}) one meta_stats, one meta_agg, two "
-          f"meta_block_bwd (one per mode)")
+          f"meta_block_bwd (one per mode); no taps kernel (eval only)")
     losses, launches = [], None
     for i in range(5):
         torch.cuda.synchronize()
         conv3x3.reset_counts()
         iou_mod.LAUNCHES = 0
         meta.reset_counts()
+        taps.reset_counts()
         metrics = step(batch)
         torch.cuda.synchronize()
         launches = {"fwd": conv3x3.LAUNCHES, "dgrad": conv3x3.DGRAD_LAUNCHES,
                     "wgrad": conv3x3.WGRAD_LAUNCHES, "iou": iou_mod.LAUNCHES,
                     "meta_stats": meta.STATS_LAUNCHES,
                     "meta_agg": meta.AGG_LAUNCHES,
-                    "meta_block_bwd": meta.BWD_LAUNCHES}
+                    "meta_block_bwd": meta.BWD_LAUNCHES,
+                    "meta_kernel_taps": taps.LAUNCHES}
         if launches != expected:
             fail(f"step {i}: launches {launches}, expected {expected}")
         losses.append(float(metrics["total_loss"]))
@@ -721,6 +745,231 @@ def phase6(torch, m, cfg, dev):
     return launches, step_ms
 
 
+# ---------------------------------------------------------------- phase 7
+def phase7(torch, m, cfg, dev):
+    """Kernel 7 against its plain version on the inputs of a B=4 and a B=1
+    eval forward, its gradient, and the eval step with and without it.
+    Returns {B: KernelTotals} of the kernel."""
+    taps = m["taps"]
+
+    def fail(msg):
+        raise SystemExit(f"[7] {msg}")
+
+    model = m["RangeDet"](**cfg.model_kwargs())
+    model.init_from(torch.Generator().manual_seed(SEED))
+    materialized = m["RangeDet"](**dict(cfg.model_kwargs(),
+                                        use_pallas_meta=False))
+    materialized.load_state_dict(model.state_dict())
+    models = {True: model.to(dev).eval(), False: materialized.to(dev).eval()}
+    steps = {k: m["make_eval_step"](v, cfg) for k, v in models.items()}
+    totals = {}
+    for B in (4, 1):
+        inputs = m["build_eval_inputs"](
+            m["make_batch"](cfg, B, seed=SEED, num_boxes=20), cfg, dev)
+        seen, real = [], taps.meta_kernel_taps
+
+        def keep(*args):
+            seen.append(tuple(a.detach().clone() for a in args))
+            return real(*args)
+
+        with mock.patch.object(taps, "meta_kernel_taps", keep), \
+                torch.inference_mode():
+            model(inputs["input_data"], inputs["coord"])
+        if len(seen) != meta_units(cfg):
+            fail(f"B={B}: {len(seen)} taps calls in the forward")
+        args = seen[0]
+        feat, cb, w0 = args[:3]
+        _, H, C, W = feat.shape
+        Cm = w0.shape[1]
+        y = taps.meta_kernel_taps(*args)
+        torch.cuda.synchronize()
+        # f32 from the same bf16 operands (the coordinates and the MLP
+        # rounded to bf16 as the kernel's wrapper rounds them): the kernel
+        # rounds once, at the product
+        ref = taps.meta_kernel_taps_plain(
+            *(a.to(feat.dtype).float() for a in args))
+        ok, err = _bf16_ok(y, ref)
+        ref_max = ref.abs().max().item()
+        if not ok:
+            fail(f"B={B}: kernel vs f32 plain max abs err {err} (max|ref| "
+                 f"{ref_max})")
+        xla = taps.meta_kernel_taps_plain(*args).float()
+        y = y.float()
+        d = (y - xla).abs()
+        outside = d > TAPS_TOL * (1.0 + xla.abs())
+        nearer = (y - ref).abs() <= (xla - ref).abs()
+        n_out, n_bad = int(outside.sum()), int((outside & ~nearer).sum())
+        d_max = d.max().item()
+        del y, ref, xla, d, outside, nearer
+        if n_bad:
+            fail(f"B={B}: {n_bad} elements outside JAX's bound of the bf16 "
+                 f"form where the kernel is not the nearer to f32")
+        k_ms = _time_ms(lambda: taps.meta_kernel_taps(*args))
+        p_ms = _time_ms(lambda: taps.meta_kernel_taps_plain(*args), iters=3,
+                        warmup=1)
+        flops, nbytes = meta_work("taps", B, H, W, C, Cm, 0)
+        bound = _bound_ms(flops, nbytes, PEAK_F32)
+        totals[B] = KernelTotals()
+        totals[B].add(1, k_ms, p_ms, bound, None, err)
+        print(f"[7] meta_kernel_taps B={B} (H={H} C={C} W={W} Cm={Cm}): max "
+              f"abs err {err:.4g} vs the f32 plain version (bf16 gate; "
+              f"max|ref| {ref_max:.4g}); "
+              f"{d_max:.4g} vs the bf16 plain version (the XLA form), "
+              f"{n_out} of {B * H * 9 * C * W} elements outside JAX's bound "
+              f"{TAPS_TOL}, each nearer the f32 reference; kernel "
+              f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {bound[0]:.4f} ms "
+              f"({bound[1]}; {flops / 1e9:.2f} GFLOP f32, "
+              f"{nbytes / 1e6:.1f} MB)")
+
+        with torch.inference_mode():
+            outs = {k: v(inputs["input_data"], inputs["coord"])
+                    for k, v in models.items()}
+        rels = [_rel(a, b) for a, b in zip(outs[True][0] + outs[True][1],
+                                           outs[False][0] + outs[False][1])]
+        del outs
+        if not max(rels) <= MODEL_TOL:
+            fail(f"B={B}: eval outputs with and without the taps kernel "
+                 f"differ by {max(rels):.4g} > {MODEL_TOL}")
+        times, peaks = {True: [], False: []}, {}
+        for use in (True, False, False, True):  # in turns
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            times[use].append(_median_ms(lambda: steps[use](inputs)))
+            peaks[use] = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"[7] B={B} eval step with the taps kernel vs the plain taps: "
+              f"outputs max|a-b|/max|b| {max(rels):.4g} (bound "
+              f"{MODEL_TOL}); median ms "
+              + ", ".join(f"{t:.2f}" for t in times[True]) + " vs "
+              + ", ".join(f"{t:.2f}" for t in times[False])
+              + f"; peak memory {peaks[True]:.2f} vs {peaks[False]:.2f} GiB")
+    del models, steps
+
+    # MetaKernelTaps' gradient: the plain version's autograd VJP
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    x = [torch.randn(1, 4, 64, 40, device=dev, generator=g).relu().bfloat16(),
+         torch.randn(1, 4, 3, 40, device=dev, generator=g).bfloat16()]
+    x += [0.3 * torch.randn(*s, device=dev, generator=g)
+          for s in ((3, 32), (32,), (32, 64), (64,))]
+    r = torch.randn(1, 4, 9 * 64, 40, device=dev, generator=g)
+    grads = []
+    for fn in (taps.MetaKernelTaps.apply, taps.meta_kernel_taps_plain):
+        leaves = [t.detach().clone().requires_grad_(True) for t in x]
+        (fn(*leaves).float() * r).sum().backward()
+        grads.append([t.grad for t in leaves])
+    rels = [_rel(a, b) for a, b in zip(*grads)]
+    print("[7] MetaKernelTaps gradient vs the plain version's autograd, "
+          "max|a-b|/max|b| (feat, coords, w0, b0, w1, b1): "
+          + " ".join(f"{v:.3g}" for v in rels))
+    if not max(rels) <= FN_TOL:
+        fail(f"MetaKernelTaps gradient {max(rels)} > {FN_TOL}")
+    return totals
+
+
+def phase7_files(torch, m, cfg, dev):
+    """The serving path as users drive it, from dataset files: write, train
+    a checkpoint, test at its epoch, score, restore, eval_checkpoint."""
+    import numpy as np
+
+    conv3x3, taps, meta = m["conv3x3"], m["taps"], m["meta"]
+
+    def fail(msg):
+        raise SystemExit(f"[7] {msg}")
+
+    n_meta = meta_units(cfg)
+    with tempfile.TemporaryDirectory() as tmp:
+        data, exp = os.path.join(tmp, "data"), os.path.join(tmp, "exp")
+        H, W = cfg.feat_size
+        recs = m["write_waymo_files"](data, FILE_FRAMES, H=H, W=W, seed=SEED,
+                                      num_boxes=20, class_choices=(1, 2))
+        print(f"[7] wrote {FILE_FRAMES} frames of {H}x{W} as .npz files and "
+              f"one validation roidb (holes, a no-label-zone strip, "
+              f"vehicles and pedestrians)")
+
+        meta.reset_counts()
+        taps.reset_counts()
+        hist, state = m["train_cli"].main([
+            "--config", RECIPE, "--synthetic", "2", "--steps", "2",
+            "--experiment-dir", exp, "--device", dev.type])
+        torch.cuda.synchronize()
+        if len(hist) != 2 or not all(math.isfinite(h["total_loss"])
+                                     for h in hist):
+            fail(f"tools.train: bad losses {hist}")
+        if (meta.STATS_LAUNCHES, taps.LAUNCHES) != (2 * n_meta, 0):
+            fail(f"tools.train: {meta.STATS_LAUNCHES} meta_stats and "
+                 f"{taps.LAUNCHES} taps launches in 2 steps")
+        ecfg = cfg.replace(experiment_dir=exp)
+        epoch = m["latest_epoch"](ecfg)
+        if epoch != 0:
+            fail(f"tools.train left checkpoint epoch {epoch}, expected 0")
+        print("[7] tools.train: 2 steps, total_loss "
+              + " ".join(f"{h['total_loss']:.5f}" for h in hist)
+              + f"; checkpoint epoch {epoch}")
+
+        conv3x3.reset_counts()
+        taps.reset_counts()
+        path = m["test_cli"].main([
+            "--config", RECIPE, "--data-root", data, "--image-set",
+            "validation", "--batch", str(FILE_BATCH), "--experiment-dir",
+            exp, "--epoch", str(epoch), "--device", dev.type, "--output",
+            os.path.join(tmp, "pred.pkl")])
+        torch.cuda.synchronize()
+        n_steps = -(-FILE_FRAMES // FILE_BATCH)
+        want = (n_steps * conv_launches(cfg)[0], n_steps * n_meta)
+        if (conv3x3.LAUNCHES, taps.LAUNCHES) != want:
+            fail(f"tools.test: {conv3x3.LAUNCHES} conv3x3 and "
+                 f"{taps.LAUNCHES} taps launches, expected {want}")
+        with open(path, "rb") as f:
+            anno, outputs = pickle.load(f), pickle.load(f)
+        if sorted(outputs) != sorted(r["rec_id"] for r in recs) or \
+                sorted(anno) != sorted(outputs):
+            fail(f"the pickle holds {sorted(outputs)}")
+        n_det = 0
+        for rec in outputs.values():
+            det = rec["det_xyzlwhyaws"]["veh"]
+            if det.ndim != 2 or det.shape[1] != 8 or \
+                    not np.isfinite(det).all():
+                fail("malformed detections")
+            n_det += len(det)
+        records = m["evaluate_pred"].main(["--config", RECIPE, "--pred",
+                                           path, "--buckets"])
+        veh = [r for r in records if r["class"] == "veh"]
+        if len(veh) != 1 or veh[0]["frames"] != FILE_FRAMES:
+            fail(f"evaluate_pred: {records}")
+        print(f"[7] tools.test from the files at epoch {epoch}: "
+              f"{len(outputs)} frames in {n_steps} steps of B={FILE_BATCH} "
+              f"({want[0]} conv3x3 and {want[1]} taps launches), {n_det} "
+              f"detections; tools.evaluate_pred: {json.dumps(veh[0])}")
+
+        rcfg = m["load_config"](RECIPE, is_train=False).replace(
+            experiment_dir=exp)
+        restored = m["RangeDet"](**rcfg.model_kwargs()).to(dev)
+        _, rep = m["restore_checkpoint"](restored, rcfg, epoch)
+        stacked = [m["record_to_inputs"](r, rcfg.pad_field, rcfg.max_gt_boxes)
+                   for r in recs[:FILE_BATCH]]
+        inputs = m["build_eval_inputs"](
+            {k: np.stack([b[k] for b in stacked]) for k in stacked[0]},
+            rcfg, dev)
+        a, b = (m["make_eval_step"](x.eval(), rcfg)(inputs)
+                for x in (state.model, restored))
+        same = all(torch.equal(a[c][k], b[c][k]) for c in a for k in a[c])
+        print(f"[7] checkpoint epoch {rep} restored: eval outputs on one "
+              f"B={FILE_BATCH} batch bit-equal to the trained model's: "
+              f"{same}")
+        if not same:
+            fail("the restored model's eval outputs differ")
+        del restored, state
+
+        lines = m["eval_checkpoint"].main([
+            "--config", RECIPE, "--experiment-dir", exp, "--data-root", data,
+            "--n-frames", str(FILE_FRAMES), "--min-scores", "0.5,0.1",
+            "--device", dev.type])
+        vals = [v for line in lines for mt in line["metrics"].values()
+                for v in mt.values()]
+        if len(lines) != 2 or not all(math.isfinite(v) for v in vals):
+            fail(f"eval_checkpoint: {lines}")
+        print(f"[7] tools.eval_checkpoint: {len(lines)} lines, all finite")
+
+
 def main():
     import numpy as np
     import torch
@@ -741,9 +990,17 @@ def main():
     )
     from rangedet_tpu_torch.ops import conv3x3, nms
     from rangedet_tpu_torch.ops import iou_target as iou_mod
+    from rangedet_tpu_torch.data.synthetic import write_waymo_files
+    from rangedet_tpu_torch.data.waymo import record_to_inputs
     from rangedet_tpu_torch.ops import meta_block
+    from rangedet_tpu_torch.ops import meta_kernel as taps
+    from rangedet_tpu_torch.tools import eval_checkpoint, evaluate_pred
     from rangedet_tpu_torch.tools import test as test_cli
     from rangedet_tpu_torch.tools import train as train_cli
+    from rangedet_tpu_torch.train.checkpoint import (
+        latest_epoch,
+        restore_checkpoint,
+    )
     from rangedet_tpu_torch.train.state import create_train_state
     from rangedet_tpu_torch.train.train_step import (
         batch_to_device,
@@ -846,18 +1103,22 @@ def main():
 
     # ------------------------------------------------------------ phase 3
     expected, how = conv_launches(cfg)
-    print(f"[3] expected conv3x3 launches per forward: {how}")
+    n_taps = meta_units(cfg) if cfg.use_pallas_meta else 0
+    print(f"[3] expected conv3x3 launches per forward: {how}; Meta-Kernel "
+          f"taps kernel launches per forward: {n_taps}")
     for B in (4, 1):
         inputs = build_eval_inputs(
             make_batch(cfg, B, seed=SEED, num_boxes=20), cfg, dev)
         torch.cuda.synchronize()
         conv3x3.reset_counts()
+        taps.reset_counts()
         out = eval_step(inputs)
         torch.cuda.synchronize()
-        launches = conv3x3.LAUNCHES
-        if launches != expected:
-            raise SystemExit(f"[3] B={B}: {launches} conv3x3 launches, "
-                             f"expected {expected}")
+        launches, taps_launches = conv3x3.LAUNCHES, taps.LAUNCHES
+        if launches != expected or taps_launches != n_taps:
+            raise SystemExit(f"[3] B={B}: {launches} conv3x3 and "
+                             f"{taps_launches} taps launches, expected "
+                             f"{expected} and {n_taps}")
         res = out["veh"]
         boxes, valid = res["boxes"], res["valid"]
         if not (torch.isfinite(boxes[valid]).all()
@@ -868,7 +1129,9 @@ def main():
         with torch.inference_mode():
             got = model(inputs["input_data"], inputs["coord"])
             with mock.patch.object(conv3x3, "conv3x3_bhcw",
-                                   conv3x3.conv3x3_bhcw_plain):
+                                   conv3x3.conv3x3_bhcw_plain), \
+                    mock.patch.object(taps, "meta_kernel_taps",
+                                      taps.meta_kernel_taps_plain):
                 want = model(inputs["input_data"], inputs["coord"])
         rels = []
         for a, b in zip(got[0] + got[1], want[0] + want[1]):
@@ -903,14 +1166,16 @@ def main():
             wnms_ms = _median_ms(
                 lambda: real_wnms(*captured["args"], **captured["kw"]))
         n_valid = int(captured["args"][2].sum())
-        print(f"[3] B={B}: {launches} conv3x3 launches/forward; outputs "
+        print(f"[3] B={B}: {launches} conv3x3 and {taps_launches} taps "
+              f"launches/forward; outputs "
               f"finite; kernel vs plain path max rel err {rel:.4g} "
               f"(bound {MODEL_TOL}); eval step median {step_ms:.2f} ms "
               f"(forward {fwd_ms_b:.2f} ms, WNMS {wnms_ms:.2f} ms = "
               f"{100 * wnms_ms / step_ms:.1f}%); {n_valid} valid "
               f"candidates, {int(valid.sum())} boxes, truncated "
               f"{res['truncated'].tolist()}; peak memory {peak:.2f} GiB")
-    serve_launches = launches  # of the B=1 step, the last one
+    # of the B=1 step, the last one
+    serve_launches, serve_taps_launches = launches, taps_launches
     del model, eval_step
 
     # ------------------------------------------------------------ phase 4
@@ -949,7 +1214,7 @@ def main():
                     H, dev)
 
     # ------------------------------------------------------------ phase 6
-    mods = dict(conv3x3=conv3x3, iou=iou_mod, meta=meta_block,
+    mods = dict(conv3x3=conv3x3, iou=iou_mod, meta=meta_block, taps=taps,
                 RangeDet=RangeDet,
                 make_batch=make_batch, batch_to_device=batch_to_device,
                 create_train_state=create_train_state,
@@ -959,23 +1224,29 @@ def main():
     launches, _ = phase6(torch, mods, tcfg, dev)
 
     # ------------------------------------------------------------ phase 7
-    hist = train_cli.main(["--config", RECIPE, "--synthetic", "2",
-                           "--steps", "3", "--device", "cuda"])
-    if len(hist) != 3 or not all(math.isfinite(h["total_loss"])
-                                 for h in hist):
-        raise SystemExit(f"[7] tools.train: bad losses {hist}")
-    print("[7] tools.train: 3 steps, total_loss "
-          + " ".join(f"{h['total_loss']:.5f}" for h in hist))
+    mods.update(make_eval_step=make_eval_step,
+                build_eval_inputs=build_eval_inputs,
+                write_waymo_files=write_waymo_files,
+                record_to_inputs=record_to_inputs, load_config=load_config,
+                latest_epoch=latest_epoch,
+                restore_checkpoint=restore_checkpoint, train_cli=train_cli,
+                test_cli=test_cli, evaluate_pred=evaluate_pred,
+                eval_checkpoint=eval_checkpoint)
+    taps_totals = phase7(torch, mods, cfg, dev)
+    phase7_files(torch, mods, cfg, dev)
 
     # one entry per kernel and path: the serving forward (launches of the
-    # B=1 eval step of phase 3, times summed over one B=1 forward in phase
-    # 2), then the B=2 train step (phases 6 and 5)
+    # B=1 eval step of phase 3, times of one B=1 forward in phases 2 and
+    # 7), then the B=2 train step (phases 6 and 5)
     conv_src = "rangedet_tpu_torch/csrc/conv3x3_bhcw.cu"
     conv_tpu = "rangedet_tpu/ops/conv_pallas.py:252"
     meta_src = "rangedet_tpu_torch/csrc/meta_block.cu"
     entries = []
     for path, name, t, n, source, replaces in (
         ("serve", "conv3x3_bhcw", serve, serve_launches, conv_src, conv_tpu),
+        ("serve", "meta_kernel_taps", taps_totals[1], serve_taps_launches,
+         "rangedet_tpu_torch/csrc/meta_kernel.cu",
+         "rangedet_tpu/ops/meta_kernel_pallas.py:138"),
         ("train", "conv3x3_bhcw_train", totals["fwd"], launches["fwd"],
          conv_src, conv_tpu),
         ("train", "conv3x3_dgrad", totals["dgrad"], launches["dgrad"],

@@ -127,5 +127,9 @@ def load() -> ctypes.CDLL:
     lib.meta_block_bwd.argtypes = [vp] * 14 + [i32] * 5 + [vp]
     for fn in (lib.meta_stats_fwd, lib.meta_agg_fwd, lib.meta_block_bwd):
         fn.restype = i32
+    lib.meta_kernel_grid.argtypes = [i32] * 3
+    lib.meta_kernel_grid.restype = i32
+    lib.meta_kernel_taps.argtypes = [vp] * 7 + [i32] * 4 + [vp]
+    lib.meta_kernel_taps.restype = i32
     _lib = lib
     return lib

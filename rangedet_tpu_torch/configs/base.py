@@ -2,7 +2,8 @@
 ``rangedet_tpu.configs.base.RangeDetConfig`` but the TPU-only ones, with the
 same names and defaults, and ``dtype`` as a ``torch.dtype``.
 ``use_pallas_meta`` keeps its name: in the port it selects the fused
-Meta-Kernel block in training (``ops/meta_block.py``).
+Meta-Kernel block in training (``ops/meta_block.py``) and the taps' kernel
+in eval (``ops/meta_kernel.py``).
 
 Left out are the JAX package's TPU-only knobs: ``layout``,
 ``use_pallas_conv``, ``use_pallas_iou``, ``topk_method``, ``iou_chunk``,
@@ -48,8 +49,8 @@ class RangeDetConfig:
     reg_conv_layers: int = 4
     reg_conv_channel: int = 128
     dtype: Any = torch.bfloat16
-    # train the fused Meta-Kernel block (kernels 3-5); eval stays
-    # materialized
+    # the Meta-Kernel's kernels: the fused block in training (kernels 3-5),
+    # the materialized block with the taps' kernel in eval (kernel 7)
     use_pallas_meta: bool = False
 
     # ------------------------------------------------------------- loss

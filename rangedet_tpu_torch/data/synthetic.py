@@ -5,10 +5,13 @@ assignment → target → loss path behaves like real data.
 The port's own copy of ``rangedet_tpu/data/synthetic.py`` (numpy only), so
 that the port imports nothing of the JAX package; it makes the same batches
 from the same seed (tests/test_torch_train_ops.py holds the two together).
+``write_waymo_files`` (the port's own) writes such frames as dataset files.
 """
 from __future__ import annotations
 
-from typing import Dict
+import os
+import pickle
+from typing import Dict, List, Sequence
 
 import numpy as np
 
@@ -347,3 +350,44 @@ def make_batch(
         out["gt_valid"].append(gt_valid)
         out["gt_num_points"].append(gt_np)
     return {k: np.stack(v) for k, v in out.items()}
+
+
+def write_waymo_files(root: str, n_frames: int, H: int = 64, W: int = 2650,
+                      seed: int = 0, image_set: str = "validation",
+                      num_boxes: int = 10,
+                      class_choices: Sequence[int] = (1,)) -> List[dict]:
+    """Write ``n_frames`` seeded make_frame_vehicles frames in the offline
+    builder's on-disk format (``data/waymo.py`` reads it): one ``.npz`` per
+    frame under ``root`` (pc_vehicle_frame (H, W, 3); range_image (H, W, 4)
+    with range -1 at holes (rays without a return and ~2% dropped pixels)
+    and channel 3 the no-label-zone flag, 1 on one strip of rows and
+    columns and -1 elsewhere; inclination (H,); azimuth (W,)) and one
+    ``root/<image_set>/synthetic.roidb`` pickle of their records (rec_id,
+    pc_url, gt_class, gt_bbox_csa, points_in_box, meta_info). Returns the
+    records."""
+    rng = np.random.RandomState(seed)
+    os.makedirs(os.path.join(root, image_set), exist_ok=True)
+    recs = []
+    for i in range(n_frames):
+        f = make_frame_vehicles(rng, H, W, num_boxes, tuple(class_choices))
+        holes = (f["mask"] == 0) | (rng.uniform(size=(H, W)) < 0.02)
+        nlz = np.full((H, W), -1.0, np.float32)
+        r0, c0 = rng.randint(0, H - H // 8), rng.randint(0, W - W // 16)
+        nlz[r0:r0 + max(1, H // 8), c0:c0 + max(1, W // 16)] = 1.0
+        range_image = np.stack(
+            [np.where(holes, -1.0, f["range_value"]), f["intensity"],
+             f["elongation"], nlz], -1).astype(np.float32)
+        path = os.path.abspath(os.path.join(root, f"frame_{i:04d}.npz"))
+        np.savez(path, pc_vehicle_frame=f["pc"].astype(np.float32),
+                 range_image=range_image,
+                 inclination=f["inclination"][:, 0].astype(np.float32),
+                 azimuth=f["azimuth"][H // 2].astype(np.float32))
+        recs.append(dict(
+            rec_id=f"synthetic_{seed}_{i:04d}", pc_url=path,
+            gt_class=f["gt_class"].astype(np.float32),
+            gt_bbox_csa=f["gt_csa"].astype(np.float32),
+            points_in_box=f["gt_num_points"].astype(np.float32),
+            meta_info={"name": f"synthetic_{seed}", "timestamp_micros": i}))
+    with open(os.path.join(root, image_set, "synthetic.roidb"), "wb") as fh:
+        pickle.dump(recs, fh)
+    return recs

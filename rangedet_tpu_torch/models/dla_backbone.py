@@ -1,10 +1,12 @@
 """DLA-style backbone over the range image, counterpart of
 ``rangedet_tpu/models/dla_backbone.py`` (reference
 rangedet/symbol/backbone/dla_backbone.py:13-175), (B, H, C, W). Train and
-eval follow ``self.training``. The Meta-Kernel block trains in the fused
-form when ``use_pallas_meta`` is set (the JAX MetaBlock with use_pallas=True,
-layout "bhcw": ``ops/meta_block.py``); otherwise, and always in eval, it is
-the materialized form, differentiated by autograd.
+eval follow ``self.training``. With ``use_pallas_meta`` the Meta-Kernel
+block trains in the fused form (the JAX MetaBlock with use_pallas=True,
+layout "bhcw": ``ops/meta_block.py``) and evaluates in the materialized form
+with the taps from their kernel (the JAX MetaKernel with use_pallas=True,
+layout "nhwc": ``ops/meta_kernel.py``). Without it the block is the
+materialized form with the taps' plain version, differentiated by autograd.
 
 The network downsamples the width only (stride (1, 2) at res2a, res2,
 res3a, res3) and re-aggregates with deconv "agg" nodes into per-stride
@@ -60,8 +62,10 @@ class MetaBlock(nn.Module):
     (``rangedet_tpu/models/dla_backbone.py:137-168``): the kernels' channel
     sums, meta_bn as a BatchNormFold, then the aggregation straight from
     the recomputed taps, so the (B, H, 9C, W) tensor never exists. Eval
-    keeps the materialized form, as the JAX block does. The parameters are
-    the same in both forms."""
+    keeps the materialized form, as the JAX block does, and takes the taps
+    from their kernel (``MetaKernelTaps``, as JAX's nhwc block with
+    use_pallas does): kernel 7 -> meta_bn (running statistics) -> relu ->
+    meta_agg. The parameters are the same in every form."""
 
     def __init__(self, channel_list: Sequence[int], features: int,
                  dtype: torch.dtype = torch.bfloat16,
@@ -70,7 +74,7 @@ class MetaBlock(nn.Module):
         c = channel_list[-1]
         self.dtype = dtype
         self.use_pallas_meta = use_pallas_meta
-        self.meta_kernel = MetaKernel(channel_list, dtype)
+        self.meta_kernel = MetaKernel(channel_list, dtype, use_pallas_meta)
         self.meta_bn = BatchNorm(9 * c, dtype)
         self.meta_agg = ConvNormRelu(9 * c, features, kernel=1, dtype=dtype)
 

@@ -97,3 +97,112 @@ def max_iou_vs_gt(proposals_corners: torch.Tensor, gt_corners: torch.Tensor,
     iou = torch.where(torch.isfinite(iou), iou, torch.zeros_like(iou))
     iou = torch.where((iou < 0) | (iou > 1), torch.zeros_like(iou), iou)
     return iou.amax(dim=-1)
+
+
+# ------------------------------------------------ the evaluator's variant
+def _pseudo_angle(dx: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """Monotone surrogate for atan2(dy, dx): maps the angle to [0, 4)."""
+    t = dx / torch.clamp(dx.abs() + dy.abs(), min=EPS)
+    return torch.where(dy >= 0, 1.0 - t, 3.0 + t)
+
+
+def _quad_intersection_area_candidates(a: torch.Tensor, b: torch.Tensor
+                                       ) -> torch.Tensor:
+    """The candidate-vertex formulation (``rangedet_tpu/ops/rotated_iou.py:
+    _quad_intersection_area_candidates``, the reference's algorithm): the
+    16 edge-pair intersections and the corners of each quad inside the
+    other (boundary-inclusive, relative tolerance), ordered by pseudo-angle
+    around their centroid (stable, ties by index), fan area."""
+    a, b = torch.broadcast_tensors(a.float(), b.float())
+    a1, b1 = torch.roll(a, -1, dims=-2), torch.roll(b, -1, dims=-2)
+    p0x, p0y = a[..., :, None, 0], a[..., :, None, 1]
+    p1x, p1y = a1[..., :, None, 0], a1[..., :, None, 1]
+    q0x, q0y = b[..., None, :, 0], b[..., None, :, 1]
+    q1x, q1y = b1[..., None, :, 0], b1[..., None, :, 1]
+    A1, B1 = p1y - p0y, p0x - p1x
+    C1 = A1 * p0x + B1 * p0y
+    A2, B2 = q1y - q0y, q0x - q1x
+    C2 = A2 * q0x + B2 * q0y
+    det = A1 * B2 - A2 * B1
+    nondeg = det.abs() > EPS
+    safe = torch.where(nondeg, det, torch.ones_like(det))
+    ix = (B2 * C1 - B1 * C2) / safe
+    iy = (A1 * C2 - A2 * C1) / safe
+
+    def on_segment(x, y, sx0, sy0, sx1, sy1):
+        return ((torch.minimum(sx0, sx1) <= x + EPS)
+                & (torch.maximum(sx0, sx1) >= x - EPS)
+                & (torch.minimum(sy0, sy1) <= y + EPS)
+                & (torch.maximum(sy0, sy1) >= y - EPS))
+
+    inter_valid = (nondeg & on_segment(ix, iy, p0x, p0y, p1x, p1y)
+                   & on_segment(ix, iy, q0x, q0y, q1x, q1y))
+    batch = ix.shape[:-2]
+    inter = torch.stack([ix, iy], dim=-1).reshape(batch + (16, 2))
+    inter_valid = inter_valid.reshape(batch + (16,))
+
+    def corners_inside(quad, pts):
+        c0 = quad[..., None, :, :]
+        c1 = torch.roll(quad, -1, dims=-2)[..., None, :, :]
+        ex, ey = c1[..., 0] - c0[..., 0], c1[..., 1] - c0[..., 1]
+        rx = pts[..., :, None, 0] - c0[..., 0]
+        ry = pts[..., :, None, 1] - c0[..., 1]
+        pos = ex * ry - ey * rx
+        tol = 1e-5 * torch.sqrt((ex * ex + ey * ey) * (rx * rx + ry * ry)) + EPS
+        return ~((pos > tol).any(dim=-1) & (pos < -tol).any(dim=-1))
+
+    pts = torch.cat([inter, b, a], dim=-2)  # (..., 24, 2)
+    valid = torch.cat([inter_valid, corners_inside(a, b),
+                       corners_inside(b, a)], dim=-1)
+    cnt = valid.sum(dim=-1)
+    wsum = torch.where(valid[..., None], pts, torch.zeros_like(pts)).sum(-2)
+    center = wsum / torch.clamp(cnt, min=1)[..., None]
+    q = pts - center[..., None, :]
+    keys = torch.where(valid, _pseudo_angle(q[..., 0], q[..., 1]),
+                       torch.full_like(q[..., 0], float("inf")))
+    order = torch.argsort(keys, dim=-1, stable=True)
+    qs = torch.gather(q, -2, order[..., None].expand(q.shape))
+    vs = torch.gather(valid, -1, order)
+    # the valid vertices come first, in angular order; each one's successor
+    # is the next, the last one's the first
+    n = q.shape[-2]
+    idx = torch.arange(n, device=q.device)
+    nxt = torch.where(idx[None] + 1 < cnt[..., None], idx + 1,
+                      torch.zeros_like(idx)).reshape(batch + (n,))
+    qn = torch.gather(qs, -2, nxt[..., None].expand(qs.shape))
+    tri = qs[..., 0] * qn[..., 1] - qs[..., 1] * qn[..., 0]
+    return torch.where(vs, tri, torch.zeros_like(tri)).sum(dim=-1).abs() / 2.0
+
+
+def iou_bev_matrix_robust(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """All-pairs BEV IoU via the candidate-vertex formulation: a (N, 4, 2),
+    b (M, 4, 2) -> (N, M) in [0, 1]; for the host-side evaluator
+    (``eval/ap.py``), as ``rangedet_tpu/ops/rotated_iou.py:
+    iou_bev_matrix_robust``."""
+    inter = _quad_intersection_area_candidates(a[:, None], b[None, :])
+    sa = polygon_area(a.float()).abs()[:, None]
+    sb = polygon_area(b.float()).abs()[None, :]
+    iou = torch.clamp(inter / torch.clamp(sa + sb - inter, min=EPS), 0.0, 1.0)
+    return torch.where((sa < EPS) | (sb < EPS), torch.zeros_like(iou), iou)
+
+
+def iou_3d_csa_robust(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """3D IoU of csa7 boxes (..., 7), broadcast -> (...), with the BEV
+    overlap of the candidate-vertex formulation (``rangedet_tpu/ops/
+    rotated_iou.py:iou_3d_csa_robust``)."""
+    from .boxes import csa_to_corners_bev
+
+    a, b = a.float(), b.float()
+    ca, cb = csa_to_corners_bev(a), csa_to_corners_bev(b)
+    sa = a[..., 3] * a[..., 4] * a[..., 5]
+    sb = b[..., 3] * b[..., 4] * b[..., 5]
+    s_overlap = torch.minimum(
+        _quad_intersection_area_candidates(ca, cb),
+        torch.minimum(polygon_area(ca).abs(), polygon_area(cb).abs()))
+    h_overlap = torch.clamp(
+        torch.minimum(a[..., 2] + a[..., 5] / 2, b[..., 2] + b[..., 5] / 2)
+        - torch.maximum(a[..., 2] - a[..., 5] / 2, b[..., 2] - b[..., 5] / 2),
+        min=0.0)
+    inter = s_overlap * h_overlap
+    iou = torch.clamp(inter / torch.clamp(sa + sb - inter, min=EPS), 0.0, 1.0)
+    return torch.where((sa < EPS) | (sb < EPS), torch.zeros_like(iou), iou)

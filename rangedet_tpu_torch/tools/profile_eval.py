@@ -5,9 +5,12 @@ of a recipe, seeded random weights, under ``torch.profiler``.
         [--out profile_b4.txt]
 
 Prints the wall time of the profiled steps, the device time of the forward
-and of the post-processing (top-k, decode, WNMS) ranges, the device busy
+and of the post-processing (top-k, decode, WNMS) ranges and of the
+forward's Meta-Kernel block (the "meta_block" range), the device busy
 share, and the kernels by total device time; writes the full table to
-``--out``. Needs a CUDA card.
+``--out``. It profiles the recipe as it ships (``use_pallas_meta``: the
+Meta-Kernel's taps from their kernel), then the same step with the taps'
+plain version, for its range line. Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ from torch.profiler import ProfilerActivity, profile, record_function
 RECIPE = "rangedet_veh_wo_aug_4_18e"
 ITERS = 5  # profiled steps, after 2 warm-up steps
 SEED = 0
+RANGES = ("forward", "postprocess", "meta_block")
 
 
 def _device_us(evt) -> float:
@@ -33,27 +37,21 @@ def _self_device_us(evt) -> float:
         evt, "self_cuda_time_total", 0.0)
 
 
-def main(argv=None) -> None:
-    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--batch", type=int, default=4)
-    p.add_argument("--out", default=None)
-    args = p.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_eval needs a CUDA card")
-
+def profile_step(cfg, batch_size):
+    """Profile ITERS eval steps after 2 warm-up steps. Returns the wall ms
+    per step, the busy device ms per step, the device ms of each range and
+    the kernel events."""
     from rangedet_tpu_torch.data.synthetic import make_batch
-    from rangedet_tpu_torch.configs import load_config
     from rangedet_tpu_torch.infer import build_eval_inputs
     from rangedet_tpu_torch.models import RangeDet
     from rangedet_tpu_torch.models.detector import run_inference
 
     dev = torch.device("cuda")
-    cfg = load_config(RECIPE, is_train=False)
     model = RangeDet(**cfg.model_kwargs())
     model.init_from(torch.Generator().manual_seed(SEED))
     model = model.to(dev).eval()
     inputs = build_eval_inputs(
-        make_batch(cfg, args.batch, seed=SEED, num_boxes=20), cfg, dev)
+        make_batch(cfg, batch_size, seed=SEED, num_boxes=20), cfg, dev)
 
     def step():
         with torch.inference_mode():
@@ -73,32 +71,57 @@ def main(argv=None) -> None:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / ITERS
 
-    events = prof.key_averages()
-    ranges = {e.key: _device_us(e) / 1e3 / ITERS for e in events
-              if e.key in ("forward", "postprocess")}
+    # a range's device ms: the kernels its host-side range launched
+    ranges = dict.fromkeys(RANGES, 0.0)
+    for e in prof.events():
+        if e.name in RANGES and str(e.device_type).endswith("CPU"):
+            ranges[e.name] += _device_us(e) / 1e3 / ITERS
     # kernels only: the ranges and the aten ops that launched the kernels
     # carry device time too
-    kernels = [e for e in events if e.key not in ranges
+    kernels = [e for e in prof.key_averages() if e.key not in RANGES
                and str(e.device_type).endswith("CUDA")
                and _self_device_us(e) > 0]
     busy_ms = sum(_self_device_us(e) for e in kernels) / 1e3 / ITERS
+    return wall_ms, busy_ms, ranges, kernels
+
+
+def main(argv=None) -> None:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--batch", type=int, default=4)
+    p.add_argument("--out", default=None)
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_eval needs a CUDA card")
+
+    from rangedet_tpu_torch.configs import load_config
+
+    cfg = load_config(RECIPE, is_train=False)
+    forms = [("kernel", cfg)] if cfg.use_pallas_meta else []
+    forms.append(("plain", cfg.replace(use_pallas_meta=False)))
     name = torch.cuda.get_device_name(0)
-    print(f"profile_eval: {RECIPE} B={args.batch} on {name}: wall "
-          f"{wall_ms:.2f} ms/step, device busy {busy_ms:.2f} ms/step "
-          f"({100 * busy_ms / wall_ms:.1f}%), forward range "
-          f"{ranges.get('forward', float('nan')):.2f} ms, postprocess range "
-          f"{ranges.get('postprocess', float('nan')):.2f} ms (device time)")
-    kernels.sort(key=_self_device_us, reverse=True)
-    lines = [f"{'device ms/step':>15} {'share':>6} {'calls/step':>10}  kernel"]
-    for e in kernels:
-        ms = _self_device_us(e) / 1e3 / ITERS
-        lines.append(f"{ms:15.3f} {100 * ms / busy_ms:5.1f}% "
-                     f"{e.count / ITERS:10.1f}  {e.key[:110]}")
-    print("\n".join(lines[:26]))
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-        with open(args.out, "w") as f:
-            f.write("\n".join(lines) + "\n")
+    for i, (form, c) in enumerate(forms):
+        wall_ms, busy_ms, ranges, kernels = profile_step(c, args.batch)
+        print(f"profile_eval: {RECIPE} B={args.batch}, Meta-Kernel taps "
+              f"{form}, on {name}: wall {wall_ms:.2f} ms/step, device busy "
+              f"{busy_ms:.2f} ms/step ({100 * busy_ms / wall_ms:.1f}%), "
+              f"device ms by range: forward {ranges['forward']:.2f}, "
+              f"postprocess {ranges['postprocess']:.2f}, meta_block "
+              f"{ranges['meta_block']:.2f} (of the forward)")
+        if i:  # the kernel table of the recipe's own step only
+            continue
+        kernels.sort(key=_self_device_us, reverse=True)
+        lines = [f"{'device ms/step':>15} {'share':>6} {'calls/step':>10}  "
+                 f"kernel"]
+        for e in kernels:
+            ms = _self_device_us(e) / 1e3 / ITERS
+            lines.append(f"{ms:15.3f} {100 * ms / busy_ms:5.1f}% "
+                         f"{e.count / ITERS:10.1f}  {e.key[:110]}")
+        print("\n".join(lines[:26]))
+        if args.out:
+            os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                        exist_ok=True)
+            with open(args.out, "w") as f:
+                f.write("\n".join(lines) + "\n")
 
 
 if __name__ == "__main__":

@@ -1,14 +1,23 @@
 """Inference entry point of the PyTorch port, counterpart of
 ``tools/test.py``: forward, top-k, decode and weighted NMS per batch of
 frames, written as the two-dump prediction pickle (annotation dict, then
-output dict) that ``tools/create_prediction_bin_3d.py`` reads.
+output dict) that ``tools/create_prediction_bin_3d.py`` and
+``tools/evaluate_pred.py`` read.
 
     python -m rangedet_tpu_torch.tools.test --config rangedet_veh_wo_aug_4_18e \
-        --synthetic 2 [--batch 1] [--device cuda] [--weights w.npz] [--output p.pkl]
+        --data-root DIR [--image-set validation] [--batch 4] \
+        [--experiment-dir DIR] [--epoch N | --weights w.npz] [--device cuda] \
+        [--output p.pkl]
+    python -m rangedet_tpu_torch.tools.test --config ... --synthetic 2
 
-Without ``--weights`` (a flat .npz of the JAX parameter tree, see
-``rangedet_tpu_torch/convert.py``) the model is initialised from a fixed
-seed.
+Frames come from the roidb files under ``DATA_ROOT/<image set>/*.roidb``
+and the per-frame ``.npz`` files they name (``data/waymo.py``), or, with
+``--synthetic N`` or no data root, from N seeded synthetic frames. They
+run in batches of ``--batch``, the last one padded with copies of its last
+frame. Weights come from ``--weights`` (a flat .npz of the JAX parameter
+tree, see ``rangedet_tpu_torch/convert.py``), else from the port's
+checkpoint of ``--epoch`` (default: the latest) under the experiment
+directory, else from a fixed seed; the run prints which.
 """
 from __future__ import annotations
 
@@ -27,51 +36,129 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(description="Run RangeDet inference (PyTorch)")
     p.add_argument("--config", required=True,
                    help="recipe name or path to a recipe .py")
-    p.add_argument("--synthetic", type=int, default=4,
-                   help="number of synthetic frames to run")
+    p.add_argument("--data-root", default=None,
+                   help="override cfg.data_root (roidb + npz files)")
+    p.add_argument("--image-set", default=None,
+                   help="override cfg.image_set (e.g. validation)")
+    p.add_argument("--synthetic", type=int, default=0,
+                   help="run on N synthetic frames instead of a dataset "
+                        "(4 when there is no data root)")
     p.add_argument("--batch", type=int, default=1, help="frames per step")
-    p.add_argument("--output", default=None, help="output pickle path")
-    p.add_argument("--device", default="cuda")
+    p.add_argument("--experiment-dir", default=None,
+                   help="override cfg.experiment_dir (checkpoint root)")
+    p.add_argument("--epoch", type=int, default=None,
+                   help="checkpoint epoch (default: the latest)")
     p.add_argument("--weights", default=None,
                    help=".npz of the JAX parameter tree (convert.save_npz)")
+    p.add_argument("--output", default=None, help="output pickle path")
+    p.add_argument("--device", default="cuda")
     return p.parse_args(argv)
+
+
+def load_weights(model, cfg, weights=None, epoch=None) -> str:
+    """Set the model's weights from ``weights`` (npz), else the port's
+    checkpoint of ``epoch`` or the latest, else the seeded init. Returns
+    what it used."""
+    from rangedet_tpu_torch.convert import load_npz
+    from rangedet_tpu_torch.train.checkpoint import (
+        checkpoint_path,
+        restore_checkpoint,
+    )
+
+    if weights:
+        model.load_state_dict(load_npz(weights), strict=True)
+        return f"weights: {weights}"
+    _, ep = restore_checkpoint(model, cfg, epoch)
+    if ep is not None:
+        return f"weights: checkpoint epoch {ep} ({checkpoint_path(cfg, ep)})"
+    model.init_from(torch.Generator().manual_seed(INIT_SEED))
+    return f"weights: seeded init ({INIT_SEED}), no checkpoint in " \
+           f"{os.path.join(cfg.experiment_dir, cfg.name)}"
+
+
+def frame_source(cfg, synthetic: int):
+    """(number of frames, iterator of (rec_id, batch of one frame,
+    annotation dict)) from synthetic frames or from cfg.data_root."""
+    if synthetic or not cfg.data_root:
+        from rangedet_tpu_torch.data.synthetic import make_batch
+
+        n = synthetic or 4
+        return n, ((f"synthetic_{i}", make_batch(cfg, 1, seed=i), {})
+                   for i in range(n))
+    from rangedet_tpu_torch.data.waymo import load_roidbs, record_to_inputs
+
+    roidb = load_roidbs(cfg.data_root, cfg.image_set, 1, None)
+
+    def frames():
+        for rec in roidb:
+            b = record_to_inputs(rec, cfg.pad_field, cfg.max_gt_boxes)
+            anno = {
+                "gt_bbox_csa": np.asarray(
+                    rec.get("gt_bbox_csa", np.zeros((0, 7)))),
+                "gt_class": np.asarray(rec.get("gt_class", np.zeros(0))),
+                "points_in_box": np.asarray(
+                    rec.get("points_in_box", np.zeros(0))),
+            }
+            if isinstance(rec.get("meta_info"), dict):
+                anno["meta_info"] = rec["meta_info"]
+            yield (rec.get("rec_id", rec.get("pc_url", "?")),
+                   {k: v[None] for k, v in b.items()}, anno)
+
+    return len(roidb), frames()
+
+
+def batched(frames, batch: int):
+    """Groups of ``batch`` frames, the host preparing the next ones in a
+    background thread; the tail group padded with copies of its last frame.
+    Yields (group, number of real frames)."""
+    from rangedet_tpu_torch.data.prefetch import threaded_prefetch
+
+    buf = []
+    for item in threaded_prefetch(frames, depth=2 * batch):
+        buf.append(item)
+        if len(buf) == batch:
+            yield buf, batch
+            buf = []
+    if buf:
+        real = len(buf)
+        yield buf + [buf[-1]] * (batch - real), real
 
 
 def main(argv=None) -> str:
     args = parse_args(argv)
-    from rangedet_tpu_torch.data.synthetic import make_batch
     from rangedet_tpu_torch.configs import load_config
-    from rangedet_tpu_torch.convert import load_npz
     from rangedet_tpu_torch.infer import build_eval_inputs, make_eval_step
     from rangedet_tpu_torch.models import RangeDet
 
     device = torch.device(args.device)
     cfg = load_config(args.config, is_train=False)
+    if args.data_root:
+        cfg = cfg.replace(data_root=args.data_root)
+    if args.experiment_dir:
+        cfg = cfg.replace(experiment_dir=args.experiment_dir)
+    if args.image_set:
+        cfg = cfg.replace(image_set=(args.image_set,))
     model = RangeDet(**cfg.model_kwargs())
-    if args.weights:
-        model.load_state_dict(load_npz(args.weights), strict=True)
-        print(f"weights: {args.weights}")
-    else:
-        model.init_from(torch.Generator().manual_seed(INIT_SEED))
-        print(f"weights: seeded init ({INIT_SEED})")
+    print(load_weights(model, cfg, args.weights, args.epoch))
     model = model.to(device).eval()
     eval_step = make_eval_step(model, cfg)
+    n_frames, frames = frame_source(cfg, args.synthetic)
+    print(f"{n_frames} eval frames")
 
-    frames = [(f"synthetic_{i}", i) for i in range(args.synthetic)]
     output_dict, annotation_dict = {}, {}
-    n_truncated = 0
+    n = n_truncated = 0
     t0 = time.perf_counter()
-    for start in range(0, len(frames), args.batch):
-        group = frames[start:start + args.batch]
-        real = len(group)
-        group = group + [group[-1]] * (args.batch - real)  # pad the tail
-        raw = [make_batch(cfg, 1, seed=seed) for _, seed in group]
-        stacked = {k: np.concatenate([b[k] for b in raw]) for k in raw[0]}
+    for group, real in batched(frames, args.batch):
+        stacked = {k: np.concatenate([b[k] for _, b, _ in group])
+                   for k in group[0][1]}
         out = eval_step(build_eval_inputs(stacked, cfg, device))
+        # the reference pickle contract (create_prediction_bin_3d.py:85-97):
+        # per frame {'det_xyzlwhyaws': {class: (N, 8) [x,y,z,l,w,h,yaw,
+        # score]}, 'meta_info': {'name', 'timestamp_micros'}}
         out = {c: {k: v.cpu().numpy() for k, v in r.items()}
                for c, r in out.items()}
         for j in range(real):
-            rec_id = group[j][0]
+            rec_id, _, anno = group[j]
             det, truncated = {}, False
             for cls_name, res in out.items():
                 det[cls_name] = res["boxes"][j][res["valid"][j]][
@@ -80,12 +167,13 @@ def main(argv=None) -> str:
             n_truncated += truncated
             output_dict[rec_id] = {
                 "det_xyzlwhyaws": det,
-                "meta_info": {"name": rec_id, "timestamp_micros": 0},
+                "meta_info": anno.get(
+                    "meta_info", {"name": str(rec_id), "timestamp_micros": 0}),
                 "truncated": truncated,
             }
-            annotation_dict[rec_id] = {}
+            annotation_dict[rec_id] = anno
+            n += 1
     dt = time.perf_counter() - t0
-    n = len(frames)
     print(f"{n} frames in {dt:.1f}s on {device} (batch {args.batch}); "
           f"{n_truncated} flagged truncated (device_topk cap bound)")
 

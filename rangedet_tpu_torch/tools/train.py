@@ -2,7 +2,7 @@
 on synthetic scenes:
 
     python -m rangedet_tpu_torch.tools.train --config rangedet_veh_wo_aug_4_18e \
-        --synthetic 4 --steps 3 [--device cuda]
+        --synthetic 4 --steps 3 [--experiment-dir DIR] [--device cuda]
 
 The weights are a seeded random init. ``--synthetic N`` makes N frames
 (seeds 0..N-1, ``data/synthetic.py``), grouped into batches of the
@@ -10,8 +10,11 @@ recipe's ``batch_image``; step i trains on batch i mod (N / batch_image).
 The LR follows the recipe's schedule over ``end_epoch`` epochs of
 ``STEPS_PER_EPOCH`` steps, rescaled as ``tools/train.py`` does when
 ``auto_scale_lr`` is set (base_lr * global batch / 16). Each step prints
-its losses. Checkpoints, resume and in-training evaluation are not ported
-yet.
+its losses. A checkpoint (``train/checkpoint.py``) is written under the
+experiment directory at the end of every ``checkpoint_every_epochs``-th
+epoch and at the end of the run, as epoch (steps - 1) // STEPS_PER_EPOCH.
+Resume and evaluation during training are not ported yet;
+``build_validation`` is the in-process validation they will call.
 """
 from __future__ import annotations
 
@@ -32,16 +35,19 @@ def parse_args(argv=None):
     p.add_argument("--synthetic", type=int, default=4,
                    help="number of synthetic frames to cycle through")
     p.add_argument("--steps", type=int, default=10, help="steps to run")
+    p.add_argument("--experiment-dir", default=None,
+                   help="override cfg.experiment_dir (checkpoint root)")
     p.add_argument("--device", default="cuda")
     return p.parse_args(argv)
 
 
 def main(argv=None):
-    """Returns the list of per-step metrics (floats)."""
+    """Returns (per-step metrics as floats, the TrainState)."""
     args = parse_args(argv)
     from rangedet_tpu_torch.configs import load_config
     from rangedet_tpu_torch.data.synthetic import make_batch
     from rangedet_tpu_torch.models import RangeDet
+    from rangedet_tpu_torch.train.checkpoint import save_checkpoint
     from rangedet_tpu_torch.train.state import create_train_state
     from rangedet_tpu_torch.train.train_step import (
         batch_to_device,
@@ -50,6 +56,8 @@ def main(argv=None):
 
     device = torch.device(args.device)
     cfg = load_config(args.config, is_train=True)
+    if args.experiment_dir:
+        cfg = cfg.replace(experiment_dir=args.experiment_dir)
     if cfg.auto_scale_lr:  # one device: global batch = batch_image
         cfg = cfg.replace(base_lr=cfg.base_lr * cfg.batch_image / 16.0)
     model = RangeDet(**cfg.model_kwargs())
@@ -82,7 +90,76 @@ def main(argv=None):
         history.append(metrics)
         losses = " ".join(f"{k} {v:.5f}" for k, v in sorted(metrics.items()))
         print(f"step {i}: {losses} ({dt:.1f} ms)")
-    return history
+        epoch, last = divmod(i + 1, STEPS_PER_EPOCH)
+        if (not last and epoch % cfg.checkpoint_every_epochs == 0
+                and i + 1 < args.steps):
+            print(f"saved {save_checkpoint(state, cfg, epoch - 1)}")
+    if args.steps:
+        epoch = (args.steps - 1) // STEPS_PER_EPOCH
+        print(f"saved {save_checkpoint(state, cfg, epoch)}")
+    return history, state
+
+
+def build_validation(model, cfg, synthetic: bool, data_root: str = "",
+                     n_frames: int = 8):
+    """A reusable in-process validation runner, counterpart of
+    ``tools/train.py:build_validation``: synthetic vehicle scenes when
+    ``synthetic`` or there is no data root, else the first ``n_frames``
+    frames of ``data_root``'s validation split. run() evaluates the model
+    in eval mode (and restores its mode) at the WOD operating points
+    (cfg.eval_iou_thresh, cfg.eval_iou_mode) and returns {class: {ap,
+    recall, precision}}. The JAX package's device cache is not ported."""
+    from rangedet_tpu_torch.eval.evaluator import evaluate
+    from rangedet_tpu_torch.infer import make_eval_step
+
+    cfg_t = cfg.replace(is_train=False, data_root=data_root or cfg.data_root)
+    eval_step = make_eval_step(model, cfg_t)
+    enum_of = {"veh": 1.0, "ped": 2.0, "cyc": 4.0}
+
+    if synthetic or not cfg_t.data_root:
+        from rangedet_tpu_torch.data.synthetic import make_batch
+
+        def frames():
+            for i in range(n_frames):
+                b = make_batch(cfg_t, 1, seed=90000 + i, num_boxes=8,
+                               style="vehicles")
+                valid = b["gt_valid"][0] > 0
+                gt = {
+                    name: b["gt_csa"][0][
+                        valid & (b["gt_class"][0] == enum_of.get(name, 1.0))
+                    ]
+                    for name in cfg.class_names
+                }
+                yield b, gt
+    else:
+        from rangedet_tpu_torch.data.waymo import load_roidbs, record_to_inputs
+
+        roidb = load_roidbs(cfg_t.data_root, "validation", 1,
+                            cfg.filter_class)[:n_frames]
+
+        def gt_of(rec):
+            cls = np.asarray(rec.get("gt_class", np.zeros(0))).reshape(-1)
+            csa = np.asarray(
+                rec.get("gt_bbox_csa", np.zeros((0, 7)))).reshape(-1, 7)
+            return {name: csa[cls == enum_of.get(name, 1.0)]
+                    for name in cfg.class_names}
+
+        def frames():
+            for rec in roidb:
+                b = record_to_inputs(rec, cfg.pad_field, cfg.max_gt_boxes)
+                yield {k: v[None] for k, v in b.items()}, gt_of(rec)
+
+    def run():
+        was_training = model.training
+        model.eval()
+        try:
+            return evaluate(model, cfg_t, frames(),
+                            iou_thresh=cfg.eval_iou_thresh,
+                            mode=cfg.eval_iou_mode, eval_step=eval_step)
+        finally:
+            model.train(was_training)
+
+    return run
 
 
 if __name__ == "__main__":
