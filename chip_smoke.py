@@ -23,7 +23,10 @@ Phases, one line of output each (or a table), failing on the first error:
    deconv backward through the autograd Function, the IoU target at each
    level, and every launch of the Meta-Kernel block's kernels (meta_stats,
    meta_agg, the block backward in both modes) on the inputs the step gave
-   it; max error, kernel ms, plain ms, cuDNN ms and the bound;
+   it; max error, kernel ms, plain ms, cuDNN ms and the bound; for the
+   wgrad also TFLOP/s, the share of the bound, the device time of its
+   prologue and of its GEMM, the GEMM's registers and spills, and its sum
+   over the step against cuDNN's, which must stay within WGRAD_CUDNN_MAX;
 6. the full-size train step at B=2: launches per step against the counts
    the config implies, gradients of the kernel path against the plain path
    and of both bf16 paths against an f32 step, the same gates shown to
@@ -100,6 +103,10 @@ HEAD_GRAD_TOL = 0.14
 MEDIAN_TOL = 0.71
 CONV_MEDIAN_TOL = 0.81
 STEPS_PER_EPOCH = 100
+# the wgrad kernel summed over one B=2 step against cuDNN's conv2d_weight
+# at the same shapes, in the same run: at most this factor (the earlier
+# mma.sync kernel read 12.4, this one about 1.6; PERF.md)
+WGRAD_CUDNN_MAX = 4.0
 # kernel 7 against the plain version in bf16 (the XLA form's counterpart):
 # JAX's own bound between the TPU kernel and that form
 # (tests/test_meta_kernel.py), |a - b| <= TAPS_TOL * (1 + |b|). Where the
@@ -184,6 +191,25 @@ def meta_units(cfg):
 
     return len(DEFAULT_META_UNITS if cfg.meta_units is None
                else cfg.meta_units)
+
+
+def ptxas_report(log, kernel):
+    """Registers and spills of the entry function whose name contains
+    ``kernel``, from an ``nvcc -Xptxas -v`` log."""
+    found, spill, regs = False, None, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            found = kernel in line
+        elif found and "spill stores" in line:
+            spill = line.strip()
+        elif found and "Used" in line and "registers" in line:
+            regs = line.split("Used", 1)[1].split(",")[0].strip()
+            break
+    if regs is None:
+        return "not in this run's build log (library built earlier)"
+    ignored = "setmaxnreg ignored" in log
+    return (f"{regs} at launch, setmaxnreg "
+            f"{'IGNORED' if ignored else 'applied'}; {spill}")
 
 
 def _rel(a, b):
@@ -326,6 +352,11 @@ def meta_work(kind, B, H, W, C, Cm, Co):
 
 
 def phase5(torch, conv3x3, iou_mod, layers, meta, recorded, H, dev):
+    from rangedet_tpu_torch import _build
+    from rangedet_tpu_torch.tools.profile_wgrad import (
+        device_ms as wgrad_device_ms,
+    )
+
     F = torch.nn.functional
     fwd, dgrad, wgrad, deconv, iou, metas = recorded
     g = torch.Generator(device=dev).manual_seed(SEED + 5)
@@ -424,7 +455,10 @@ def phase5(torch, conv3x3, iou_mod, layers, meta, recorded, H, dev):
               f"{c_ms:9.4f} {bound[0]:10.4f}")
 
     print("[5] kernel  B    Ci    Co     W ingest cot   n  max_abs_err"
-          "  max_rel_err  kernel_ms   plain_ms  cudnn_ms   bound_ms")
+          "  max_rel_err  kernel_ms   plain_ms  cudnn_ms   bound_ms"
+          "  TFLOP/s of_bound")
+    prologue_ms = device_ms = 0.0
+    measured = 0  # launches whose device time the profiler read
     for (B, Ci, Co, W, ingest, cot), n in sorted(wgrad.items()):
         x = rn(B, H, Ci, W).bfloat16()
         gy = rn(B, H, Co, W).bfloat16()
@@ -447,14 +481,42 @@ def phase5(torch, conv3x3, iou_mod, layers, meta, recorded, H, dev):
         xn, gn = channels_last(x), channels_last(gy)
         c_ms = _time_ms(lambda: torch.nn.grad.conv2d_weight(
             xn, (Co, Ci, 3, 3), gn, padding=1))
+        dev_ms = wgrad_device_ms(
+            lambda: conv3x3.conv3x3_wgrad(x, gy, sc, bi, cots))
+        flops = 2 * B * H * W * Ci * Co * 9
         bound = _bound_ms(
-            2 * B * H * W * Ci * Co * 9,
+            flops,
             2 * B * H * (Ci + Co * (2 if cot else 1)) * W + 4 * 9 * Ci * Co,
             PEAK_BF16)
         totals["wgrad"].add(n, k_ms, p_ms, bound, c_ms, err)
         print(f"[5] wgrad {B:2d} {Ci:5d} {Co:5d} {W:5d} {int(ingest):6d} "
               f"{int(cot):3d} {n:3d} {err:12.6g} {rel:12.6g} {k_ms:10.4f} "
-              f"{p_ms:10.4f} {c_ms:9.4f} {bound[0]:10.4f}")
+              f"{p_ms:10.4f} {c_ms:9.4f} {bound[0]:10.4f} "
+              f"{flops / k_ms / 1e9:8.1f} {bound[0] / k_ms:8.1%}")
+        if dev_ms is None:
+            print("[5]   device time per call: not measured (the profiler "
+                  "saw none of its kernels)")
+            continue
+        pro_ms, gemm_ms = dev_ms
+        prologue_ms += n * pro_ms
+        device_ms += n * (pro_ms + gemm_ms)
+        measured += n
+        print(f"[5]   device time per call: prologue {pro_ms:.4f} ms, GEMM "
+              f"+ reduction {gemm_ms:.4f} ms "
+              f"({flops / gemm_ms / 1e9:.1f} TFLOP/s)")
+    t = totals["wgrad"]
+    regs = ptxas_report(_build.build_log, "conv3x3_wgrad_kernel")
+    print(f"[5] wgrad over the step: kernel {t.ms:.3f} ms / cuDNN "
+          f"{t.library_ms:.3f} ms = {t.ms / t.library_ms:.2f}x (limit "
+          f"{WGRAD_CUDNN_MAX}); bound {t.bound_ms:.3f} ms = "
+          f"{t.bound_ms / t.ms:.1%} of the kernel's time; device time "
+          f"(profiler) over {measured} of the {t.n} launches "
+          f"{device_ms:.3f} ms, of which the prologue {prologue_ms:.3f} ms "
+          f"= {prologue_ms / max(device_ms, 1e-9):.1%}; GEMM kernel "
+          f"(ptxas) {regs}")
+    if not t.ms <= WGRAD_CUDNN_MAX * t.library_ms:
+        fail(f"wgrad summed over the step takes {t.ms / t.library_ms:.2f}x "
+             f"cuDNN's conv2d_weight, more than {WGRAD_CUDNN_MAX}x")
 
     # the stride-2 and the deconv backward, through the autograd Function
     def grads_both(fn, inputs):
@@ -888,7 +950,7 @@ def phase7_files(torch, m, cfg, dev):
         meta.reset_counts()
         taps.reset_counts()
         hist, state = m["train_cli"].main([
-            "--config", RECIPE, "--synthetic", "2", "--steps", "2",
+            "--config", RECIPE, "--synthetic", "--steps", "2",
             "--experiment-dir", exp, "--device", dev.type])
         torch.cuda.synchronize()
         if len(hist) != 2 or not all(math.isfinite(h["total_loss"])

@@ -42,13 +42,13 @@ def _nvcc() -> str:
     return path
 
 
-def _sources():
-    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+def _sources(csrc: Path = CSRC):
+    return sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh"))
 
 
-def library_path() -> Path:
+def library_path(csrc: Path = CSRC) -> Path:
     h = hashlib.sha256()
-    for src in _sources():
+    for src in _sources(csrc):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -56,11 +56,11 @@ def library_path() -> Path:
     return BUILD_DIR / f"libtorch_kernels_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the sources unless a library for this exact source hash
-    exists. Returns the library's path."""
+def build(csrc: Path = CSRC) -> Path:
+    """Compile the sources in ``csrc`` unless a library for this exact
+    source hash exists. Returns the library's path."""
     global build_log, build_seconds
-    out = library_path()
+    out = library_path(csrc)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -68,7 +68,7 @@ def build() -> Path:
     nvcc = _nvcc()
     t0 = time.perf_counter()
     jobs = []
-    for src in (s for s in _sources() if s.suffix == ".cu"):
+    for src in (s for s in _sources(csrc) if s.suffix == ".cu"):
         obj = BUILD_DIR / f"{src.stem}.{tag}.o"
         cmd = [nvcc, *NVCC_FLAGS, *EXTRA_FLAGS.get(src.name, []), "-c",
                "-o", str(obj), str(src)]
@@ -102,17 +102,21 @@ def build() -> Path:
 def load() -> ctypes.CDLL:
     """Build if needed, load once, and declare every entry point's types."""
     global _lib
-    if _lib is not None:
-        return _lib
-    lib = ctypes.CDLL(str(build()))
+    if _lib is None:
+        _lib = load_from(CSRC)
+    return _lib
+
+
+def load_from(csrc: Path) -> ctypes.CDLL:
+    """Build the sources in ``csrc`` (a variant of csrc/, for a profiling
+    tool) and bind them; the package's own library is left as it is."""
+    lib = ctypes.CDLL(str(build(csrc)))
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib.conv3x3_bhcw_part_rows.argtypes = [i32] * 4
     lib.conv3x3_bhcw_part_rows.restype = i32
     lib.conv3x3_bhcw_fwd.argtypes = [vp] * 13 + [i32] * 7 + [vp]
     lib.conv3x3_bhcw_fwd.restype = i32
-    lib.conv3x3_wgrad_splits.argtypes = [i32] * 5
-    lib.conv3x3_wgrad_splits.restype = i32
-    lib.conv3x3_wgrad.argtypes = [vp] * 9 + [i32] * 6 + [vp]
+    lib.conv3x3_wgrad.argtypes = [vp] * 11 + [i32] * 10 + [vp]
     lib.conv3x3_wgrad.restype = i32
     lib.iou_target_run.argtypes = [vp] * 5 + [i32] * 2 + [vp]
     lib.iou_target_run.restype = i32
@@ -131,5 +135,4 @@ def load() -> ctypes.CDLL:
     lib.meta_kernel_grid.restype = i32
     lib.meta_kernel_taps.argtypes = [vp] * 7 + [i32] * 4 + [vp]
     lib.meta_kernel_taps.restype = i32
-    _lib = lib
     return lib

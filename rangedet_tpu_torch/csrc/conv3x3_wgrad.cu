@@ -11,178 +11,421 @@
 // the 128-wide MXU; they are not carried over.
 //
 // What bounds it on Hopper: a GEMM with M = 9*Ci, N = Co and a long
-// K = B*H*W (340k at B=2 and full width), so the work is compute-bound at
-// the model's widths, but the output is small: a grid over M and N alone
-// gives 2-64 blocks for 132 SMs. The design splits K: grid (Ci/16, Co/64,
-// S), each block owns 9 taps x 16 input channels x 64 output channels and
-// walks a contiguous run of 64-pixel chunks of one image row, staging the
-// three input rows (ingest applied, three dx-shifted copies so every
-// mma.sync operand load is aligned) and the cotangent row in shared memory
-// and accumulating in f32 registers (mma.sync m16n8k16 bf16). It writes an
-// f32 partial (9, Ci, Co) tile; a second pass adds the S partials in a
-// fixed order, so the result has the same bits on every run (no atomics).
-// S is chosen to put about 8 blocks on each SM. Simple and synchronous: no
-// wgmma, TMA or pipelining yet.
+// K = B*H*W (340k at B=2 and full width): compute-bound at the model's
+// widths (2.27 TFLOP per B=2 train step), with a small output, so the grid
+// over M and N alone gives 1-16 blocks for 132 SMs and K is split. On an
+// H100 the GEMM reaches ~640 TFLOP/s at the largest shapes and the
+// prologue, bound by memory, is ~40 % of the device time (PERF.md).
+//
+// The design, in two prologue kernels, the GEMM and a reduction:
+//
+// 1. Prologue: elementwise passes with the exact operations of the fused
+//    load they replace, so the GEMM's operands are bit-identical to the
+//    plain version's.
+//    - wgrad_ingest_kernel writes a' = ingest(x) (B,H,Ci,Wp) in bf16. Wp
+//      rounds W up to a multiple of 8: TMA needs 16-byte global strides,
+//      which rows of W = 166 or 332 are not. x itself is read in place
+//      when it needs no ingest, W % 8 == 0 and its base is 16-byte aligned.
+//    - wgrad_cot_t_kernel writes g' = cot(gy) transposed, (B,H,W,Cp) with
+//      Cp = Co rounded up to 64 (zero channels), through a 64 x 64 tile in
+//      shared memory so both its reads and its writes are coalesced.
+//
+// 2. GEMM (conv3x3_wgrad_kernel), the dx shift moved to the cotangent:
+//    with w' = w+dx-1,
+//      dW[dy,dx] = sum_{b,h,w'} A_dy[ci, (b,h,w')] G_dx[co, (b,h,w')]
+//      A_dy = a'[b, h+dy-1, ci, w']    G_dx = g'[b, h, co, w'-dx+1]
+//    Every shift is a TMA box coordinate of a 4-D tensor map: A's over
+//    (W, Ci, H, B) shifts the row h+dy-1, G's over (Cp, W, H, B) shifts
+//    the column w0-dx+1. A TMA box must start on 16 bytes in its innermost
+//    dimension, so a one-pixel shift has to fall on an outer one: that is
+//    why g' is transposed. Out-of-range rows and columns come back from
+//    the TMA unit as zeros (the W extent is the true W), which is the
+//    activated-domain padding; no thread builds a shifted copy.
+//    A block owns 9 taps x 64 ci x 64 co and walks a contiguous run of
+//    64-pixel chunks (b, h, w0). Per chunk one producer thread loads six
+//    128B-swizzled 8 KB boxes under one mbarrier: A rows h-1, h, h+1
+//    (64 ci x 64 pixels, K-major) and G row h at columns w0+1, w0, w0-1
+//    (64 pixels x 64 co, N-major), 48 KB, into a ring of 4 stages
+//    (192 KB). Three consumer warpgroups, one per dy, each issue one
+//    wgmma.m64n192k16 per 16-pixel k-step: the three G boxes lie 8 KB
+//    apart and form one N-major operand of 192 columns, so A is read from
+//    shared memory once for the three dx taps, not three times (on the
+//    card the two forms ran the step's GEMMs in the same time). The 96 f32
+//    accumulators a thread hold the three taps; the warpgroup then
+//    releases the stage.
+//    The producer warpgroup gives registers to the consumers (setmaxnreg
+//    40 / 152). Ragged Ci is zero-filled by TMA and masked at the store.
+//
+// 3. Split K, deterministic: the chunks are cut into S contiguous ranges,
+//    S = SMs / tiles so the grid fills the card in one wave; each block
+//    writes an f32 partial (9, Ci, Co) tile and reduce_splits_kernel adds
+//    the S partials in a fixed order (no atomics: repeats are bit-equal).
+//
+// The geometry (Wp, Cp, chunk decode, box coordinates, S and the split
+// ranges) is planned in rangedet_tpu_torch/ops/conv3x3.py:plan_wgrad; the
+// kernel computes the same formulas, and the CPU tests run the plan
+// through a torch emulation of this tile loop.
 
+#include <cuda.h>  // CUtensorMap and its enums; the driver entry is looked up
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int CT = 16;       // input channels per block (mma M tile)
-constexpr int NT = 64;       // output channels per block
-constexpr int KC = 64;       // pixels per chunk (4 mma k-steps)
-constexpr int LDA = KC + 8;  // smem row pitch in bf16
-constexpr int THREADS = 128;
-constexpr int TARGET_BLOCKS = 8 * 132;
+constexpr int BOX_W = 64;                       // pixels per stage (GEMM K)
+constexpr int TILE = 64;                        // ci (wgmma M) = co (N)
+constexpr int STAGES = 4;
+constexpr int BOX_BYTES = TILE * BOX_W * 2;     // 8 KB, 64 rows of 128 B
+constexpr int STAGE_BYTES = 6 * BOX_BYTES;      // 3 A + 3 G boxes
+constexpr int CONSUMERS = 3;                    // warpgroups, one per dy
+constexpr int THREADS = (CONSUMERS + 1) * 128;  // + the producer warpgroup
+constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 2 * STAGES * 8 + 1024;
+constexpr int PRO_THREADS = 256;
+// a wait longer than this many clocks (~10 s) is a deadlock: trap, so the
+// launch fails instead of hanging the card
+constexpr long long WAIT_LIMIT = 20000000000ll;
 
-__device__ __forceinline__ void mma_bf16_16816(float* c, uint32_t a0,
-                                               uint32_t a1, uint32_t a2,
-                                               uint32_t a3, uint32_t b0,
-                                               uint32_t b1) {
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// wait until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  const long long t0 = clock64();
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - t0 > WAIT_LIMIT) __trap();
+  }
+}
+
+// a box of the tensor map at coordinates (c0, c1, c2, c3), innermost
+// first; c0 must start on 16 bytes, the others may be any int (out of
+// range reads zeros)
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of bf16 tiles written by TMA with
+// 128-byte swizzle: rows of 128 B in 8-row atoms of 1024 B (the stride
+// offset, SBO). A is one 64 x 64 K-major tile (rows are ci, pixels
+// contiguous; the leading offset is unused); a 16-pixel k-step is 32 B
+// along the row (+2 in the address field). B is the stage's three G
+// boxes, 64 pixels x 64 co each, N-major (rows are pixels, co
+// contiguous), taken as one 192-wide N: the leading offset (LBO) is the
+// 8 KB from one box to the next; a k-step is 16 rows, 2048 B (+128).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+constexpr uint64_t A_KSTEP = 32 >> 4;
+constexpr uint64_t G_KSTEP = (16 * 128) >> 4;
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keeps the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma
+__device__ __forceinline__ void acc_fence(float (&d)[96]) {
+#pragma unroll
+  for (int i = 0; i < 96; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x 192, f32) += A (64 x 16, K-major) * B (16 x 192, N-major), bf16
+__device__ __forceinline__ void wgmma_64x192x16(float (&d)[96], uint64_t da,
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, "
+      "%74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
+      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, %96, %97, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95])
+      : "l"(da), "l"(db), "r"(1));
 }
 
 struct Args {
-  const __nv_bfloat16* x;   // (B, H, Ci, W)
-  const __nv_bfloat16* gy;  // (B, H, Co, W)
-  const float* scale;       // (Ci,) or null
-  const float* bias;
-  const __nv_bfloat16* cot_y;  // (B, H, Co, W) or null
-  const float* cot_g1;         // (Co,)
-  const float* cot_g2;
   float* part;  // (S, 9, Ci, Co)
-  int H, Ci, W, Co, nwc, chunks;
+  int H, Ci, Co, nwc, chunks;
 };
 
-// The two load-time options are template parameters (no per-element
-// branches); read-only operands load through the read-only cache (__ldg).
-template <bool AFFINE, bool COT>
-__global__ void __launch_bounds__(THREADS) conv3x3_wgrad_kernel(Args p) {
-  // sa[dx][dy][ci][k] = a[h+dy-1][ci0+ci][w0+k+dx-1]; sg[co][k] = g[h][co][w0+k]
-  __shared__ __align__(16) __nv_bfloat16 sa[3 * 3 * CT * LDA];
-  __shared__ __align__(16) __nv_bfloat16 sg[NT * LDA];
+__global__ void __launch_bounds__(THREADS, 1)
+    conv3x3_wgrad_kernel(const __grid_constant__ CUtensorMap map_a,
+                         const __grid_constant__ CUtensorMap map_g,
+                         Args p) {
+  extern __shared__ __align__(1024) uint8_t smem[];
+  const uint32_t base = (smem_u32(smem) + 1023u) & ~1023u;
+  const uint32_t full_bar = base + STAGES * STAGE_BYTES;  // STAGES x 8 B
+  const uint32_t empty_bar = full_bar + STAGES * 8;
 
-  const int H = p.H, Ci = p.Ci, W = p.W, Co = p.Co;
-  const int ci0 = blockIdx.x * CT;
-  const int co0 = blockIdx.y * NT;
+  const int ci0 = blockIdx.x * TILE;
+  const int co0 = blockIdx.y * TILE;
   const int S = gridDim.z;
   const int c_begin = (int)((long long)p.chunks * blockIdx.z / S);
   const int c_end = (int)((long long)p.chunks * (blockIdx.z + 1) / S);
+  const int wg = threadIdx.x / 128;
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;  // output channels warp*16 .. +15
-  const int g = lane >> 2;
-  const int q = lane & 3;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full_bar + 8 * s, 1);
+      mbar_init(empty_bar + 8 * s, CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  float acc[9][2][4];
+  if (wg == CONSUMERS) {
+    // ---- producer warpgroup: one thread keeps the ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x % 128 != 0) return;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int c = c_begin; c < c_end; ++c) {
+      const int bh = c / p.nwc;
+      const int w0 = (c - bh * p.nwc) * BOX_W;
+      const int b = bh / p.H;
+      const int h = bh - b * p.H;
+      mbar_wait(empty_bar + 8 * stage, phase ^ 1);
+      const uint32_t full = full_bar + 8 * stage;
+      const uint32_t st = base + stage * STAGE_BYTES;
+      mbar_expect_tx(full, STAGE_BYTES);
 #pragma unroll
-  for (int t = 0; t < 9; ++t)
+      for (int dy = 0; dy < 3; ++dy)
+        tma_load_4d(st + dy * BOX_BYTES, &map_a, full, w0, ci0, h + dy - 1,
+                    b);
 #pragma unroll
-    for (int n = 0; n < 2; ++n)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[t][n][r] = 0.f;
-
-  const __nv_bfloat16 zero = __float2bfloat16(0.f);
-
-  for (int chunk = c_begin; chunk < c_end; ++chunk) {
-    const int bh = chunk / p.nwc;
-    const int w0 = (chunk - bh * p.nwc) * KC;
-    const int b = bh / H;
-    const int h = bh - b * H;
-    __syncthreads();  // previous chunk's reads are done
-    // ---- a: rows h-1..h+1, columns w0-1 .. w0+KC, ingest applied
-    constexpr int NCOL = KC + 2;
-    for (int e = tid; e < 3 * CT * NCOL; e += THREADS) {
-      const int col = e % NCOL;
-      const int rest = e / NCOL;
-      const int ci = rest % CT;
-      const int dy = rest / CT;
-      const int hh = h + dy - 1;
-      const int gc = w0 - 1 + col;
-      const int cg = ci0 + ci;
-      __nv_bfloat16 v = zero;
-      if (hh >= 0 && hh < H && gc >= 0 && gc < W && cg < Ci) {
-        v = __ldg(p.x + ((size_t)(b * H + hh) * Ci + cg) * W + gc);
-        if (AFFINE) {
-          float f = __fmul_rn(__bfloat162float(v), __ldg(p.scale + cg));
-          f = __fadd_rn(f, __ldg(p.bias + cg));
-          v = __float2bfloat16(fmaxf(f, 0.f));
-        }
-      }
-#pragma unroll
-      for (int dx = 0; dx < 3; ++dx) {
-        const int k = col - dx;
-        if (k >= 0 && k < KC) sa[((dx * 3 + dy) * CT + ci) * LDA + k] = v;
+      for (int dx = 0; dx < 3; ++dx)
+        tma_load_4d(st + (3 + dx) * BOX_BYTES, &map_g, full, co0,
+                    w0 - dx + 1, h, b);
+      if (++stage == STAGES) {
+        stage = 0;
+        phase ^= 1;
       }
     }
-    // ---- g: row h, output channels co0 .. co0+NT-1, cot applied
-    for (int e = tid; e < NT * KC; e += THREADS) {
-      const int k = e % KC;
-      const int co = e / KC;
-      const int gw = w0 + k;
-      const int cg = co0 + co;
-      __nv_bfloat16 v = zero;
-      if (gw < W && cg < Co) {
-        const size_t idx = ((size_t)bh * Co + cg) * W + gw;
-        v = __ldg(p.gy + idx);
-        if (COT) {
-          const float t = __fmul_rn(
-              2.f * __bfloat162float(__ldg(p.cot_y + idx)),
-              __ldg(p.cot_g2 + cg));
-          v = __float2bfloat16(__fadd_rn(
-              __fadd_rn(__bfloat162float(v), __ldg(p.cot_g1 + cg)), t));
-        }
-      }
-      sg[co * LDA + k] = v;
-    }
-    __syncthreads();
+  } else {
+    // ---- consumers: warpgroup dy, accumulators for dx = 0, 1, 2
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 152;\n");
+    const int dy = wg;
+    // columns 64*dx + co - co0 of the 192-wide product hold tap (dy, dx)
+    float acc[96];
+#pragma unroll
+    for (int i = 0; i < 96; ++i) acc[i] = 0.f;
 
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int c = c_begin; c < c_end; ++c) {
+      mbar_wait(full_bar + 8 * stage, phase);
+      const uint32_t st = base + stage * STAGE_BYTES;
+      const uint64_t da = sw128_desc(st + dy * BOX_BYTES, 16);
+      const uint64_t dg = sw128_desc(st + 3 * BOX_BYTES, BOX_BYTES);
+      acc_fence(acc);
+      wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < KC; kk += 16) {
-      uint32_t bf[2][2];
-#pragma unroll
-      for (int n = 0; n < 2; ++n) {
-        const __nv_bfloat16* pb = &sg[(warp * 16 + n * 8 + g) * LDA + kk + 2 * q];
-        bf[n][0] = *reinterpret_cast<const uint32_t*>(pb);
-        bf[n][1] = *reinterpret_cast<const uint32_t*>(pb + 8);
+      for (int kk = 0; kk < BOX_W / 16; ++kk)
+        wgmma_64x192x16(acc, da + A_KSTEP * kk, dg + G_KSTEP * kk);
+      wgmma_commit();
+      wgmma_wait_all();
+      acc_fence(acc);
+      if (threadIdx.x % 128 == 0) mbar_arrive(empty_bar + 8 * stage);
+      if (++stage == STAGES) {
+        stage = 0;
+        phase ^= 1;
       }
+    }
+
+    // ---- partial tile: the wgmma accumulator layout, rows ci, columns
+    // (dx, co)
+    const int t = threadIdx.x % 128;
+    const int row0 = ci0 + 16 * (t / 32) + (t % 32) / 4;
+    const int col0 = 2 * (t % 4);
+    const int Ci = p.Ci, Co = p.Co;
+    float* out = p.part + (size_t)blockIdx.z * 9 * Ci * Co;
 #pragma unroll
-      for (int t = 0; t < 9; ++t) {
-        const int dy = t / 3;
-        const int dx = t - dy * 3;
-        const __nv_bfloat16* p0 = &sa[((dx * 3 + dy) * CT + g) * LDA + kk + 2 * q];
-        const __nv_bfloat16* p1 = p0 + 8 * LDA;
-        const uint32_t a0 = *reinterpret_cast<const uint32_t*>(p0);
-        const uint32_t a1 = *reinterpret_cast<const uint32_t*>(p1);
-        const uint32_t a2 = *reinterpret_cast<const uint32_t*>(p0 + 8);
-        const uint32_t a3 = *reinterpret_cast<const uint32_t*>(p1 + 8);
-#pragma unroll
-        for (int n = 0; n < 2; ++n)
-          mma_bf16_16816(acc[t][n], a0, a1, a2, a3, bf[n][0], bf[n][1]);
-      }
+    for (int i = 0; i < 96; ++i) {
+      const int dx = i / 32;
+      const int ci = row0 + 8 * ((i >> 1) & 1);
+      const int co = co0 + col0 + 8 * ((i % 32) >> 2) + (i & 1);
+      if (ci < Ci && co < Co)
+        out[((size_t)(dy * 3 + dx) * Ci + ci) * Co + co] = acc[i];
     }
   }
+}
 
-  // ---- partial tile: rows ci (g, g+8), columns co (2q, 2q+1) per n-tile
-  float* out = p.part + (size_t)blockIdx.z * 9 * Ci * Co;
+// a' (rows, Wp) from x (rows, W), row r holding channel r % C: x, or with
+// `ingest` bf16(relu(x*scale[c] + bias[c])); 0 in the pad columns
+// w >= W. One thread writes 8 columns (16 B) and reads them as one 16-byte
+// load where the rows allow it (vec).
+__global__ void __launch_bounds__(PRO_THREADS)
+    wgrad_ingest_kernel(const __nv_bfloat16* __restrict__ x,
+                        const float* __restrict__ scale,
+                        const float* __restrict__ bias,
+                        __nv_bfloat16* __restrict__ dst, long long rows,
+                        int C, int W, int Wp, int ingest, int vec) {
+  const long long idx = (long long)blockIdx.x * PRO_THREADS + threadIdx.x;
+  const int per_row = Wp / 8;
+  if (idx >= rows * per_row) return;
+  const long long r = idx / per_row;
+  const int w0 = (int)(idx - r * per_row) * 8;
+  const int c = (int)(r % C);
+  const size_t in = (size_t)r * W + w0;
+  const __nv_bfloat16 zero = __float2bfloat16(0.f);
+  alignas(16) __nv_bfloat16 v[8];
+  if (vec) {
+    *reinterpret_cast<uint4*>(v) = *reinterpret_cast<const uint4*>(x + in);
+  } else {
 #pragma unroll
-  for (int t = 0; t < 9; ++t)
+    for (int k = 0; k < 8; ++k) v[k] = w0 + k < W ? x[in + k] : zero;
+  }
+  const float s = ingest ? scale[c] : 0.f;
+  const float bb = ingest ? bias[c] : 0.f;
 #pragma unroll
-    for (int n = 0; n < 2; ++n)
+  for (int k = 0; k < 8; ++k) {
+    if (ingest) {
+      float f = __fmul_rn(__bfloat162float(v[k]), s);
+      f = __fadd_rn(f, bb);
+      v[k] = __float2bfloat16(fmaxf(f, 0.f));
+    }
+    if (w0 + k >= W) v[k] = zero;
+  }
+  *reinterpret_cast<uint4*>(dst + (size_t)r * Wp + w0) =
+      *reinterpret_cast<const uint4*>(v);
+}
+
+// g' (B*H, W, Cp) from gy (B*H, C, W): gy, or with y given
+// bf16(gy + g1[c] + 2*y*g2[c]); 0 in the channels c >= C. A block moves a
+// 64-channel x 64-pixel tile through shared memory: a thread reads 8
+// pixels of one channel (one 16-byte load where the rows allow it, vec)
+// and writes 8 channels of one pixel (one 16-byte store), so eight
+// threads cover a 128-byte row on both sides; the 66-element pitch keeps
+// the tile's accesses at most 2-way bank-conflicted.
+__global__ void __launch_bounds__(PRO_THREADS)
+    wgrad_cot_t_kernel(const __nv_bfloat16* __restrict__ gy,
+                       const __nv_bfloat16* __restrict__ y,
+                       const float* __restrict__ g1,
+                       const float* __restrict__ g2,
+                       __nv_bfloat16* __restrict__ dst, int C, int Cp, int W,
+                       int vec) {
+  __shared__ __align__(16) __nv_bfloat16 tile[TILE][TILE + 2];  // [c][w]
+  const int w0 = blockIdx.x * TILE;
+  const int c0 = blockIdx.y * TILE;
+  const size_t bh = blockIdx.z;
+  const __nv_bfloat16 zero = __float2bfloat16(0.f);
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int ci = ci0 + g + (r >= 2 ? 8 : 0);
-        const int co = co0 + warp * 16 + n * 8 + 2 * q + (r & 1);
-        if (ci < Ci && co < Co)
-          out[((size_t)t * Ci + ci) * Co + co] = acc[t][n][r];
+  for (int pass = 0; pass < 2; ++pass) {
+    const int cl = pass * 32 + threadIdx.x / 8;
+    const int wl = (threadIdx.x % 8) * 8;
+    const int c = c0 + cl, w = w0 + wl;
+    const size_t i = (bh * C + c) * W + w;
+    alignas(16) __nv_bfloat16 v[8];
+    alignas(16) __nv_bfloat16 yv[8];
+    if (c < C && vec && w < W) {
+      *reinterpret_cast<uint4*>(v) = *reinterpret_cast<const uint4*>(gy + i);
+      if (y != nullptr)
+        *reinterpret_cast<uint4*>(yv) = *reinterpret_cast<const uint4*>(y + i);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const bool ok = c < C && w + k < W;
+        v[k] = ok ? gy[i + k] : zero;
+        yv[k] = (ok && y != nullptr) ? y[i + k] : zero;
       }
+    }
+    if (y != nullptr && c < C) {
+      const float a1 = g1[c], a2 = g2[c];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const float t = __fmul_rn(2.f * __bfloat162float(yv[k]), a2);
+        v[k] = __float2bfloat16(
+            __fadd_rn(__fadd_rn(__bfloat162float(v[k]), a1), t));
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 8; k += 2) {
+      __nv_bfloat162 pair;
+      pair.x = w + k < W ? v[k] : zero;
+      pair.y = w + k + 1 < W ? v[k + 1] : zero;
+      *reinterpret_cast<__nv_bfloat162*>(&tile[cl][wl + k]) = pair;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int pass = 0; pass < 2; ++pass) {
+    const int r = pass * 32 + threadIdx.x / 8;
+    const int cg = (threadIdx.x % 8) * 8;
+    const int w = w0 + r;
+    if (w >= W) continue;
+    alignas(16) __nv_bfloat16 o[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) o[j] = tile[cg + j][r];
+    *reinterpret_cast<uint4*>(dst + (bh * W + w) * Cp + c0 + cg) =
+        *reinterpret_cast<const uint4*>(o);
+  }
 }
 
 // dw[e] = sum_s part[s][e] for e < n, s in order 0..S-1.
@@ -195,51 +438,113 @@ __global__ void reduce_splits_kernel(const float* __restrict__ part,
   dw[e] = v;
 }
 
-int num_chunks(int B, int H, int W) { return B * H * ((W + KC - 1) / KC); }
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver through the runtime, so the
+// library needs no -lcuda
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                     cudaEnableDefault, &q);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault,
+                            &q);
+#endif
+    if (q == cudaDriverEntryPointSuccess) fn = (EncodeTiled)ptr;
+  }
+  return fn;
+}
+
+// a bf16 tensor (B, H, d1, d0) with row pitch p0 elements as the 4-D map
+// (d0, d1, H, B), boxes of 64 x 64, 128-byte swizzle, zeros out of range
+int encode_map(CUtensorMap* map, const void* ptr, int B, int H, int d1,
+               int d0, int p0) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return -1;
+  const cuuint64_t dims[4] = {(cuuint64_t)d0, (cuuint64_t)d1, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)p0 * 2,
+                                 (cuuint64_t)p0 * 2 * d1,
+                                 (cuuint64_t)p0 * 2 * d1 * H};
+  const cuuint32_t box[4] = {64, 64, 1, 1};
+  const cuuint32_t estride[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                        const_cast<void*>(ptr), dims, strides, box, estride,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -1;
+}
 
 }  // namespace
 
 extern "C" {
 
-// Number of K splits for these shapes; the caller allocates the f32
-// scratch of splits * 9 * Ci * Co floats.
-int conv3x3_wgrad_splits(int B, int H, int Ci, int W, int Co) {
-  const int tiles = ((Ci + CT - 1) / CT) * ((Co + NT - 1) / NT);
-  int s = (TARGET_BLOCKS + tiles - 1) / tiles;
-  const int chunks = num_chunks(B, H, W);
-  return s < chunks ? s : chunks;
-}
-
-// dw: (3, 3, Ci, Co) f32. Launches on `stream`, returns cudaGetLastError().
+// dw (3, 3, Ci, Co) f32 = the weight gradient of x (B, H, Ci, W) and gy
+// (B, H, Co, W), bf16, with the ingest (scale, bias; null for none) and
+// the cot (y, g1, g2; null for none). Scratch, all 16-byte aligned: a_buf
+// (B, H, Ci, Wp) for a', or null to read x in place (then Wp == W); g_buf
+// (B, H, W, Cp) for g'; part (splits, 9, Ci, Co) f32. nwc = ceil(W / 64)
+// chunks per row, chunks = B * H * nwc (conv3x3.py:plan_wgrad). Launches
+// the prologue, the GEMM and the reduction on `stream`; returns
+// cudaGetLastError(), or -1 if a tensor map could not be encoded.
 int conv3x3_wgrad(const void* x, const void* gy, const void* scale,
-                  const void* bias, const void* cot_y, const void* cot_g1,
-                  const void* cot_g2, void* part, void* dw, int B, int H,
-                  int Ci, int W, int Co, int splits, void* stream) {
-  Args a;
-  a.x = (const __nv_bfloat16*)x;
-  a.gy = (const __nv_bfloat16*)gy;
-  a.scale = (const float*)scale;
-  a.bias = (const float*)bias;
-  a.cot_y = (const __nv_bfloat16*)cot_y;
-  a.cot_g1 = (const float*)cot_g1;
-  a.cot_g2 = (const float*)cot_g2;
-  a.part = (float*)part;
-  a.H = H;
-  a.Ci = Ci;
-  a.W = W;
-  a.Co = Co;
-  a.nwc = (W + KC - 1) / KC;
-  a.chunks = num_chunks(B, H, W);
+                  const void* bias, const void* y, const void* g1,
+                  const void* g2, void* a_buf, void* g_buf, void* part,
+                  void* dw, int B, int H, int Ci, int W, int Co, int Wp,
+                  int Cp, int nwc, int chunks, int splits, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  dim3 grid((Ci + CT - 1) / CT, (Co + NT - 1) / NT, splits);
-  if (scale != nullptr && cot_y != nullptr)
-    conv3x3_wgrad_kernel<true, true><<<grid, THREADS, 0, s>>>(a);
-  else if (scale != nullptr)
-    conv3x3_wgrad_kernel<true, false><<<grid, THREADS, 0, s>>>(a);
-  else if (cot_y != nullptr)
-    conv3x3_wgrad_kernel<false, true><<<grid, THREADS, 0, s>>>(a);
-  else
-    conv3x3_wgrad_kernel<false, false><<<grid, THREADS, 0, s>>>(a);
+  const void* a = x;
+  if (a_buf != nullptr) {
+    const long long rows = (long long)B * H * Ci;
+    const long long n = rows * (Wp / 8);
+    const bool vec = W % 8 == 0 && (uintptr_t)x % 16 == 0;
+    wgrad_ingest_kernel<<<(unsigned)((n + PRO_THREADS - 1) / PRO_THREADS),
+                          PRO_THREADS, 0, s>>>(
+        (const __nv_bfloat16*)x, (const float*)scale, (const float*)bias,
+        (__nv_bfloat16*)a_buf, rows, Ci, W, Wp, scale != nullptr ? 1 : 0,
+        vec ? 1 : 0);
+    a = a_buf;
+  }
+  const bool gvec = W % 8 == 0 && (uintptr_t)gy % 16 == 0 &&
+                    (uintptr_t)y % 16 == 0;
+  wgrad_cot_t_kernel<<<dim3((W + TILE - 1) / TILE, Cp / TILE, B * H),
+                       PRO_THREADS, 0, s>>>(
+      (const __nv_bfloat16*)gy, (const __nv_bfloat16*)y, (const float*)g1,
+      (const float*)g2, (__nv_bfloat16*)g_buf, Co, Cp, W, gvec ? 1 : 0);
+
+  CUtensorMap map_a, map_g;
+  if (encode_map(&map_a, a, B, H, Ci, W, Wp) != 0 ||
+      encode_map(&map_g, g_buf, B, H, W, Cp, Cp) != 0)
+    return -1;
+  static bool smem_set[64] = {};  // per device
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 64 || !smem_set[dev]) {
+    cudaFuncSetAttribute(conv3x3_wgrad_kernel,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         SMEM_BYTES);
+    if (dev >= 0 && dev < 64) smem_set[dev] = true;
+  }
+  Args args;
+  args.part = (float*)part;
+  args.H = H;
+  args.Ci = Ci;
+  args.Co = Co;
+  args.nwc = nwc;
+  args.chunks = chunks;
+  dim3 grid((Ci + TILE - 1) / TILE, (Co + TILE - 1) / TILE, splits);
+  conv3x3_wgrad_kernel<<<grid, THREADS, SMEM_BYTES, s>>>(map_a, map_g, args);
   const int n = 9 * Ci * Co;
   reduce_splits_kernel<<<(n + 255) / 256, 256, 0, s>>>(
       (const float*)part, (float*)dw, splits, n);

@@ -30,6 +30,7 @@ the forward and the backward alike.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
@@ -308,6 +309,88 @@ def conv3x3_dgrad(gy: torch.Tensor, w: torch.Tensor,
     return out
 
 
+# --------------------------------------------------- wgrad kernel's plan
+WGRAD_BOX_W = 64  # pixels per TMA box and pipeline stage (the GEMM's K)
+WGRAD_TILE = 64   # input and output channels of a block (wgmma M and N)
+
+
+@dataclass(frozen=True)
+class WgradPlan:
+    """Geometry of one csrc/conv3x3_wgrad.cu launch. The GEMM reads a'
+    (B, H, Ci, W) at row pitch Wp through the tensor map (W, Ci, H, B) and
+    g' transposed, (B, H, W, Cp), through the map (Cp, W, H, B). The kernel
+    computes the same chunk decode, box coordinates and split ranges from
+    (nwc, chunks, splits); the CPU tests run this plan through a torch
+    emulation of the kernel's tile loop."""
+    B: int
+    H: int
+    Ci: int
+    W: int
+    Co: int
+    Wp: int       # row pitch of a', W rounded up to 8 (16-byte strides)
+    Cp: int       # channel pitch of g', Co rounded up to 64 (zeros)
+    copy_a: bool  # a' = ingest(x) written by the prologue (else x itself)
+    nwc: int      # 64-pixel chunks per image row
+    chunks: int   # B * H * nwc, in (b, h, w0) row-major order
+    ci_tiles: int
+    co_tiles: int
+    splits: int   # S blocks share each (ci, co) tile's chunks
+
+    def split_range(self, s: int) -> Tuple[int, int]:
+        """The contiguous chunks [begin, end) of split s."""
+        return (self.chunks * s // self.splits,
+                self.chunks * (s + 1) // self.splits)
+
+    def chunk_origin(self, c: int) -> Tuple[int, int, int]:
+        """(b, h, w0) of chunk c."""
+        bh, wc = divmod(c, self.nwc)
+        b, h = divmod(bh, self.H)
+        return b, h, wc * WGRAD_BOX_W
+
+    def a_box(self, c: int, dy: int, ci0: int) -> Tuple[int, int, int, int]:
+        """TMA coordinates (w, ci, h, b), innermost first, of the A box of
+        tap row dy: row h+dy-1 of a', columns w0 .. w0+63."""
+        b, h, w0 = self.chunk_origin(c)
+        return w0, ci0, h + dy - 1, b
+
+    def g_box(self, c: int, dx: int, co0: int) -> Tuple[int, int, int, int]:
+        """TMA coordinates (co, w, h, b) of the G box of tap column dx: row
+        h of g', columns w0-dx+1 .. w0-dx+64. The one-pixel shift falls on
+        an outer dimension of the map; an innermost coordinate must start
+        on 16 bytes."""
+        b, h, w0 = self.chunk_origin(c)
+        return co0, w0 - dx + 1, h, b
+
+
+def plan_wgrad(B: int, H: int, Ci: int, W: int, Co: int, ingest: bool,
+               aligned: bool = True, sms: int = 132) -> WgradPlan:
+    """Plan the weight-gradient kernel for x (B, H, Ci, W) and gy (B, H,
+    Co, W). x is read in place when it needs no ingest, its rows are whole
+    16-byte units (W % 8 == 0) and its base is 16-byte aligned
+    (``aligned``); otherwise the prologue writes a' at pitch Wp. g' is
+    always written, transposed. S is the number of blocks per (ci, co)
+    tile that fills ``sms`` SMs in one wave, at most one per chunk."""
+    nwc = -(-W // WGRAD_BOX_W)
+    chunks = B * H * nwc
+    ci_tiles = -(-Ci // WGRAD_TILE)
+    co_tiles = -(-Co // WGRAD_TILE)
+    return WgradPlan(
+        B=B, H=H, Ci=Ci, W=W, Co=Co, Wp=-(-W // 8) * 8,
+        Cp=co_tiles * WGRAD_TILE,
+        copy_a=ingest or W % 8 != 0 or not aligned,
+        nwc=nwc, chunks=chunks, ci_tiles=ci_tiles, co_tiles=co_tiles,
+        splits=max(1, min(chunks, sms // (ci_tiles * co_tiles))))
+
+
+_SMS = {}
+
+
+def _sm_count(dev: torch.device) -> int:
+    if dev not in _SMS:
+        _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _SMS[dev]
+
+
 def conv3x3_wgrad(x: torch.Tensor, gy: torch.Tensor,
                   scale: Optional[torch.Tensor] = None,
                   bias: Optional[torch.Tensor] = None,
@@ -327,25 +410,31 @@ def conv3x3_wgrad(x: torch.Tensor, gy: torch.Tensor,
     if scale is not None:
         _need(x, "scale", scale, torch.float32, (Ci,))
         _need(x, "bias", bias, torch.float32, (Ci,))
-    cy = c1 = c2 = None
     if cot is not None:
-        cy, c1, c2 = cot
-        _need(x, "cot y", cy, torch.bfloat16, gy.shape)
-        _need(x, "gs1", c1, torch.float32, (Co,))
-        _need(x, "gs2", c2, torch.float32, (Co,))
-    lib = _build.load()
-    splits = lib.conv3x3_wgrad_splits(B, H, Ci, W, Co)
-    part = torch.empty((splits, 9, Ci, Co), dtype=torch.float32,
-                       device=x.device)
+        _need(x, "cot y", cot[0], torch.bfloat16, gy.shape)
+        _need(x, "gs1", cot[1], torch.float32, (Co,))
+        _need(x, "gs2", cot[2], torch.float32, (Co,))
+    plan = plan_wgrad(B, H, Ci, W, Co, scale is not None,
+                      x.data_ptr() % 16 == 0, _sm_count(x.device))
+    # one scratch buffer, 256-byte-aligned pieces: a' (none when x is read
+    # in place), g', the f32 partials
+    sizes = [2 * B * H * Ci * plan.Wp if plan.copy_a else 0,
+             2 * B * H * W * plan.Cp, 4 * plan.splits * 9 * Ci * Co]
+    sizes = [-(-n // 256) * 256 for n in sizes]
+    buf = torch.empty(sum(sizes), dtype=torch.uint8, device=x.device)
+    a_buf = buf.data_ptr()
+    g_buf = a_buf + sizes[0]
+    part = g_buf + sizes[1]
+    y, g1, g2 = cot if cot is not None else (None, None, None)
     dw = torch.empty((3, 3, Ci, Co), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        err = lib.conv3x3_wgrad(
-            x.data_ptr(), gy.data_ptr(), _ptr(scale), _ptr(bias), _ptr(cy),
-            _ptr(c1), _ptr(c2), part.data_ptr(), dw.data_ptr(),
-            B, H, Ci, W, Co, splits, _stream(x),
-        )
+        err = _build.load().conv3x3_wgrad(
+            x.data_ptr(), gy.data_ptr(), _ptr(scale), _ptr(bias), _ptr(y),
+            _ptr(g1), _ptr(g2), a_buf if plan.copy_a else None, g_buf, part,
+            dw.data_ptr(), B, H, Ci, W, Co, plan.Wp, plan.Cp, plan.nwc,
+            plan.chunks, plan.splits, _stream(x))
     if err != 0:
-        raise RuntimeError(f"conv3x3_wgrad launch failed: cudaError {err}")
+        raise RuntimeError(f"conv3x3_wgrad launch failed: error {err}")
     WGRAD_LAUNCHES += 1
     return dw
 

@@ -2,17 +2,21 @@
 on synthetic scenes:
 
     python -m rangedet_tpu_torch.tools.train --config rangedet_veh_wo_aug_4_18e \
-        --synthetic 4 --steps 3 [--experiment-dir DIR] [--device cuda]
+        --synthetic --steps 3 [--steps-per-epoch N] [--experiment-dir DIR] \
+        [--device cuda]
 
-The weights are a seeded random init. ``--synthetic N`` makes N frames
-(seeds 0..N-1, ``data/synthetic.py``), grouped into batches of the
-recipe's ``batch_image``; step i trains on batch i mod (N / batch_image).
-The LR follows the recipe's schedule over ``end_epoch`` epochs of
-``STEPS_PER_EPOCH`` steps, rescaled as ``tools/train.py`` does when
+The weights are a seeded random init. The data are synthetic scenes drawn
+as ``tools/train.py --synthetic`` draws them: step i of epoch e trains on
+a fresh batch of ``batch_image`` raytraced vehicle frames,
+``make_batch(cfg, batch_image, seed=e*10000 + i, style="vehicles")``
+(``synthetic_batch``), prepared in a background thread while the card runs
+the step before. An epoch is ``--steps-per-epoch`` steps (default 100, as
+in ``tools/train.py``). The LR follows the recipe's schedule over
+``end_epoch`` such epochs, rescaled as ``tools/train.py`` does when
 ``auto_scale_lr`` is set (base_lr * global batch / 16). Each step prints
 its losses. A checkpoint (``train/checkpoint.py``) is written under the
 experiment directory at the end of every ``checkpoint_every_epochs``-th
-epoch and at the end of the run, as epoch (steps - 1) // STEPS_PER_EPOCH.
+epoch and at the end of the run, as epoch (steps - 1) // steps per epoch.
 Resume and evaluation during training are not ported yet;
 ``build_validation`` is the in-process validation they will call.
 """
@@ -25,15 +29,17 @@ import numpy as np
 import torch
 
 SEED = 0
-STEPS_PER_EPOCH = 100
+STEPS_PER_EPOCH = 100  # tools/train.py's default for synthetic data
 
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="Train RangeDet (PyTorch)")
     p.add_argument("--config", required=True,
                    help="recipe name or path to a recipe .py")
-    p.add_argument("--synthetic", type=int, default=4,
-                   help="number of synthetic frames to cycle through")
+    p.add_argument("--synthetic", action="store_true",
+                   help="train on synthetic scenes (the only data source "
+                        "ported so far, so also the default)")
+    p.add_argument("--steps-per-epoch", type=int, default=STEPS_PER_EPOCH)
     p.add_argument("--steps", type=int, default=10, help="steps to run")
     p.add_argument("--experiment-dir", default=None,
                    help="override cfg.experiment_dir (checkpoint root)")
@@ -41,11 +47,20 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
+def synthetic_batch(cfg, epoch: int, i: int):
+    """The host batch of step i of ``epoch``: ``tools/train.py``'s
+    synthetic draw, a fresh batch of raytraced vehicle scenes per step."""
+    from rangedet_tpu_torch.data.synthetic import make_batch
+
+    return make_batch(cfg, cfg.batch_image, seed=epoch * 10000 + i,
+                      style="vehicles")
+
+
 def main(argv=None):
     """Returns (per-step metrics as floats, the TrainState)."""
     args = parse_args(argv)
     from rangedet_tpu_torch.configs import load_config
-    from rangedet_tpu_torch.data.synthetic import make_batch
+    from rangedet_tpu_torch.data.prefetch import threaded_prefetch
     from rangedet_tpu_torch.models import RangeDet
     from rangedet_tpu_torch.train.checkpoint import save_checkpoint
     from rangedet_tpu_torch.train.state import create_train_state
@@ -62,40 +77,33 @@ def main(argv=None):
         cfg = cfg.replace(base_lr=cfg.base_lr * cfg.batch_image / 16.0)
     model = RangeDet(**cfg.model_kwargs())
     model.init_from(torch.Generator().manual_seed(SEED))
-    state = create_train_state(model.to(device), cfg, STEPS_PER_EPOCH,
-                               seed=None)
+    spe = args.steps_per_epoch
+    state = create_train_state(model.to(device), cfg, spe, seed=None)
     step = make_train_step(state, cfg)
     print(f"{args.config}: batch {cfg.batch_image}, lr {cfg.base_lr:.5f}, "
           f"weights seeded init ({SEED}), "
           f"device {device}")
 
-    frames = [make_batch(cfg, 1, seed=i) for i in range(args.synthetic)]
-    n_batches = max(1, len(frames) // cfg.batch_image)
-    batches = []
-    for j in range(n_batches):
-        group = [frames[(j * cfg.batch_image + k) % len(frames)]
-                 for k in range(cfg.batch_image)]
-        batches.append(batch_to_device(
-            {k: np.concatenate([f[k] for f in group]) for k in group[0]},
-            device))
-
+    batches = threaded_prefetch(
+        (synthetic_batch(cfg, *divmod(i, spe)) for i in range(args.steps)),
+        depth=2)
     history = []
-    for i in range(args.steps):
+    for i, batch in enumerate(batches):
         t0 = time.perf_counter()
         metrics = {k: float(v) for k, v in
-                   step(batches[i % n_batches]).items()}
+                   step(batch_to_device(batch, device)).items()}
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         dt = (time.perf_counter() - t0) * 1e3
         history.append(metrics)
         losses = " ".join(f"{k} {v:.5f}" for k, v in sorted(metrics.items()))
         print(f"step {i}: {losses} ({dt:.1f} ms)")
-        epoch, last = divmod(i + 1, STEPS_PER_EPOCH)
+        epoch, last = divmod(i + 1, spe)
         if (not last and epoch % cfg.checkpoint_every_epochs == 0
                 and i + 1 < args.steps):
             print(f"saved {save_checkpoint(state, cfg, epoch - 1)}")
     if args.steps:
-        epoch = (args.steps - 1) // STEPS_PER_EPOCH
+        epoch = (args.steps - 1) // spe
         print(f"saved {save_checkpoint(state, cfg, epoch)}")
     return history, state
 

@@ -136,7 +136,7 @@ def chain(files):
 
     with contextlib.redirect_stdout(io.StringIO()):
         _, state = train_cli.main([
-            "--config", files["recipe"], "--synthetic", "2", "--steps", "2",
+            "--config", files["recipe"], "--synthetic", "--steps", "2",
             "--experiment-dir", files["exp"], "--device", "cpu"])
     out = io.StringIO()
     with contextlib.redirect_stdout(out):

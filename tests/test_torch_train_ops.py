@@ -63,6 +63,22 @@ def test_synthetic_copy_makes_the_same_batches(seed, style):
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
+@pytest.mark.parametrize("epoch,i", [(0, 0), (0, 1), (2, 7)])
+def test_train_cli_draws_the_jax_cli_synthetic_batches(epoch, i):
+    """tools.train's batch of step i of an epoch is tools/train.py's
+    synthetic draw: a fresh style="vehicles" batch, seed epoch*10000+i."""
+    from rangedet_tpu_torch.tools.train import synthetic_batch
+
+    jcfg = tiny_config(feat_size=(16, 120), pad_field=(16, 128))
+    want = jax_synthetic.make_batch(jcfg, jcfg.batch_image,
+                                    seed=epoch * 10000 + i, style="vehicles")
+    got = synthetic_batch(port_config(jcfg), epoch, i)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype, k
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
 # ---------------------------------------------------------------- targets
 def _batch_with_nlz(seed=0):
     cfg = tiny_config()
@@ -435,6 +451,24 @@ def test_train_kernels_match_plain_on_cuda():
     dw = conv.conv3x3_wgrad(xb, gy, s, b, cot)
     rdw = conv.conv3x3_wgrad_plain(xb, gy, s, b, cot)
     assert (dw - rdw).abs().max() <= 1e-3 * rdw.abs().max()
+    # the wgrad kernel where its geometry is ragged: W % 8 != 0 (rows that
+    # TMA cannot read in place), Ci = 8 and 72 (part of a 64-channel box),
+    # Co = 512 (eight co tiles), with and without the ingest and the cot
+    for (B, H, Ci, W, Co, ingest, with_cot) in [
+            (2, 6, 128, 166, 128, True, True), (2, 5, 8, 130, 64, False, True),
+            (1, 4, 72, 200, 128, False, True), (1, 3, 128, 166, 512, False,
+                                                False)]:
+        xw = torch.randn(B, H, Ci, W, device=dev).bfloat16()
+        gw = torch.randn(B, H, Co, W, device=dev).bfloat16()
+        sw = (1 + 0.3 * torch.randn(Ci, device=dev),
+              0.2 * torch.randn(Ci, device=dev)) if ingest else (None, None)
+        cw = (torch.randn(B, H, Co, W, device=dev).bfloat16(),
+              0.1 * torch.randn(Co, device=dev),
+              0.05 * torch.randn(Co, device=dev)) if with_cot else None
+        dw = conv.conv3x3_wgrad(xw, gw, *sw, cw)
+        rdw = conv.conv3x3_wgrad_plain(xw, gw, *sw, cw)
+        assert (dw - rdw).abs().max() <= 1e-3 * rdw.abs().max(), (B, Ci, W)
+        assert torch.equal(dw, conv.conv3x3_wgrad(xw, gw, *sw, cw))
     deltas, pc, gt = _scene(2, 16, 256, 24, seed=11)
     got = iou.iou_target(_t(deltas).to(dev), _t(pc).to(dev), _t(gt).to(dev))
     want = iou.iou_target_plain(_t(deltas).to(dev), _t(pc).to(dev),
