@@ -9,7 +9,10 @@ Phases, one line of output each (or a table), failing on the first error:
    the build of the hand-written kernels from ``rangedet_tpu_torch/csrc``;
 2. the conv3x3 forward kernel against its plain PyTorch version on the
    card, at every (Ci, Co, W, stride, ingest) the B=1 forward launches and
-   at the largest shape for B=4: max error and ms of both;
+   at the largest shape for B=4: max error, bit-equal repeats, ms of both
+   and of cuDNN, the device time of its prologue, GEMM and reduction, and
+   its sum over the forward against cuDNN's, which must stay within
+   FWD_CUDNN_MAX;
 3. the full serving path of ``rangedet_veh_wo_aug_4_18e`` at 64x2656 with
    seeded random weights, at B=4 and B=1: the launch counts per forward
    of the conv kernel and of the Meta-Kernel taps kernel (one), finite
@@ -24,9 +27,10 @@ Phases, one line of output each (or a table), failing on the first error:
    level, and every launch of the Meta-Kernel block's kernels (meta_stats,
    meta_agg, the block backward in both modes) on the inputs the step gave
    it; max error, kernel ms, plain ms, cuDNN ms and the bound; for the
-   wgrad also TFLOP/s, the share of the bound, the device time of its
-   prologue and of its GEMM, the GEMM's registers and spills, and its sum
-   over the step against cuDNN's, which must stay within WGRAD_CUDNN_MAX;
+   three conv kernels also the device time of their prologue and GEMM
+   (and reduction), the GEMM's TFLOP/s and registers and spills, and
+   their sums over the step against cuDNN's, which must stay within
+   FWD_CUDNN_MAX, DGRAD_CUDNN_MAX and WGRAD_CUDNN_MAX;
 6. the full-size train step at B=2: launches per step against the counts
    the config implies, gradients of the kernel path against the plain path
    and of both bf16 paths against an f32 step, the same gates shown to
@@ -107,6 +111,11 @@ STEPS_PER_EPOCH = 100
 # at the same shapes, in the same run: at most this factor (the earlier
 # mma.sync kernel read 12.4, this one about 1.6; PERF.md)
 WGRAD_CUDNN_MAX = 4.0
+# the same for the forward kernel, summed over the B=2 step and over the
+# B=1 eval forward (cuDNN's conv2d), and for the dgrad (conv2d_input); the
+# mma.sync kernel before the TMA + wgmma one read 8.3, 6.6 and 2.5
+FWD_CUDNN_MAX = 4.0
+DGRAD_CUDNN_MAX = 1.5
 # kernel 7 against the plain version in bf16 (the XLA form's counterpart):
 # JAX's own bound between the TPU kernel and that form
 # (tests/test_meta_kernel.py), |a - b| <= TAPS_TOL * (1 + |b|). Where the
@@ -194,22 +203,63 @@ def meta_units(cfg):
 
 
 def ptxas_report(log, kernel):
-    """Registers and spills of the entry function whose name contains
-    ``kernel``, from an ``nvcc -Xptxas -v`` log."""
-    found, spill, regs = False, None, None
+    """Registers and spills of the entry functions whose names contain
+    ``kernel`` (every instantiation of a template), from an ``nvcc
+    -Xptxas -v`` log."""
+    found, spill, regs = False, None, []
+    spills = set()
     for line in log.splitlines():
         if "Compiling entry function" in line:
             found = kernel in line
         elif found and "spill stores" in line:
             spill = line.strip()
         elif found and "Used" in line and "registers" in line:
-            regs = line.split("Used", 1)[1].split(",")[0].strip()
-            break
-    if regs is None:
+            regs.append(int(line.split("Used", 1)[1].split("registers")[0]))
+            spills.add(spill)
+            found = False
+    if not regs:
         return "not in this run's build log (library built earlier)"
     ignored = "setmaxnreg ignored" in log
-    return (f"{regs} at launch, setmaxnreg "
-            f"{'IGNORED' if ignored else 'applied'}; {spill}")
+    n = f"{len(regs)} instantiations, " if len(regs) > 1 else ""
+    return (f"{n}{min(regs)}-{max(regs)} registers at launch, setmaxnreg "
+            f"{'IGNORED' if ignored else 'applied'}; "
+            + " / ".join(sorted(s for s in spills if s)))
+
+
+def conv_device(fn, flops, sums, n):
+    """The device time of one call of the forward/dgrad kernel split into
+    its prologue, GEMM and reduction (profile_conv.device_ms), added n
+    times into ``sums``; a line of text."""
+    from rangedet_tpu_torch.tools.profile_conv import device_ms
+
+    split = device_ms(fn)
+    if split is None:
+        return "device time not measured (the profiler saw no GEMM)"
+    for k, v in split.items():
+        sums[k] = sums.get(k, 0.0) + n * v
+    sums["measured"] = sums.get("measured", 0) + n
+    return (f"device prologue {split['prologue']:.4f} + GEMM "
+            f"{split['gemm']:.4f} + reduce {split['reduce']:.4f} ms (GEMM "
+            f"{flops / split['gemm'] / 1e9:.1f} TFLOP/s)")
+
+
+def conv_gate(tag, name, t, split, limit):
+    """Print the kernel's sum over the launches against cuDNN's and its
+    device split; fail beyond ``limit`` x cuDNN."""
+    from rangedet_tpu_torch import _build
+
+    dev = sum(split.get(k, 0.0) for k in ("prologue", "gemm", "reduce"))
+    print(f"[{tag}] {name}: kernel {t.ms:.3f} ms / cuDNN {t.library_ms:.3f} "
+          f"ms = {t.ms / t.library_ms:.2f}x (limit {limit}); bound "
+          f"{t.bound_ms:.3f} ms = {t.bound_ms / t.ms:.1%} of the kernel's "
+          f"time; device time (profiler) over {split.get('measured', 0)} of "
+          f"the {t.n} launches {dev:.3f} ms: prologue "
+          f"{split.get('prologue', 0.0):.3f}, GEMM {split.get('gemm', 0.0):.3f}"
+          f", reduce {split.get('reduce', 0.0):.3f}; GEMM kernel (ptxas) "
+          f"{ptxas_report(_build.build_log, 'conv3x3_gemm_kernel')}")
+    if not t.ms <= limit * t.library_ms:
+        raise SystemExit(f"[{tag}] {name} takes {t.ms / t.library_ms:.2f}x "
+                         f"cuDNN, more than {limit}x")
 
 
 def _rel(a, b):
@@ -377,6 +427,7 @@ def phase5(torch, conv3x3, iou_mod, layers, meta, recorded, H, dev):
     totals = {k: KernelTotals() for k in ("fwd", "dgrad", "wgrad", "iou",
                                           "meta_stats", "meta_agg",
                                           "meta_block_bwd")}
+    fwd_split, dgrad_split = {}, {}
     print(f"[5] one B=2 train step: {len(fwd)} forward, {len(dgrad)} dgrad,"
           f" {len(wgrad)} wgrad shapes, {len(deconv)} deconvs, {len(iou)} "
           f"IoU-target levels")
@@ -410,10 +461,17 @@ def phase5(torch, conv3x3, iou_mod, layers, meta, recorded, H, dev):
         bound = _bound_ms(2 * B * H * Wo * Co * Ci * 9,
                           2 * (B * H * Ci * W + 9 * Ci * Co + B * H * Co * Wo),
                           PEAK_BF16)
+        again = conv3x3.conv3x3_bhcw(x, w, sc, bi, s, stats)
+        if not torch.equal(y, again[0] if stats else again):
+            fail(f"conv3x3 forward repeat differs at "
+                 f"{(B, Ci, Co, W, s, ingest, stats)}")
         totals["fwd"].add(n, k_ms, p_ms, bound, c_ms, err)
         print(f"[5] fwd   {B:2d} {Ci:5d} {Co:5d} {W:5d} {s} {int(ingest):6d} "
               f"{int(stats):5d} {n:3d} {err:12.6g} {k_ms:10.4f} {p_ms:10.4f} "
               f"{c_ms:9.4f} {bound[0]:10.4f}")
+        print("[5]   " + conv_device(
+            lambda: conv3x3.conv3x3_bhcw(x, w, sc, bi, s, stats),
+            2 * B * H * Wo * Co * Ci * 9, fwd_split, n))
 
     print("[5] kernel  B   Cgy   Cdx     W   cot affine   n  max_abs_err"
           "  kernel_ms   plain_ms  cudnn_ms   bound_ms")
@@ -449,10 +507,21 @@ def phase5(torch, conv3x3, iou_mod, layers, meta, recorded, H, dev):
         bound = _bound_ms(2 * B * H * W * Cg * Cx * 9,
                           2 * (B * H * (Cg + Cx) * W + 9 * Cg * Cx + extra),
                           PEAK_BF16)
+        again = conv3x3.conv3x3_dgrad(gy, w, cots, affs)
+        if not torch.equal(out[0] if aff else out,
+                           again[0] if aff else again):
+            fail(f"dgrad repeat differs at {(B, Cg, Cx, W, cot, aff)}")
         totals["dgrad"].add(n, k_ms, p_ms, bound, c_ms, err)
         print(f"[5] dgrad {B:2d} {Cg:5d} {Cx:5d} {W:5d} {int(cot):5d} "
               f"{int(aff):6d} {n:3d} {err:12.6g} {k_ms:10.4f} {p_ms:10.4f} "
               f"{c_ms:9.4f} {bound[0]:10.4f}")
+        print("[5]   " + conv_device(
+            lambda: conv3x3.conv3x3_dgrad(gy, w, cots, affs),
+            2 * B * H * W * Cg * Cx * 9, dgrad_split, n))
+    conv_gate(5, "conv3x3 forward over the step", totals["fwd"], fwd_split,
+              FWD_CUDNN_MAX)
+    conv_gate(5, "dgrad over the step", totals["dgrad"], dgrad_split,
+              DGRAD_CUDNN_MAX)
 
     print("[5] kernel  B    Ci    Co     W ingest cot   n  max_abs_err"
           "  max_rel_err  kernel_ms   plain_ms  cudnn_ms   bound_ms"
@@ -1118,6 +1187,7 @@ def main():
           "tol_ok  kernel_ms   plain_ms cudnn_bf16_ms")
     g = torch.Generator(device=dev).manual_seed(SEED)
     serve = KernelTotals()  # sums over the launches of one B=1 forward
+    serve_split = {}
     big_ms = big_plain_ms = None
     for B, (Ci, Co, W, s, ingest) in cases:
         x = torch.randn(B, H, Ci, W, device=dev, generator=g).bfloat16()
@@ -1136,6 +1206,9 @@ def main():
             raise SystemExit(f"[2] conv3x3 kernel disagrees at B={B} "
                              f"Ci={Ci} Co={Co} W={W} s={s} "
                              f"ingest={ingest}: max err {e}")
+        if not torch.equal(y, conv3x3.conv3x3_bhcw(x, w, sc, bi, s)):
+            raise SystemExit(f"[2] conv3x3 kernel repeat differs at B={B} "
+                             f"Ci={Ci} Co={Co} W={W} s={s}")
         k_ms = _time_ms(lambda: conv3x3.conv3x3_bhcw(x, w, sc, bi, s))
         p_ms = _time_ms(lambda: conv3x3.conv3x3_bhcw_plain(x, w, sc, bi,
                                                            s))
@@ -1157,11 +1230,16 @@ def main():
         print(f"[2] {B:2d} {Ci:5d} {Co:5d} {W:5d} {s} {int(ingest):6d} "
               f"{n:5d} {e:12.6g} {str(ok):>9} {k_ms:10.4f} {p_ms:10.4f} "
               f"{c_ms:13.4f}")
+        print("[2]   " + conv_device(
+            lambda: conv3x3.conv3x3_bhcw(x, w, sc, bi, s),
+            2 * B * H * Wo * Co * Ci * 9, serve_split if B == 1 else {}, n))
     print(f"[2] conv3x3 per B=1 forward (sum over launches): kernel "
           f"{serve.ms:.3f} ms, plain {serve.plain_ms:.3f} ms, cuDNN "
           f"{serve.library_ms:.3f} ms, bound {serve.bound_ms:.3f} ms "
           f"({serve.bound_by()}); largest shape at B=4: kernel "
           f"{big_ms:.4f} ms, plain {big_plain_ms:.4f} ms")
+    conv_gate(2, "conv3x3 forward over the B=1 forward", serve, serve_split,
+              FWD_CUDNN_MAX)
 
     # ------------------------------------------------------------ phase 3
     expected, how = conv_launches(cfg)

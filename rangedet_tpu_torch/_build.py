@@ -112,9 +112,7 @@ def load_from(csrc: Path) -> ctypes.CDLL:
     tool) and bind them; the package's own library is left as it is."""
     lib = ctypes.CDLL(str(build(csrc)))
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.conv3x3_bhcw_part_rows.argtypes = [i32] * 4
-    lib.conv3x3_bhcw_part_rows.restype = i32
-    lib.conv3x3_bhcw_fwd.argtypes = [vp] * 13 + [i32] * 7 + [vp]
+    lib.conv3x3_bhcw_fwd.argtypes = [vp] * 14 + [i32] * 15 + [vp]
     lib.conv3x3_bhcw_fwd.restype = i32
     lib.conv3x3_wgrad.argtypes = [vp] * 11 + [i32] * 10 + [vp]
     lib.conv3x3_wgrad.restype = i32

@@ -17,7 +17,8 @@
 // H100 the GEMM reaches ~640 TFLOP/s at the largest shapes and the
 // prologue, bound by memory, is ~40 % of the device time (PERF.md).
 //
-// The design, in two prologue kernels, the GEMM and a reduction:
+// The design, in two prologue kernels, the GEMM and a reduction (the
+// mbarrier, TMA and wgmma plumbing is in hopper.cuh):
 //
 // 1. Prologue: elementwise passes with the exact operations of the fused
 //    load they replace, so the GEMM's operands are bit-identical to the
@@ -26,9 +27,10 @@
 //      rounds W up to a multiple of 8: TMA needs 16-byte global strides,
 //      which rows of W = 166 or 332 are not. x itself is read in place
 //      when it needs no ingest, W % 8 == 0 and its base is 16-byte aligned.
-//    - wgrad_cot_t_kernel writes g' = cot(gy) transposed, (B,H,W,Cp) with
-//      Cp = Co rounded up to 64 (zero channels), through a 64 x 64 tile in
-//      shared memory so both its reads and its writes are coalesced.
+//    - ingest_t (hopper.cuh, shared with the forward/dgrad kernel) writes
+//      g' = cot(gy) transposed, (B,H,W,Cp) with Cp = Co rounded up to 64
+//      (zero channels), through a 64 x 64 tile in shared memory so both
+//      its reads and its writes are coalesced.
 //
 // 2. GEMM (conv3x3_wgrad_kernel), the dx shift moved to the cotangent:
 //    with w' = w+dx-1,
@@ -66,10 +68,7 @@
 // kernel computes the same formulas, and the CPU tests run the plan
 // through a torch emulation of this tile loop.
 
-#include <cuda.h>  // CUtensorMap and its enums; the driver entry is looked up
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
@@ -81,96 +80,15 @@ constexpr int STAGE_BYTES = 6 * BOX_BYTES;      // 3 A + 3 G boxes
 constexpr int CONSUMERS = 3;                    // warpgroups, one per dy
 constexpr int THREADS = (CONSUMERS + 1) * 128;  // + the producer warpgroup
 constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 2 * STAGES * 8 + 1024;
-constexpr int PRO_THREADS = 256;
-// a wait longer than this many clocks (~10 s) is a deadlock: trap, so the
-// launch fails instead of hanging the card
-constexpr long long WAIT_LIMIT = 20000000000ll;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// wait until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  const long long t0 = clock64();
-  while (true) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (clock64() - t0 > WAIT_LIMIT) __trap();
-  }
-}
-
-// a box of the tensor map at coordinates (c0, c1, c2, c3), innermost
-// first; c0 must start on 16 bytes, the others may be any int (out of
-// range reads zeros)
-__device__ __forceinline__ void tma_load_4d(uint32_t dst,
-                                            const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of bf16 tiles written by TMA with
-// 128-byte swizzle: rows of 128 B in 8-row atoms of 1024 B (the stride
-// offset, SBO). A is one 64 x 64 K-major tile (rows are ci, pixels
-// contiguous; the leading offset is unused); a 16-pixel k-step is 32 B
-// along the row (+2 in the address field). B is the stage's three G
-// boxes, 64 pixels x 64 co each, N-major (rows are pixels, co
-// contiguous), taken as one 192-wide N: the leading offset (LBO) is the
-// 8 KB from one box to the next; a k-step is 16 rows, 2048 B (+128).
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
+// The stage's operands for sw128_desc: A is one 64 x 64 K-major tile
+// (rows are ci, pixels contiguous); a 16-pixel k-step is 32 B along the
+// row (+2 in the address field). B is the stage's three G boxes, 64 pixels
+// x 64 co each, N-major (rows are pixels, co contiguous), taken as one
+// 192-wide N: the leading offset (LBO) is the 8 KB from one box to the
+// next; a k-step is 16 rows, 2048 B (+128).
 constexpr uint64_t A_KSTEP = 32 >> 4;
 constexpr uint64_t G_KSTEP = (16 * 128) >> 4;
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// keeps the compiler from moving accumulator reads or writes across the
-// asynchronous wgmma
-__device__ __forceinline__ void acc_fence(float (&d)[96]) {
-#pragma unroll
-  for (int i = 0; i < 96; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
 
 // d (64 x 192, f32) += A (64 x 16, K-major) * B (16 x 192, N-major), bf16
 __device__ __forceinline__ void wgmma_64x192x16(float (&d)[96], uint64_t da,
@@ -290,7 +208,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       for (int kk = 0; kk < BOX_W / 16; ++kk)
         wgmma_64x192x16(acc, da + A_KSTEP * kk, dg + G_KSTEP * kk);
       wgmma_commit();
-      wgmma_wait_all();
+      wgmma_wait<0>();
       acc_fence(acc);
       if (threadIdx.x % 128 == 0) mbar_arrive(empty_bar + 8 * stage);
       if (++stage == STAGES) {
@@ -357,77 +275,6 @@ __global__ void __launch_bounds__(PRO_THREADS)
       *reinterpret_cast<const uint4*>(v);
 }
 
-// g' (B*H, W, Cp) from gy (B*H, C, W): gy, or with y given
-// bf16(gy + g1[c] + 2*y*g2[c]); 0 in the channels c >= C. A block moves a
-// 64-channel x 64-pixel tile through shared memory: a thread reads 8
-// pixels of one channel (one 16-byte load where the rows allow it, vec)
-// and writes 8 channels of one pixel (one 16-byte store), so eight
-// threads cover a 128-byte row on both sides; the 66-element pitch keeps
-// the tile's accesses at most 2-way bank-conflicted.
-__global__ void __launch_bounds__(PRO_THREADS)
-    wgrad_cot_t_kernel(const __nv_bfloat16* __restrict__ gy,
-                       const __nv_bfloat16* __restrict__ y,
-                       const float* __restrict__ g1,
-                       const float* __restrict__ g2,
-                       __nv_bfloat16* __restrict__ dst, int C, int Cp, int W,
-                       int vec) {
-  __shared__ __align__(16) __nv_bfloat16 tile[TILE][TILE + 2];  // [c][w]
-  const int w0 = blockIdx.x * TILE;
-  const int c0 = blockIdx.y * TILE;
-  const size_t bh = blockIdx.z;
-  const __nv_bfloat16 zero = __float2bfloat16(0.f);
-#pragma unroll
-  for (int pass = 0; pass < 2; ++pass) {
-    const int cl = pass * 32 + threadIdx.x / 8;
-    const int wl = (threadIdx.x % 8) * 8;
-    const int c = c0 + cl, w = w0 + wl;
-    const size_t i = (bh * C + c) * W + w;
-    alignas(16) __nv_bfloat16 v[8];
-    alignas(16) __nv_bfloat16 yv[8];
-    if (c < C && vec && w < W) {
-      *reinterpret_cast<uint4*>(v) = *reinterpret_cast<const uint4*>(gy + i);
-      if (y != nullptr)
-        *reinterpret_cast<uint4*>(yv) = *reinterpret_cast<const uint4*>(y + i);
-    } else {
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        const bool ok = c < C && w + k < W;
-        v[k] = ok ? gy[i + k] : zero;
-        yv[k] = (ok && y != nullptr) ? y[i + k] : zero;
-      }
-    }
-    if (y != nullptr && c < C) {
-      const float a1 = g1[c], a2 = g2[c];
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        const float t = __fmul_rn(2.f * __bfloat162float(yv[k]), a2);
-        v[k] = __float2bfloat16(
-            __fadd_rn(__fadd_rn(__bfloat162float(v[k]), a1), t));
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < 8; k += 2) {
-      __nv_bfloat162 pair;
-      pair.x = w + k < W ? v[k] : zero;
-      pair.y = w + k + 1 < W ? v[k + 1] : zero;
-      *reinterpret_cast<__nv_bfloat162*>(&tile[cl][wl + k]) = pair;
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int pass = 0; pass < 2; ++pass) {
-    const int r = pass * 32 + threadIdx.x / 8;
-    const int cg = (threadIdx.x % 8) * 8;
-    const int w = w0 + r;
-    if (w >= W) continue;
-    alignas(16) __nv_bfloat16 o[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) o[j] = tile[cg + j][r];
-    *reinterpret_cast<uint4*>(dst + (bh * W + w) * Cp + c0 + cg) =
-        *reinterpret_cast<const uint4*>(o);
-  }
-}
-
 // dw[e] = sum_s part[s][e] for e < n, s in order 0..S-1.
 __global__ void reduce_splits_kernel(const float* __restrict__ part,
                                      float* __restrict__ dw, int S, int n) {
@@ -436,54 +283,6 @@ __global__ void reduce_splits_kernel(const float* __restrict__ part,
   float v = 0.f;
   for (int s = 0; s < S; ++s) v += part[(size_t)s * n + e];
   dw[e] = v;
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver through the runtime, so the
-// library needs no -lcuda
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
-                                     cudaEnableDefault, &q);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault,
-                            &q);
-#endif
-    if (q == cudaDriverEntryPointSuccess) fn = (EncodeTiled)ptr;
-  }
-  return fn;
-}
-
-// a bf16 tensor (B, H, d1, d0) with row pitch p0 elements as the 4-D map
-// (d0, d1, H, B), boxes of 64 x 64, 128-byte swizzle, zeros out of range
-int encode_map(CUtensorMap* map, const void* ptr, int B, int H, int d1,
-               int d0, int p0) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return -1;
-  const cuuint64_t dims[4] = {(cuuint64_t)d0, (cuuint64_t)d1, (cuuint64_t)H,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)p0 * 2,
-                                 (cuuint64_t)p0 * 2 * d1,
-                                 (cuuint64_t)p0 * 2 * d1 * H};
-  const cuuint32_t box[4] = {64, 64, 1, 1};
-  const cuuint32_t estride[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                        const_cast<void*>(ptr), dims, strides, box, estride,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : -1;
 }
 
 }  // namespace
@@ -516,16 +315,12 @@ int conv3x3_wgrad(const void* x, const void* gy, const void* scale,
         vec ? 1 : 0);
     a = a_buf;
   }
-  const bool gvec = W % 8 == 0 && (uintptr_t)gy % 16 == 0 &&
-                    (uintptr_t)y % 16 == 0;
-  wgrad_cot_t_kernel<<<dim3((W + TILE - 1) / TILE, Cp / TILE, B * H),
-                       PRO_THREADS, 0, s>>>(
-      (const __nv_bfloat16*)gy, (const __nv_bfloat16*)y, (const float*)g1,
-      (const float*)g2, (__nv_bfloat16*)g_buf, Co, Cp, W, gvec ? 1 : 0);
+  ingest_t(y != nullptr ? INGEST_COT : INGEST_NONE, gy, y, g1, g2, g_buf,
+           B * H, Co, Cp, W, 0, s);
 
   CUtensorMap map_a, map_g;
-  if (encode_map(&map_a, a, B, H, Ci, W, Wp) != 0 ||
-      encode_map(&map_g, g_buf, B, H, W, Cp, Cp) != 0)
+  if (encode_map(&map_a, a, W, Ci, H, B, Wp, BOX_W, TILE) != 0 ||
+      encode_map(&map_g, g_buf, Cp, W, H, B, Cp, TILE, BOX_W) != 0)
     return -1;
   static bool smem_set[64] = {};  // per device
   int dev = 0;

@@ -11,7 +11,8 @@ Counterpart of ``rangedet_tpu/ops/conv_pallas.py``:
   (affine in f32, rounded to x.dtype before the multiply-accumulate, as
   ``conv_pallas._ingest``), and with ``stats`` also the per-channel sums
   (sum y, sum y^2) of the stored y. ``stride_w=2`` is XLA SAME for an even
-  width (pad 0 left, 1 right), taken natively by the kernel.
+  width (pad 0 left, 1 right); the kernel's prologue phase-packs the
+  input and its GEMM runs the stride-1 conv of ``phase_pack``.
 * ``conv3x3_dgrad(gy, w, cot, affine)`` is ``_conv3x3_fwd`` as the dgrad:
   the same conv of gy with the flipped, (Ci, Co)-swapped weight; ``cot``
   folds the stats cotangents into gy on load (``_ingest_cot``) and
@@ -43,9 +44,6 @@ from .. import _build
 LAUNCHES = 0        # forward, csrc/conv3x3_bhcw.cu
 DGRAD_LAUNCHES = 0  # dgrad, the same kernel with the flipped weight
 WGRAD_LAUNCHES = 0  # csrc/conv3x3_wgrad.cu
-
-_CI_ALIGN = 16  # K-chunk of the kernel
-_CO_ALIGN = 64  # Co tile of the kernel
 
 Cot = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # (y, gs1, gs2)
 Affine = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # (x, scale, bias)
@@ -180,17 +178,6 @@ def conv3x3_wgrad_plain(x: torch.Tensor, gy: torch.Tensor,
     return torch.stack(rows)
 
 
-def pack_weight(w: torch.Tensor) -> torch.Tensor:
-    """(3, 3, Ci, Co) -> the kernel's (Co_pad, 9, Ci_pad), zero-padded to
-    Co_pad % 64 == 0 and Ci_pad % 16 == 0."""
-    Ci, Co = w.shape[2], w.shape[3]
-    ci_pad = -(-Ci // _CI_ALIGN) * _CI_ALIGN
-    co_pad = -(-Co // _CO_ALIGN) * _CO_ALIGN
-    wp = torch.zeros((co_pad, 9, ci_pad), dtype=w.dtype, device=w.device)
-    wp[:Co, :, :Ci] = w.permute(3, 0, 1, 2).reshape(Co, 9, Ci)
-    return wp
-
-
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
@@ -209,10 +196,145 @@ def _stream(x: torch.Tensor):
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+# ------------------------------------------- forward / dgrad kernel's plan
+CONV_KB = 64  # input channels per K-step: one 128-byte swizzled box row
+
+
+@dataclass(frozen=True)
+class ConvPlan:
+    """Geometry of one csrc/conv3x3_bhcw.cu call. The prologue writes a'
+    (B, H, Wq, Cp), channels innermost: ingest(x) transposed, or at stride
+    2 phase-packed (a'[b, h, u, f*Ci + ci] = ingest(x)[b, h, ci, 2u + f]).
+    The GEMM runs a stride-1 conv of a' with the packed weight (taps, Co,
+    Cp) over tiles (pixel tile, Co tile, b*H + h), each block walking
+    tiles blockIdx, blockIdx + grid, ...; a tile's K-steps go over the
+    taps and, per tap, 64-channel blocks. It reads a' through the tensor
+    map (Ce, Wq, H, B) and the weight through (Ce, Co, taps, 1), both at
+    pitch Cp with the true channel count Ce as extent, so the pad channels
+    are never read. The kernel computes the same K-step decode and box
+    coordinates from (dx0, kc, kc2); the CPU tests run this plan through a
+    torch emulation of the kernel's tile loop."""
+    B: int
+    H: int
+    Ci: int
+    W: int
+    Co: int
+    stride: int
+    Ce: int        # the GEMM's input channels: Ci, or 2*Ci at stride 2
+    Wq: int        # width of a' and of the output: W, or W/2
+    Cp: int        # channel pitch of a' and of the packed weight: Ce to 8
+    dx0: int       # first tap column: 0, or 1 at stride 2 (column 0 is 0)
+    kc: int        # 64-channel blocks of a tap
+    kc2: int       # blocks of tap column 2 (stride 2: the even phase only)
+    bm: int        # output channels of a tile (64 per consumer warpgroup)
+    bn: int        # pixels of a tile
+    nwt: int       # pixel tiles per row
+    co_tiles: int
+    ksteps: int
+    part_rows: int  # rows of the per-tile sums, B * H * nwt
+
+    @property
+    def taps(self) -> int:
+        return 3 * (3 - self.dx0)
+
+    @property
+    def ntiles(self) -> int:
+        return self.nwt * self.co_tiles * self.B * self.H
+
+    def tile_origin(self, tile: int) -> Tuple[int, int, int]:
+        """(pixel tile, Co tile, b*H + h) of a tile; pixel tiles vary
+        fastest."""
+        r, wt = divmod(tile, self.nwt)
+        bh, ct = divmod(r, self.co_tiles)
+        return wt, ct, bh
+
+    def k_step(self, k: int) -> Tuple[int, int, int, int]:
+        """(dy, dx, channel block, packed-weight tap) of K-step k: per tap
+        row dy, the columns dx0..1 take kc blocks each, then column 2
+        takes kc2."""
+        lead = (2 - self.dx0) * self.kc
+        dy, r = divmod(k, lead + self.kc2)
+        if r < lead:
+            dx, cb = self.dx0 + r // self.kc, r % self.kc
+        else:
+            dx, cb = 2, r - lead
+        return dy, dx, cb, dy * (3 - self.dx0) + dx - self.dx0
+
+    def w_box(self, k: int, co0: int) -> Tuple[int, int, int, int]:
+        """TMA coordinates (ci, co, tap, 0), innermost first, of K-step k's
+        weight box: 64 channels x bm output channels."""
+        _, _, cb, tap = self.k_step(k)
+        return cb * CONV_KB, co0, tap, 0
+
+    def a_box(self, k: int, b: int, h: int, u0: int
+              ) -> Tuple[int, int, int, int]:
+        """TMA coordinates (ci, u, h, b) of K-step k's activation box for
+        the tile at row (b, h) and pixels u0 .. u0+bn-1: 64 channels x bn
+        pixels of a' row h+dy-1 from column u0+dx-1. Both shifts fall on
+        outer dimensions; an innermost coordinate must start on 16 bytes."""
+        dy, dx, cb, _ = self.k_step(k)
+        return cb * CONV_KB, u0 + dx - 1, h + dy - 1, b
+
+    def warpgroups(self):
+        """(first Co row, first pixel, pixels) of each consumer warpgroup's
+        part of a tile, in warpgroup order."""
+        wg_m = self.bm // 64
+        wn = self.bn // (2 // wg_m)
+        return [((g % wg_m) * 64, (g // wg_m) * wn, wn) for g in range(2)]
+
+
+def plan_conv(B: int, H: int, Ci: int, W: int, Co: int, stride: int = 1
+              ) -> ConvPlan:
+    """Plan the forward/dgrad kernel for x (B, H, Ci, W) and Co outputs.
+    Tiles: 128 Co x 256 pixels where Co > 64 and the row has >= 512
+    pixels, 128 x 128 on narrower rows, 64 x 256 at Co <= 64
+    (csrc/conv3x3_bhcw.cu says why)."""
+    phase = stride == 2
+    Ce = 2 * Ci if phase else Ci
+    Wq = W // 2 if phase else W
+    bm = 128 if Co > 64 else 64
+    bn = 256 if bm == 64 or Wq >= 512 else 128
+    kc = -(-Ce // CONV_KB)
+    kc2 = -(-Ci // CONV_KB) if phase else kc
+    dx0 = 1 if phase else 0
+    nwt = -(-Wq // bn)
+    return ConvPlan(
+        B=B, H=H, Ci=Ci, W=W, Co=Co, stride=stride, Ce=Ce, Wq=Wq,
+        Cp=-(-Ce // 8) * 8, dx0=dx0, kc=kc, kc2=kc2, bm=bm, bn=bn, nwt=nwt,
+        co_tiles=-(-Co // bm), ksteps=3 * ((2 - dx0) * kc + kc2),
+        part_rows=B * H * nwt)
+
+
+def pack_weight(w: torch.Tensor, plan: ConvPlan, flip: bool = False
+                ) -> torch.Tensor:
+    """(3, 3, Ci, Co) -> the kernel's (taps, Co, Cp): tap dy*3 + dx at
+    stride 1; at stride 2 the phase-packed weight (phase_pack) without its
+    zero column dx=0, tap dy*2 + dx-1. Channels >= Ce are 0. With ``flip``
+    it packs flip_weight(w) (w is then (3, 3, Co, Ci)), the dgrad's."""
+    if flip:
+        if plan.stride != 1:
+            raise ValueError("the dgrad runs at stride 1")
+        wt = w.flip(0, 1)  # (3, 3, Co, Ci) of the flipped weight
+    else:
+        wt = w.permute(0, 1, 3, 2)
+    Co, Ci = wt.shape[2], wt.shape[3]
+    if plan.stride == 1 and plan.Cp == Ci:  # one copy, no padding
+        return wt.reshape(plan.taps, Co, Ci).contiguous()
+    wp = w.new_zeros((3, 3 - plan.dx0, Co, plan.Cp))
+    if plan.stride == 1:
+        wp[..., :Ci] = wt
+    else:
+        wp[:, 0, :, :Ci] = wt[:, 0]
+        wp[:, 0, :, Ci:2 * Ci] = wt[:, 1]
+        wp[:, 1, :, :Ci] = wt[:, 2]
+    return wp.reshape(plan.taps, Co, plan.Cp)
+
+
 def _launch_fwd(x, w, scale=None, bias=None, stride_w=1, stats=False,
-                cot=None, affine=None):
-    """One launch of csrc/conv3x3_bhcw.cu (and its reducing pass when
-    sums are asked for). Returns y, or (y, sum0, sum1)."""
+                cot=None, affine=None, flip=False):
+    """One call of csrc/conv3x3_bhcw.cu: the prologue, the GEMM and, when
+    sums are asked for, the reducing pass, with the weight w, or with
+    ``flip`` flip_weight(w) (the dgrad's). Returns y, or (y, sum0, sum1)."""
     if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
         raise TypeError(
             f"the kernel takes bf16 x and w, got {x.dtype} and {w.dtype}"
@@ -221,11 +343,15 @@ def _launch_fwd(x, w, scale=None, bias=None, stride_w=1, stats=False,
     if w.device != x.device:
         raise ValueError(f"w on {w.device}, x on {x.device}")
     B, H, Ci, W = x.shape
-    Co = w.shape[3]
+    Co = w.shape[2 if flip else 3]
     if B * H > 65535:
         raise ValueError(f"B*H={B * H} exceeds the kernel's grid")
-    Wo = W if stride_w == 1 else W // 2
+    if stride_w == 2 and Ci % 8:
+        raise ValueError(f"stride 2 needs Ci % 8 == 0 (whole 16-byte phase "
+                         f"halves), got Ci={Ci}")
     if scale is not None:
+        if cot is not None:
+            raise ValueError("the kernel takes one ingest: affine or cot")
         _need(x, "scale", scale, torch.float32, (Ci,))
         _need(x, "bias", bias, torch.float32, (Ci,))
     cy = c1 = c2 = bx = bs = bb = None
@@ -241,24 +367,30 @@ def _launch_fwd(x, w, scale=None, bias=None, stride_w=1, stats=False,
         _need(x, "affine x", bx, torch.bfloat16, (B, H, Co, W))
         _need(x, "affine scale", bs, torch.float32, (Co,))
         _need(x, "affine bias", bb, torch.float32, (Co,))
-    lib = _build.load()
-    wp = pack_weight(w)
-    y = torch.empty((B, H, Co, Wo), dtype=x.dtype, device=x.device)
+    plan = plan_conv(B, H, Ci, W, Co, stride_w)
+    wp = pack_weight(w, plan, flip)
+    y = torch.empty((B, H, Co, plan.Wq), dtype=x.dtype, device=x.device)
+    sums_wanted = stats or affine is not None
+    # one scratch buffer, 256-byte-aligned pieces: a', the per-block sums
+    sizes = [2 * B * H * plan.Wq * plan.Cp,
+             4 * plan.part_rows * 2 * Co if sums_wanted else 0]
+    sizes = [-(-n // 256) * 256 for n in sizes]
+    buf = torch.empty(sum(sizes), dtype=torch.uint8, device=x.device)
+    a_buf = buf.data_ptr()
     part = sums = None
-    if stats or affine is not None:
-        rows = lib.conv3x3_bhcw_part_rows(B, H, W, stride_w)
-        part = torch.empty((rows, 2, Co), dtype=torch.float32,
-                           device=x.device)
+    if sums_wanted:
+        part = a_buf + sizes[0]
         sums = torch.empty((2, Co), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        err = lib.conv3x3_bhcw_fwd(
+        err = _build.load().conv3x3_bhcw_fwd(
             x.data_ptr(), wp.data_ptr(), _ptr(scale), _ptr(bias),
             _ptr(cy), _ptr(c1), _ptr(c2), _ptr(bx), _ptr(bs), _ptr(bb),
-            y.data_ptr(), _ptr(part), _ptr(sums),
-            B, H, Ci, W, Co, wp.shape[2], stride_w, _stream(x),
+            y.data_ptr(), a_buf, part, _ptr(sums), B, H, Ci, W, Co,
+            stride_w, plan.Ce, plan.Wq, plan.Cp, plan.dx0, plan.kc,
+            plan.kc2, plan.bm, plan.bn, _sm_count(x.device), _stream(x),
         )
     if err != 0:
-        raise RuntimeError(f"conv3x3_bhcw_fwd launch failed: cudaError {err}")
+        raise RuntimeError(f"conv3x3_bhcw_fwd launch failed: error {err}")
     if sums is None:
         return y
     return y, sums[0], sums[1]
@@ -300,11 +432,10 @@ def conv3x3_dgrad(gy: torch.Tensor, w: torch.Tensor,
     gy (B, H, Co, W) -> dx (B, H, Ci, W), or (dx, dscale, dbias) with
     ``affine``. See conv3x3_dgrad_plain."""
     global DGRAD_LAUNCHES
-    _check(gy, flip_weight(w), None, None, 1)
+    _check(gy, w.transpose(2, 3), None, None, 1)  # the flipped shape
     if not _route(gy):
         return conv3x3_dgrad_plain(gy, w, cot, affine)
-    out = _launch_fwd(gy, flip_weight(w).contiguous(), cot=cot,
-                      affine=affine)
+    out = _launch_fwd(gy, w, cot=cot, affine=affine, flip=True)
     DGRAD_LAUNCHES += 1
     return out
 

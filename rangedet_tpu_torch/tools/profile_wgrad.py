@@ -73,7 +73,7 @@ def device_ms(fn, iters=3, tries=3):
         for e in prof.key_averages():
             us = getattr(e, "device_time_total", None) or getattr(
                 e, "cuda_time_total", 0.0)
-            if "wgrad_ingest_kernel" in e.key or "wgrad_cot_t_kernel" in e.key:
+            if "wgrad_ingest_kernel" in e.key or "ingest_t_kernel" in e.key:
                 pro += us
             elif "conv3x3_wgrad_kernel" in e.key or "reduce_splits" in e.key:
                 gemm += us

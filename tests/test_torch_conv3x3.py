@@ -145,5 +145,31 @@ def test_cuda_kernel_matches_plain_and_counts_launches():
                                  out_dtype=torch.float32)
         err = (y.float() - ref).abs()
         assert (err <= 2.0 ** -6 * ref.abs() + 1e-3 * ref.abs().max()).all()
+    # ragged geometry of the TMA + wgmma kernel: Ci = 8 and 72 (part of a
+    # 64-channel box, two boxes), W = 70, 166 and 1040 (ragged pixel
+    # tiles of 128 and 256), Co = 16, 72, 136 and 512 (ragged and many Co
+    # tiles), stride 2 through the phase-packed operand; with the sums
+    for (B, H, Ci, W, Co, stride, ingest) in [
+            (1, 3, 8, 70, 16, 1, False), (1, 3, 72, 166, 72, 1, True),
+            (1, 2, 128, 1040, 136, 2, True), (1, 3, 128, 130, 512, 1, False),
+            (2, 4, 64, 166, 64, 2, False)]:
+        xr = torch.randn(B, H, Ci, W, device="cuda").bfloat16()
+        wr = (torch.randn(3, 3, Ci, Co, device="cuda") / (3 * Ci ** 0.5)
+              ).bfloat16()
+        sb = ((1 + 0.3 * torch.randn(Ci, device="cuda"),
+               0.2 * torch.randn(Ci, device="cuda")) if ingest
+              else (None, None))
+        y, s1, s2 = conv3x3_bhcw(xr, wr, *sb, stride_w=stride, stats=True)
+        ref = conv3x3_bhcw_plain(xr, wr, *sb, stride_w=stride,
+                                 out_dtype=torch.float32)
+        err = (y.float() - ref).abs()
+        assert (err <= 2.0 ** -6 * ref.abs() + 1e-3 * ref.abs().max()
+                ).all(), (B, Ci, W, Co, stride)
+        yd = y.double()
+        for got, want in ((s1, yd.sum((0, 1, 3))),
+                          (s2, (yd * yd).sum((0, 1, 3)))):
+            assert (got - want).abs().max() <= 1e-3 * want.abs().max()
+        again = conv3x3_bhcw(xr, wr, *sb, stride_w=stride, stats=True)
+        assert all(torch.equal(a, b) for a, b in zip((y, s1, s2), again))
     with pytest.raises(TypeError):
         conv3x3_bhcw(x, w)  # f32 on the card: the kernel takes bf16

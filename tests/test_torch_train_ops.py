@@ -448,6 +448,32 @@ def test_train_kernels_match_plain_on_cuda():
             + 1e-3 * rdx.abs().max()).all()
     for a, ref in ((ds, rds), (db, rdb)):
         assert (a - ref).abs().max() <= 1e-3 * ref.abs().max()
+    # the dgrad where its geometry is ragged: W = 166 and 70, Cdx = 8 and
+    # 72, Cgy = 72 and 136 (two K-blocks, ragged), each cot / affine pair
+    for (B, H, Cg, Cx, W, with_cot, aff) in [
+            (2, 6, 128, 128, 166, True, True), (1, 5, 72, 8, 70, True, False),
+            (1, 4, 136, 72, 200, False, True), (1, 3, 64, 136, 130, False,
+                                                False)]:
+        gd = torch.randn(B, H, Cg, W, device=dev).bfloat16()
+        wd = (torch.randn(3, 3, Cx, Cg, device=dev) / (3 * Cx ** 0.5)
+              ).bfloat16()
+        cd = (torch.randn(B, H, Cg, W, device=dev).bfloat16(),
+              0.1 * torch.randn(Cg, device=dev),
+              0.05 * torch.randn(Cg, device=dev)) if with_cot else None
+        ad = (torch.randn(B, H, Cx, W, device=dev).bfloat16(),
+              1 + 0.3 * torch.randn(Cx, device=dev),
+              0.2 * torch.randn(Cx, device=dev)) if aff else None
+        out = conv.conv3x3_dgrad(gd, wd, cd, ad)
+        ref = conv.conv3x3_dgrad_plain(gd, wd, cd, ad,
+                                       out_dtype=torch.float32)
+        o0, r0 = (out[0], ref[0]) if aff else (out, ref)
+        assert ((o0.float() - r0).abs() <= 2 ** -6 * r0.abs()
+                + 1e-3 * r0.abs().max()).all(), (B, Cg, Cx, W)
+        if aff:
+            for a, r in zip(out[1:], ref[1:]):
+                assert (a - r).abs().max() <= 1e-3 * r.abs().max()
+        again = conv.conv3x3_dgrad(gd, wd, cd, ad)
+        assert torch.equal(o0, again[0] if aff else again)
     dw = conv.conv3x3_wgrad(xb, gy, s, b, cot)
     rdw = conv.conv3x3_wgrad_plain(xb, gy, s, b, cot)
     assert (dw - rdw).abs().max() <= 1e-3 * rdw.abs().max()
