@@ -26,7 +26,11 @@ Phases, one line of output each (or a table), failing on the first error:
    deconv backward through the autograd Function, the IoU target at each
    level, and every launch of the Meta-Kernel block's kernels (meta_stats,
    meta_agg, the block backward in both modes) on the inputs the step gave
-   it; max error, kernel ms, plain ms, cuDNN ms and the bound; for the
+   it, each twice with bit-equal outputs; a zeroed dA planted in the
+   backward's output must fail its gates; meta_agg and the backward summed
+   over the step must stay within META_AGG_BOUND_MAX and META_BWD_BOUND_MAX
+   of their f32-FFMA bounds (their tensor-core bounds printed beside);
+   max error, kernel ms, plain ms, cuDNN ms and the bound; for the
    three conv kernels also the device time of their prologue and GEMM
    (and reduction), the GEMM's TFLOP/s and registers and spills, and
    their sums over the step against cuDNN's, which must stay within
@@ -129,6 +133,11 @@ PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
 IOU_OPS_PER_PAIR = 600  # f32 operations per (pixel, candidate) clip
+# the Meta-Kernel block's kernels summed over one B=2 step against their
+# f32-FFMA bound (meta_work at PEAK_F32), in the same run: at most these
+# factors. The FFMA kernels before the tensor-core ones read 6.5x and 4.8x
+META_BWD_BOUND_MAX = 3.5
+META_AGG_BOUND_MAX = 3.0
 
 
 def _smi():
@@ -283,6 +292,7 @@ class KernelTotals:
         self.ms = self.plain_ms = self.bound_ms = self.library_ms = 0.0
         self.err = 0.0
         self.by = {}
+        self.tc_bound_ms = 0.0  # rows 4, 5: the tensor-core bound
 
     def add(self, n, ms, plain_ms, bound, library_ms, err):
         self.n += n
@@ -377,32 +387,9 @@ def _plain_convs(conv3x3, plain=True, meta=None):
     return stack
 
 
-def meta_work(kind, B, H, W, C, Cm, Co):
-    """(f32 operations, bytes) of one launch of a Meta-Kernel kernel over
-    B*H*W pixels: each input read once, each output written once. Per
-    pixel and tap the taps cost 2*C*Cm (MLP out) + 7*Cm (rel, MLP in, relu)
-    + 2*C (bias, product), which is all kernel 7 ("taps") does; stats adds
-    3*C; agg 3*C (fold, relu) + 2*C*Co; the agg backward 4*C*Co (A.gy, dA)
-    + 8*C (dz, ds9, db9, da, dnb, dwt, dfeat) + 4*C*Cm + 9*Cm (MLP
-    backward); the stats backward 6*C + 4*C*Cm + 9*Cm."""
-    taps = 2 * C * Cm + 7 * Cm + 2 * C
-    per = {"taps": taps, "stats": taps + 3 * C,
-           "agg": taps + 3 * C + 2 * C * Co,
-           "bwd_agg": taps + 4 * C * Co + 8 * C + 4 * C * Cm + 9 * Cm,
-           "bwd_stats": taps + 6 * C + 4 * C * Cm + 9 * Cm}[kind]
-    n = B * H * W
-    feat = 2 * n * (C + 3)  # bf16 features and coordinates
-    weights = 4 * (4 * Cm + Cm * C + C + (0 if kind == "taps" else 2 * 9 * C))
-    out = {"taps": 2 * n * 9 * C,
-           "stats": 4 * 2 * 9 * C, "agg": 2 * n * Co + 2 * 9 * C * Co,
-           "bwd_agg": 2 * n * (C + 2 * Co) + 2 * 9 * C * Co
-           + 4 * (9 * C * Co + 2 * 9 * C + 4 * Cm + Cm * C + C),
-           "bwd_stats": 2 * n * C + 4 * (4 * Cm + Cm * C + C)}[kind]
-    return 9 * n * per, feat + weights + out
-
-
 def phase5(torch, conv3x3, iou_mod, layers, meta, recorded, H, dev):
     from rangedet_tpu_torch import _build
+    from rangedet_tpu_torch.tools.profile_meta import meta_work, tc_bound_ms
     from rangedet_tpu_torch.tools.profile_wgrad import (
         device_ms as wgrad_device_ms,
     )
@@ -651,7 +638,15 @@ def phase5(torch, conv3x3, iou_mod, layers, meta, recorded, H, dev):
               f"pixels with IoU > 0, max abs err {err:.3g}; kernel "
               f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {bound[0]:.4f} ms")
     # the fused Meta-Kernel block: every launch of the step, on the inputs
-    # it had there
+    # it had there, each run twice (bit-equal)
+    def bwd_check(out, ref):
+        ok, err = _bf16_ok(out[0], ref[0])
+        rels = [_rel(a, b) for a, b in zip(out[1:], ref[1:])]
+        ok &= max(rels) <= F32_SUM_TOL
+        ok &= all(bool(a.isfinite().all()) for a in out[1:])
+        return ok, err, rels
+
+    fault_rejected = None
     for kind, calls in metas.items():
         for args in calls:
             feat, _, w0 = args[:3]
@@ -669,10 +664,10 @@ def phase5(torch, conv3x3, iou_mod, layers, meta, recorded, H, dev):
                          f"{rels[1]:.3g}"
             elif kind == "agg":
                 Co = args[8].shape[1]
-                y = meta.meta_agg(*args)
+                out = meta.meta_agg(*args)
                 torch.cuda.synchronize()
                 ref = meta.meta_agg_plain(*args, out_dtype=torch.float32)
-                ok, err = _bf16_ok(y, ref)
+                ok, err = _bf16_ok(out, ref)
                 name, work = "meta_agg", "agg"
                 detail = f"y max abs err {err:.4g} (max|ref| " \
                          f"{ref.abs().max().item():.4g})"
@@ -682,25 +677,52 @@ def phase5(torch, conv3x3, iou_mod, layers, meta, recorded, H, dev):
                 out = meta.meta_bwd(*args)
                 torch.cuda.synchronize()
                 ref = meta.meta_bwd_plain(*args, out_dtype=torch.float32)
-                ok, err = _bf16_ok(out[0], ref[0])
-                rels = [_rel(a, b) for a, b in zip(out[1:], ref[1:])]
-                ok &= max(rels) <= F32_SUM_TOL
-                ok &= all(bool(a.isfinite().all()) for a in out[1:])
+                ok, err, rels = bwd_check(out, ref)
                 name, work = "meta_block_bwd", f"bwd_{mode}"
                 detail = (f"mode {mode}: dfeat max abs err {err:.4g}; f32 "
                           f"outputs max|a-b|/max|b| " + " ".join(
                               f"{r:.3g}" for r in rels))
+                if mode == "agg":  # the planted fault: dA contracted to 0
+                    bad = list(out)
+                    bad[1] = torch.zeros_like(out[1])
+                    fault_rejected = not bwd_check(bad, ref)[0]
             if not ok:
                 fail(f"{name} disagrees with its plain version: {detail}")
+            again = getattr(meta, f"meta_{kind}")(*args)
+            outs = out if isinstance(out, tuple) else (out,)
+            agains = again if isinstance(again, tuple) else (again,)
+            if not all(torch.equal(a, b) for a, b in zip(outs, agains)):
+                fail(f"{name} ({work}): a repeat gave other bits")
             k_ms = _time_ms(lambda: getattr(meta, f"meta_{kind}")(*args))
             plain = getattr(meta, f"meta_{kind}_plain")
             p_ms = _time_ms(lambda: plain(*args), iters=3, warmup=1)
             flops, nbytes = meta_work(work, B, Hm, W, C, Cm, Co)
             bound = _bound_ms(flops, nbytes, PEAK_F32)
+            tc = tc_bound_ms(work, B, Hm, W, C, Cm, Co)
             totals[name].add(1, k_ms, p_ms, bound, None, err)
+            totals[name].tc_bound_ms += tc
             print(f"[5] {name} (B={B} H={Hm} C={C} W={W} Cm={Cm} Co={Co}): "
-                  f"{detail}; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-                  f"bound {bound[0]:.4f} ms ({flops / 1e9:.2f} GFLOP f32)")
+                  f"{detail}; repeat bit-equal; kernel {k_ms:.4f} ms, plain "
+                  f"{p_ms:.4f} ms, bound {bound[0]:.4f} ms f32 FFMA "
+                  f"({flops / 1e9:.2f} GFLOP), {tc:.4f} ms tensor cores")
+    if fault_rejected is not True:
+        fail("the gates of the block backward pass a zeroed dA contraction"
+             if fault_rejected is False else "no agg-mode backward launch")
+    print("[5] meta_block_bwd: the planted fault (dA contracted to zero) is "
+          "rejected by its gates")
+    for name, limit, kernel in (
+            ("meta_block_bwd", META_BWD_BOUND_MAX, "meta_bwd_kernel"),
+            ("meta_agg", META_AGG_BOUND_MAX, "meta_agg_kernel")):
+        t = totals[name]
+        print(f"[5] {name} over the step: kernel {t.ms:.3f} ms = "
+              f"{t.ms / t.bound_ms:.2f}x its f32-FFMA bound {t.bound_ms:.3f}"
+              f" ms (limit {limit}x), {t.ms / t.tc_bound_ms:.1f}x its "
+              f"tensor-core bound {t.tc_bound_ms:.3f} ms; kernel (ptxas) "
+              f"{ptxas_report(_build.build_log, kernel)}")
+        if not t.ms <= limit * t.bound_ms:
+            fail(f"{name} summed over the step takes "
+                 f"{t.ms / t.bound_ms:.2f}x its f32 bound, more than "
+                 f"{limit}x")
     for name, t in totals.items():
         lib = (f"cuDNN {t.library_ms:.3f} ms" if name in ("fwd", "dgrad",
                                                           "wgrad")
@@ -881,6 +903,8 @@ def phase7(torch, m, cfg, dev):
     """Kernel 7 against its plain version on the inputs of a B=4 and a B=1
     eval forward, its gradient, and the eval step with and without it.
     Returns {B: KernelTotals} of the kernel."""
+    from rangedet_tpu_torch.tools.profile_meta import meta_work
+
     taps = m["taps"]
 
     def fail(msg):

@@ -125,8 +125,8 @@ def load_from(csrc: Path) -> ctypes.CDLL:
                lib.meta_block_part_floats):
         fn.restype = i32
     lib.meta_stats_fwd.argtypes = [vp] * 8 + [i32] * 4 + [vp]
-    lib.meta_agg_fwd.argtypes = [vp] * 10 + [i32] * 4 + [vp]
-    lib.meta_block_bwd.argtypes = [vp] * 14 + [i32] * 5 + [vp]
+    lib.meta_agg_fwd.argtypes = [vp] * 10 + [i32] * 5 + [vp]
+    lib.meta_block_bwd.argtypes = [vp] * 13 + [i32] * 6 + [vp]
     for fn in (lib.meta_stats_fwd, lib.meta_agg_fwd, lib.meta_block_bwd):
         fn.restype = i32
     lib.meta_kernel_grid.argtypes = [i32] * 3

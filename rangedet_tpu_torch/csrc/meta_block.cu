@@ -10,10 +10,12 @@
 //   a   = bf16(feat[h+dy-1, :, w+dx-1] * wt)       (C, the tap product)
 //
 // meta_stats_fwd replaces meta_stats_pallas (_fwd_kernel, mode "stats"):
-//   s1 = sum a, s2 = sum a^2 over all B*H*W pixels, per channel of 9C.
+//   s1 = sum a, s2 = sum a^2 over all B*H*W pixels, per channel of 9C. It
+//   is the first port's kernel, f32 FFMA from shared memory with the tap
+//   stage of meta_taps.cuh (shared with kernel 7), and is not changed here.
 // meta_agg_fwd replaces meta_agg_pallas (_fwd_kernel, mode "agg"):
-//   y[co] = sum_t sum_c A[t*C+c, co] * relu(a_t[c] * s9 + b9), in f32
-//   (relu(z) is not rounded: the contraction is f32 FFMA, as the TPU's).
+//   y[co] = sum_t sum_c A[t*C+c, co] * relu(a_t[c] * s9 + b9), f32, rounded
+//   once to bf16.
 // meta_block_bwd replaces _bwd_call (_bwd_kernel), both modes:
 //   "agg":   dz = (A_t gy) [z > 0]; dA += relu(z) gy^T, ds9 += dz a,
 //            db9 += dz, da = dz s9;
@@ -21,38 +23,92 @@
 //   both:    dnb = da wt goes to dfeat at the neighbour; dwt = da nb feeds
 //            the MLP backward (dW1, db1, dW0, db0).
 //
-// What bounds them on Hopper: operations. At the recipe's widths (C = 64,
-// Cm = 32, Co = 64) a pixel costs ~39 kFLOP of taps, 74 kFLOP of agg
-// contraction, and the backward about 2.5x the forward, against a few
-// hundred bytes of input. This first version is plain f32 FFMA from shared
-// memory (no tensor cores, no TMA): each block walks tiles of P = 32 pixels
-// of one row, stages the three feature and coordinate rows around them,
-// and loops over the 9 taps; thread (c, g) owns channel c for pixels
-// g*8 .. g*8+7.
+// meta_agg_fwd and meta_block_bwd on Hopper: tensor cores over exact bf16
+// splits. Every contraction has one factor that is exactly bf16: W1 (the
+// block rounds it to bf16), agg, gy. The other factor x, f32, goes in as
+// three bf16 terms hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi -
+// mid), which sum to x exactly (24 significand bits; both differences are
+// exact in f32), and a bf16 x bf16 product is exact in f32. So three
+// wgmma products accumulated in f32 give the f32 FFMA's products; only the
+// order (and the tensor core's internal rounding) of the additions differs.
+// dW1 = dwt h1^T has two f32 factors: both are split and six of the nine
+// cross products are taken (hi.hi, hi.mid, mid.hi, hi.lo, lo.hi, mid.mid);
+// the three dropped ones are below 2^-24 of the product.
 //
-// Sums over all pixels (s1/s2, dA, ds9/db9, the MLP gradients): no block
-// can carry a sum to the next, so each block adds its tiles in a fixed
-// order into per-thread or per-owner slots, writes one f32 partial, and a
-// second kernel adds the partials in block order. No float atomics: two
-// runs give the same bits.
+// The contractions (M x N x K; wgmma M is 64, so the 64 pixels of a chunk
+// are M wherever they are not K):
+//   forward  wt   = h1 W1            px x C x Cm    h1 split, A in registers
+//            y   += relu(z) A_t      px x Co x C    relu(z) split, registers
+//   backward wt   = h1 W1            px x C x Cm    as above
+//            dr   = gy A_t^T         px x C x Co    both bf16, gy registers
+//            dA_t += relu(z)^T gy    C x Co x px    split, both in smem
+//            dh1  = dwt W1^T         px x Cm x C    dwt split, registers
+//            dW1 += dwt^T [h1 | 1]   C x (Cm+8) x px  6 cross products; the
+//                                                   ones column gives db1
+// A product's accumulators hold pixel m, channel n in the layout of wgmma's
+// D fragment, which is also the layout of its A fragment from registers
+// (pairs of columns packed as bf16x2): so wt, relu(z), dwt feed the next
+// product without a trip through shared memory. The elementwise stage (rel,
+// h1, a, z, dz, da, dnb, dwt, the splits) runs on the CUDA cores in those
+// registers, with the plain version's f32 operations. Operands in shared
+// memory are bf16 tiles of 128-byte rows with the 128-byte swizzle
+// (hopper.cuh's sw128_desc); one tile serves as K-major or M/N-major
+// depending on the product (agg[t][c][co] is the forward's N-major B and
+// the backward's K-major B; W1[k][c] likewise).
 //
-// dfeat is a 3x3 scatter on the TPU (a lagged accumulation slab that needs
-// the grid in order). Here it is a gather: the backward walks OUTPUT
-// positions q of the zero-padded grid [-1, H] x [-1, W], and for tap t
-// processes the source pixel s = q - (dy-1, dx-1), whose tap-t neighbour is
-// q. Every (source, tap) pair is visited exactly once, so the sums are
-// complete, and each output element is owned by one thread of one block,
-// which adds the 9 taps' contributions in tap order (taps are the outer
-// loop, so the running f32 sum lives in a (B, H, C, W) f32 scratch that
-// only its owner touches; the last tap writes bf16 dfeat).
+// The tap product a = bf16(nb wt) is rounded mid-way, so a wt one f32 ulp
+// from the plain version's moves some a by a bf16 ulp, and with it y (the
+// model's gradients followed: chip_smoke's head gate read 0.143 > 0.14) and
+// z's sign in the backward. So where nb wt lies within NEAR_TIE of a bf16
+// rounding boundary (0.13% of the step's tap products), wt is recomputed
+// on the CUDA cores in the plain version's order (tap_stage), and a is the
+// plain version's bit for bit.
+//
+// Loads: the feature, coordinate and gy rows of a chunk come by TMA (boxes
+// of a 4-D map, zero fill outside the image: that is the taps' zero
+// padding, and rel at a border tap is -centre as in the plain version),
+// into a 2-stage ring under mbarriers: the next chunk loads while this one
+// computes; the agg tile of each tap (8 KB, from L2) streams into a 2-tile
+// ring the same way. A box must start on 16 bytes along W, so boxes start 8
+// pixels left of the chunk and the one-pixel shifts are offsets of the
+// elementwise stage's ordinary shared-memory loads.
+//
+// Loop order. Forward: a block is one warpgroup (two blocks an SM) walking
+// its chunks of 64 pixels of one row, taps inside; each tap's product is
+// added to y in f32 as the plain version adds the taps. Backward: the
+// gather form. A block (one warpgroup, one an SM) owns a chunk of 64 OUTPUT
+// pixels q of one row; for tap t it rebuilds the tap at the source s = q -
+// (dy-1, dx-1), whose tap-t neighbour is q, so nb is feat[q] and dnb lands
+// on q: the 9 taps of dfeat add up in registers in tap order, and no f32
+// dfeat leaves the chip (the first port's backward kept a (B, H, C, W) f32
+// scratch, 87 MB at B=2, read and written at each tap). Chunks cover the
+// rows -1 .. H and the columns -8 .. W, so that every (source, tap) pair
+// inside the image is visited exactly once and the sums are complete;
+// sources outside the image are masked. The f32 gradient sums: dA_t moves
+// between the accumulators and the block's partial in device memory (147
+// KB a block, L2-resident) at each tap; ds9, db9 are reduced over the
+// lanes and warps in a fixed order into shared memory; dW1 and db1
+// accumulate in the dW1 product's registers over the whole launch; db0,
+// dW0 per thread in shared memory. Each block writes one f32 partial, and
+// reduce_blocks_kernel adds the partials in block order. No float atomics:
+// two runs give the same bits.
+//
+// What bounds them now: at the recipe's widths the split contractions are
+// 0.11 TFLOP (forward) and 0.25 TFLOP (agg-mode backward) per B=2 step,
+// 0.1-0.3 ms at 989 TFLOP/s (the tensor-core bounds, with the rest of the
+// work, are 0.038 and 0.089 ms); the CUDA-core elementwise stage between
+// the dependent products of a tap, with few warps an SM to hide their
+// waits, holds them at ~20-35x that (PERF.md).
+//
+// The geometry (chunks, box coordinates, the tap order and the order of
+// the partials) is rangedet_tpu_torch/ops/meta_block.py:plan_meta, and
+// tests/test_torch_meta_plan.py runs a torch emulation of these loops on
+// the CPU with it.
 
 #include "meta_taps.cuh"
+#include "hopper.cuh"
 
 namespace {
-
-constexpr int NA = CO / G;      // dA columns per thread (backward)
-constexpr int KI = CM * P / THREADS;  // dh1 rows per thread (backward)
-static_assert(NA == 16 && KI == 4, "tiling");
 
 // per-block partial layout of the backward (floats)
 constexpr int OFF_A = 0;                    // (9C, CO)
@@ -65,21 +121,17 @@ constexpr int MLP_W1 = MLP_B0 + CM;       // (CM, C)
 constexpr int MLP_B1 = MLP_W1 + CM * C;   // (C)
 constexpr int MLP_SUMS = MLP_B1 + C;
 
-// ------------------------------------------------------------- forward
-template <int KIND>
-__global__ void __launch_bounds__(THREADS) meta_fwd_kernel(Args p) {
+// --------------------------------------------------- kernel 3: meta_stats
+__global__ void __launch_bounds__(THREADS) meta_stats_kernel(Args p) {
   extern __shared__ __align__(16) float smem[];
-  const Smem s = carve<KIND>(smem);
+  const Smem s = carve<0>(smem);
   const int tid = threadIdx.x;
   const int c = tid % C;
   const int g = tid / C;
   const int H = p.H, W = p.W;
   const int ntw = (W + P - 1) / P;
-  load_constants(p, s, KIND == 1);
-  if (KIND == 0)
-    for (int e = tid; e < S_RED_STATS; e += THREADS) s.red[e] = 0.f;
-  if (KIND == 1)
-    for (int e = tid; e < NT * C * CO; e += THREADS) s.a[e] = p.agg[e];
+  load_constants(p, s);
+  for (int e = tid; e < S_RED_STATS; e += THREADS) s.red[e] = 0.f;
   const int t_begin = (int)((long long)p.tiles * blockIdx.x / gridDim.x);
   const int t_end = (int)((long long)p.tiles * (blockIdx.x + 1) / gridDim.x);
 
@@ -90,305 +142,867 @@ __global__ void __launch_bounds__(THREADS) meta_fwd_kernel(Args p) {
     const int h = bh - b * H;
     __syncthreads();  // the previous tile is done with the buffers
     load_halo(p, s, b, h, w0);
-    float acc[PP];
-#pragma unroll
-    for (int i = 0; i < PP; ++i) acc[i] = 0.f;
 #pragma unroll 1
     for (int t = 0; t < NT; ++t) {
       const int dy = t / 3, dx = t % 3;
-      __syncthreads();  // halo staged; last tap's readers of h1/t0 done
+      __syncthreads();  // halo staged; last tap's readers of h1 done
       tap_hidden(s, dy, dx);
       __syncthreads();
       float wt[PP], nb[PP], a[PP];
       tap_products(p, s, c, g, dy, dx, wt, nb, a);
-      if (KIND == 0) {
-        float s1 = 0.f, s2 = 0.f;
+      float s1 = 0.f, s2 = 0.f;
 #pragma unroll
-        for (int i = 0; i < PP; ++i)
-          if (w0 + g * PP + i < W) {
-            s1 += a[i];
-            s2 += a[i] * a[i];
-          }
-        s.red[(g * 2) * NT * C + t * C + c] += s1;
-        s.red[(g * 2 + 1) * NT * C + t * C + c] += s2;
-      } else {
-        const float s9 = s.e[t * C + c], b9 = s.e[NT * C + t * C + c];
-#pragma unroll
-        for (int i = 0; i < PP; ++i)
-          s.t0[c * LDP + g * PP + i] = fmaxf(fmaf(a[i], s9, b9), 0.f);
-        __syncthreads();
-        // thread (co = c, g): acc[i] += sum_c' A[t, c', co] r[c'][i]
-        const __nv_bfloat16* at = s.a + t * C * CO + c;
-#pragma unroll 4
-        for (int cc = 0; cc < C; ++cc) {
-          const float av = bf(at[cc * CO]);
-          float rv[PP];
-          load8(&s.t0[cc * LDP + g * PP], rv);
-#pragma unroll
-          for (int i = 0; i < PP; ++i) acc[i] = fmaf(av, rv[i], acc[i]);
+      for (int i = 0; i < PP; ++i)
+        if (w0 + g * PP + i < W) {
+          s1 += a[i];
+          s2 += a[i] * a[i];
         }
-      }
-    }
-    if (KIND == 1) {  // stage y, then coalesced bf16 stores
-      __syncthreads();
-#pragma unroll
-      for (int i = 0; i < PP; ++i) s.t0[c * LDP + g * PP + i] = acc[i];
-      __syncthreads();
-      for (int e = tid; e < CO * P; e += THREADS) {
-        const int co = e / P, q = e % P;
-        if (w0 + q < W)
-          p.out[((size_t)(b * H + h) * CO + co) * W + w0 + q] =
-              __float2bfloat16(s.t0[co * LDP + q]);
-      }
+      s.red[(g * 2) * NT * C + t * C + c] += s1;
+      s.red[(g * 2 + 1) * NT * C + t * C + c] += s2;
     }
   }
-  if (KIND == 0) {
-    __syncthreads();
-    for (int e = tid; e < 2 * NT * C; e += THREADS) {
-      const int m = e / (NT * C), j = e % (NT * C);
-      float v = 0.f;
-      for (int gg = 0; gg < G; ++gg) v += s.red[(gg * 2 + m) * NT * C + j];
-      p.part[(size_t)blockIdx.x * 2 * NT * C + e] = v;
+  __syncthreads();
+  for (int e = tid; e < 2 * NT * C; e += THREADS) {
+    const int m = e / (NT * C), j = e % (NT * C);
+    float v = 0.f;
+    for (int gg = 0; gg < G; ++gg) v += s.red[(gg * 2 + m) * NT * C + j];
+    p.part[(size_t)blockIdx.x * 2 * NT * C + e] = v;
+  }
+}
+
+// ---------------------------------------- kernels 4 and 5: tensor cores
+constexpr int TQ = 64;               // pixels of a chunk (wgmma M)
+constexpr int HALO = 8;              // box columns left of the chunk: 16 B
+constexpr int BOXW = TQ + 2 * HALO;  // box width of the shifted rows
+constexpr int WGT = 128;             // threads of a warpgroup
+constexpr int TILE = 64 * 128;       // 64 rows of 128 B: 8 KB
+constexpr int H1_ROWS = CM + 8;      // h1 planes: CM rows, ones, zeros
+constexpr int H1_PLANE = H1_ROWS * 128;
+constexpr int FRAG_KSTEP = 2048;     // 16 rows of an M/N-major tile
+constexpr int W1_TILES = 2 * CM * 128;  // W1 and |W1|, bf16 [k][c]
+// where nb * wt lies within NEAR_TIE |nb| sum_k |h1 W1| of a bf16 rounding
+// boundary, wt is recomputed in the plain version's order. On the card a
+// tensor-core wt and the plain f32 wt lay well inside 2^-21 sum_k |h1 W1|
+// of the exact sum (the worst case of 32 f32 roundings is 2^-19), and a
+// margin 4x smaller gave the same y (PERF.md)
+constexpr float NEAR_TIE = 1.f / (1 << 21);
+constexpr int H1_PITCH = CM + 4;       // f32 rows of h1 in shared memory
+
+constexpr int up128(int n) { return (n + 127) / 128 * 128; }
+
+// f32 vectors in shared memory (float offsets)
+constexpr int V_E0 = 0;               // (9C) s9 or c1
+constexpr int V_E1 = NT * C;          // (9C) b9 or c2
+constexpr int V_B1 = 2 * NT * C;      // (C)
+constexpr int V_W0 = V_B1 + C;        // (3, CM)
+constexpr int V_B0 = V_W0 + 3 * CM;   // (CM)
+constexpr int V_FLOATS = V_B0 + CM;
+
+// meta_agg shared memory, bytes from a 1024-aligned base
+struct FwdLayout {
+  static constexpr int W1 = 0;                      // W1, |W1| [k][c]
+  static constexpr int AT = W1 + W1_TILES;          // agg tiles, 2 taps
+  static constexpr int FEAT = 3 * C * BOXW * 2;     // rows h-1..h+1 [c][x]
+  static constexpr int CRD = 3 * 3 * BOXW * 2;      // rows h-1..h+1 [j][x]
+  static constexpr int STAGE = up128(FEAT + CRD);
+  static constexpr int RING = AT + 2 * TILE;        // 2 stages
+  static constexpr int W1F = RING + 2 * STAGE;      // W1 f32 [k][c]
+  static constexpr int H1R = W1F + CM * C * 4;      // h1 f32 [m][H1_PITCH]
+  static constexpr int VEC = H1R + TQ * H1_PITCH * 4;
+  static constexpr int BAR = VEC + V_FLOATS * 4;
+  static constexpr int SMEM = BAR + 4 * 8 + 1024;
+};
+
+// meta_block_bwd shared memory
+template <bool AGG>
+struct BwdLayout {
+  static constexpr int W1 = 0;                       // W1, |W1| [k][c]
+  static constexpr int DP = W1 + W1_TILES;           // dwt: 3 planes [m][c]
+  static constexpr int H1P = DP + 3 * TILE;          // h1: 3 planes [k][m]
+  static constexpr int RP = H1P + 3 * H1_PLANE;      // relu(z): 3 [m][c]
+  static constexpr int GYC = RP + (AGG ? 3 * TILE : 0);  // gy [m][co]
+  static constexpr int AT = GYC + (AGG ? TILE : 0);  // agg tiles, 2 taps
+  static constexpr int FEAT = C * TQ * 2;            // row hq [c][m]
+  static constexpr int CRD = 3 * 3 * BOXW * 2;       // rows hq-1..hq+1
+  static constexpr int GY = AGG ? 3 * CO * BOXW * 2 : 0;  // rows hq-1..hq+1
+  static constexpr int S_CRD = FEAT;
+  static constexpr int S_GY = S_CRD + up128(CRD);
+  static constexpr int STAGE = up128(S_GY + GY);
+  static constexpr int RING = AT + (AGG ? 2 * TILE : 0);
+  static constexpr int W1F = RING + 2 * STAGE;      // W1 f32 [k][c]
+  static constexpr int H1R = W1F + CM * C * 4;      // h1 f32 [m][H1_PITCH]
+  static constexpr int VEC = H1R + TQ * H1_PITCH * 4;
+  static constexpr int MACC = VEC + V_FLOATS * 4;    // db0, dW0 [32][128]
+  static constexpr int SLOT = MACC + 32 * WGT * 4;   // ds9, db9 [9][128]
+  static constexpr int XCH = SLOT + (AGG ? NT * 128 * 4 : 0);  // 2 [4][128]
+  static constexpr int BAR = XCH + (AGG ? 2 * 4 * 128 * 4 : 0);
+  static constexpr int SMEM = BAR + 4 * 8 + 1024;
+};
+static_assert(BwdLayout<true>::SMEM <= 232448, "shared memory");
+static_assert(2 * (FwdLayout::SMEM + 1024) <= 233472, "2 blocks an SM");
+
+struct BlockArgs {
+  const float* w0;            // (3, CM)
+  const float* b0;            // (CM)
+  const float* w1;            // (CM, C), bf16 values
+  const float* b1;            // (C)
+  const float* e0;            // (9C) s9 or c1
+  const float* e1;            // (9C) b9 or c2
+  __nv_bfloat16* out;         // y (B, H, CO, W) or dfeat (B, H, C, W)
+  float* part;                // (blocks, per-block floats), backward
+  int H, W, chunks, nq;
+};
+
+// d (64 x 64, f32) = scale_d * d + A (64 x 16 bf16, in registers) *
+// B (16 x 64, bf16 in shared memory, K-major (TB = 0) or N-major (1))
+template <int TB>
+__device__ __forceinline__ void wgmma_rs64(float (&d)[32], const uint32_t* a,
+                                      uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+        "n"(TB));
+}
+
+// d (64 x 64, f32) = scale_d * d + A (64 x 16) * B (16 x 64), bf16 in
+// shared memory, each K-major (0) or M/N-major (1)
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss64(float (&d)[32], uint64_t da,
+                                      uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// d (64 x 40, f32) = scale_d * d + A (64 x 16) * B (16 x 40), bf16 in
+// shared memory, each K-major (0) or M/N-major (1)
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss40(float (&d)[20], uint64_t da,
+                                      uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %22, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19"
+      "}, %20, %21, p, 1, 1, %23, %24;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// d (64 x 32, f32) = scale_d * d + A (64 x 16) * B (16 x 32), bf16 in
+// shared memory, each K-major (0) or M/N-major (1)
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss32(float (&d)[16], uint64_t da,
+                                      uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// byte offset of bf16 element (row, col) in a tile of 128-byte rows with
+// the 128-byte swizzle (the tile 1024-aligned)
+__device__ __forceinline__ uint32_t swz(int row, int col) {
+  return row * 128 + (((col >> 3) ^ (row & 7)) << 4) + ((col & 7) << 1);
+}
+
+__device__ __forceinline__ void st_pair(uint8_t* tile, int row, int col,
+                                        uint32_t v) {
+  *reinterpret_cast<uint32_t*>(tile + swz(row, col)) = v;
+}
+
+// (x0, x1) as three bf16 pairs hi + mid + lo that sum to them exactly
+__device__ __forceinline__ void split_pair(float x0, float x1, uint32_t& hi,
+                                           uint32_t& mid, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  const float r0 = __fsub_rn(x0, hf.x), r1 = __fsub_rn(x1, hf.y);
+  const __nv_bfloat162 m = __floats2bfloat162_rn(r0, r1);
+  const float2 mf = __bfloat1622float2(m);
+  hi = as_u32(h);
+  mid = as_u32(m);
+  lo = as_u32(__floats2bfloat162_rn(__fsub_rn(r0, mf.x), __fsub_rn(r1, mf.y)));
+}
+
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// keeps registers read by an asynchronous wgmma alive until its wait
+template <int N>
+__device__ __forceinline__ void reg_fence(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+template <int N, int M>
+__device__ __forceinline__ void reg_fence(uint32_t (&r)[N][M]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) reg_fence(r[i]);
+}
+
+// descriptors: an M/N-major tile steps 16 rows per k-step, a K-major one
+// 32 bytes along its rows
+__device__ __forceinline__ uint64_t desc_mn(uint32_t addr, int kk) {
+  return sw128_desc(addr + kk * FRAG_KSTEP, TILE);
+}
+__device__ __forceinline__ uint64_t desc_k(uint32_t addr, int kk) {
+  return sw128_desc(addr + kk * 32, 16);
+}
+
+// The block's constant operands: W1 and |W1| as [k][c], bf16 with the
+// 128-byte swizzle, W1 in f32, and the f32 vectors.
+__device__ void load_operands(const BlockArgs& p, uint8_t* sm, int w1_off,
+                              int w1f_off, int vec_off) {
+  const int tid = threadIdx.x, n = blockDim.x;
+  float* w1f = reinterpret_cast<float*>(sm + w1f_off);
+  for (int e = tid; e < CM * C / 2; e += n) {
+    const int k = e / (C / 2), c = 2 * (e % (C / 2));
+    const float w0 = p.w1[k * C + c], w1 = p.w1[k * C + c + 1];
+    st_pair(sm + w1_off, k, c, as_u32(__floats2bfloat162_rn(w0, w1)));
+    st_pair(sm + w1_off + CM * 128, k, c,
+            as_u32(__floats2bfloat162_rn(fabsf(w0), fabsf(w1))));
+    w1f[k * C + c] = w0;
+    w1f[k * C + c + 1] = w1;
+  }
+  float* v = reinterpret_cast<float*>(sm + vec_off);
+  for (int e = tid; e < NT * C; e += n) {
+    v[V_E0 + e] = p.e0[e];
+    v[V_E1 + e] = p.e1[e];
+  }
+  for (int e = tid; e < C; e += n) v[V_B1 + e] = p.b1[e];
+  for (int e = tid; e < 3 * CM; e += n) v[V_W0 + e] = p.w0[e];
+  for (int e = tid; e < CM; e += n) v[V_B0 + e] = p.b0[e];
+}
+
+// h1[k] of one pixel = relu(W0^T rel + b0), with the plain version's f32
+// operations in its order (no contraction into FMA)
+__device__ __forceinline__ float hidden_one(const float* v,
+                                            const float (&r)[3], int k) {
+  float h = __fmul_rn(v[V_W0 + k], r[0]);
+  h = __fadd_rn(h, __fmul_rn(v[V_W0 + CM + k], r[1]));
+  h = __fadd_rn(h, __fmul_rn(v[V_W0 + 2 * CM + k], r[2]));
+  return fmaxf(__fadd_rn(h, v[V_B0 + k]), 0.f);
+}
+
+// h1 at the thread's 16 places of a 64 x CM accumulator (pixel row r0 +
+// 8*((e>>1)&1), k = 8*(e>>2) + 2*qd + (e&1)), split into three A
+// fragments (K = CM), and in f32 into the rows h1r [m][H1_PITCH] (the quad
+// of lanes of rows r0, r0 + 8 writes them whole)
+__device__ __forceinline__ void hidden(const float* v, const float (&rel)[2][3],
+                                       int qd, int r0, float* h1r,
+                                       float (&h1)[16], uint32_t (&ha)[3][8]) {
+#pragma unroll
+  for (int e = 0; e < 16; e += 2) {
+    const int mi = (e >> 1) & 1, k = 8 * (e >> 2) + 2 * qd;
+    h1[e] = hidden_one(v, rel[mi], k);
+    h1[e + 1] = hidden_one(v, rel[mi], k + 1);
+    split_pair(h1[e], h1[e + 1], ha[0][e / 2], ha[1][e / 2], ha[2][e / 2]);
+    *reinterpret_cast<float2*>(h1r + (r0 + 8 * mi) * H1_PITCH + k) =
+        make_float2(h1[e], h1[e + 1]);
+  }
+}
+
+// wt = h1 W1 + b1 and the tap product a = bf16(nb wt) (packed pairs) at the
+// thread's 32 places (pixel row r0 + 8*((e>>1)&1), channel c = 8*(e>>2) +
+// 2*qd + (e&1)); nb of pixel row r0, channel c is nbp[c * pitch], of row
+// r0 + 8 nbp[c * pitch + 8]. wt comes from the tensor cores (the split h1
+// against W1), and a is the plain version's a bit for bit: the hi term of
+// h1 against |W1| gives the margin, and where nb wt lies within NEAR_TIE of
+// a bf16 rounding boundary, wt is recomputed as the plain version sums it
+// (k = 0 .. CM-1 by FFMA from h1r and w1f, then + b1). A tap product one
+// bf16 ulp off moves y across its own rounding, z across 0, and the sums
+// that see a (PERF.md).
+__device__ __forceinline__ void tap_stage(
+    float (&wt)[32], uint32_t (&a2)[16], uint32_t (&ha)[3][8],
+    const __nv_bfloat16* nbp, int pitch, const float* v, const float* w1f,
+    const float* h1r, int r0, uint32_t w1, int qd) {
+  float mag[32];  // sum_k h1 |W1|, to a relative 2^-8
+  wgmma_fence();
+#pragma unroll
+  for (int s = 0; s < 3; ++s)
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk)
+      wgmma_rs64<1>(wt, &ha[s][4 * kk], desc_mn(w1, kk), s | kk);
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk)
+    wgmma_rs64<1>(mag, &ha[0][4 * kk], desc_mn(w1 + CM * 128, kk), kk);
+  wgmma_commit();
+  wgmma_wait<0>();
+  acc_fence(wt);
+  acc_fence(mag);
+  reg_fence(ha);
+  uint32_t near = 0;  // bit e: nb wt within the margin of a bf16 boundary
+#pragma unroll
+  for (int e = 0; e < 32; ++e) {
+    const int mi = (e >> 1) & 1, c = 8 * (e >> 2) + 2 * qd + (e & 1);
+    wt[e] = __fadd_rn(wt[e], v[V_B1 + c]);
+    const float nb = bf(nbp[c * pitch + 8 * mi]);
+    const float p = __fmul_rn(nb, wt[e]);
+    const float d = fmaf(NEAR_TIE * 1.01f, fabsf(nb) * mag[e],
+                         fabsf(p) * (1.f / (1 << 22)));
+    if (bf(__float2bfloat16_rn(p - d)) != bf(__float2bfloat16_rn(p + d)))
+      near |= 1u << e;  // (as values: -0 and +0 are one)
+  }
+  // two elements a lane per pass, the lanes of a warp together (a few
+  // passes a tap): wt in the plain version's order
+  while (near) {
+    const int e = __ffs(near) - 1;
+    near &= near - 1;
+    const int f = near ? __ffs(near) - 1 : e;
+    near &= near - 1;
+    const int ce = 8 * (e >> 2) + 2 * qd + (e & 1);
+    const int cf = 8 * (f >> 2) + 2 * qd + (f & 1);
+    const float* he = h1r + (r0 + 8 * ((e >> 1) & 1)) * H1_PITCH;
+    const float* hf = h1r + (r0 + 8 * ((f >> 1) & 1)) * H1_PITCH;
+    float se = 0.f, sf = 0.f;
+#pragma unroll
+    for (int k = 0; k < CM; k += 4) {
+      const float4 x = *reinterpret_cast<const float4*>(he + k);
+      const float4 y = *reinterpret_cast<const float4*>(hf + k);
+      se = fmaf(x.x, w1f[k * C + ce], se);
+      sf = fmaf(y.x, w1f[k * C + cf], sf);
+      se = fmaf(x.y, w1f[(k + 1) * C + ce], se);
+      sf = fmaf(y.y, w1f[(k + 1) * C + cf], sf);
+      se = fmaf(x.z, w1f[(k + 2) * C + ce], se);
+      sf = fmaf(y.z, w1f[(k + 2) * C + cf], sf);
+      se = fmaf(x.w, w1f[(k + 3) * C + ce], se);
+      sf = fmaf(y.w, w1f[(k + 3) * C + cf], sf);
+    }
+    se = __fadd_rn(se, v[V_B1 + ce]);
+    sf = __fadd_rn(sf, v[V_B1 + cf]);
+#pragma unroll
+    for (int e2 = 0; e2 < 32; ++e2)
+      wt[e2] = e2 == e ? se : e2 == f ? sf : wt[e2];
+  }
+  __syncwarp();  // the warp's h1 rows are read
+#pragma unroll
+  for (int e = 0; e < 32; e += 2) {
+    const int mi = (e >> 1) & 1, c = 8 * (e >> 2) + 2 * qd;
+    a2[e / 2] = as_u32(__floats2bfloat162_rn(
+        __fmul_rn(bf(nbp[c * pitch + 8 * mi]), wt[e]),
+        __fmul_rn(bf(nbp[(c + 1) * pitch + 8 * mi]), wt[e + 1])));
+  }
+}
+
+// -------------------------------------------------- kernel 4: meta_agg
+__global__ void __launch_bounds__(WGT, 2)
+    meta_agg_kernel(const __grid_constant__ CUtensorMap map_f,
+                    const __grid_constant__ CUtensorMap map_c,
+                    const __grid_constant__ CUtensorMap map_a, BlockArgs p) {
+  using L = FwdLayout;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t sb = smem_u32(sm);
+  const float* vec = reinterpret_cast<const float*>(sm + L::VEC);
+  const float* w1f = reinterpret_cast<const float*>(sm + L::W1F);
+  float* h1r = reinterpret_cast<float*>(sm + L::H1R);
+  const int t = threadIdx.x, lane = t % 32;
+  const int r0 = 16 * (t / 32) + lane / 4, qd = lane % 4;
+  const int H = p.H, W = p.W;
+  const uint32_t bar0 = sb + L::BAR;  // 2 ring stages, 2 agg tiles
+  if (t == 0) {
+    for (int j = 0; j < 4; ++j) mbar_init(bar0 + 8 * j, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  load_operands(p, sm, L::W1, L::W1F, L::VEC);
+  fence_async_smem();
+  __syncthreads();
+
+  const int c_begin = (int)((long long)p.chunks * blockIdx.x / gridDim.x);
+  const int c_end = (int)((long long)p.chunks * (blockIdx.x + 1) / gridDim.x);
+  auto issue = [&](int ch, int s) {  // rows h-1..h+1, columns w0-8 ..
+    const int kq = ch % p.nq, bh = ch / p.nq;
+    const int b = bh / H, h = bh % H;
+    const uint32_t st = sb + L::RING + s * L::STAGE;
+    const uint32_t bar = bar0 + 8 * s;
+    mbar_expect_tx(bar, L::FEAT + L::CRD);
+    tma_load_4d(st, &map_f, bar, kq * TQ - HALO, 0, h - 1, b);
+    tma_load_4d(st + L::FEAT, &map_c, bar, kq * TQ - HALO, 0, h - 1, b);
+  };
+  const int ntaps = (c_end - c_begin) * NT;
+  auto issue_agg = [&](int n) {  // agg[t] of the block's n-th tap
+    const uint32_t bar = bar0 + 16 + 8 * (n & 1);
+    mbar_expect_tx(bar, TILE);
+    tma_load_4d(sb + L::AT + (n & 1) * TILE, &map_a, bar, 0, (n % NT) * C, 0,
+                0);
+  };
+  if (t == 0 && c_begin < c_end) {
+    issue(c_begin, 0);
+    issue_agg(0);
+  }
+  int i = 0;
+  for (int ch = c_begin; ch < c_end; ++ch, ++i) {
+    const int s = i & 1;
+    if (t == 0 && ch + 1 < c_end) issue(ch + 1, s ^ 1);
+    const int kq = ch % p.nq, bh = ch / p.nq;
+    const int w0 = kq * TQ;
+    const uint8_t* st = sm + L::RING + s * L::STAGE;
+    const __nv_bfloat16* fs = reinterpret_cast<const __nv_bfloat16*>(st);
+    const __nv_bfloat16* cs =
+        reinterpret_cast<const __nv_bfloat16*>(st + L::FEAT);
+    mbar_wait(bar0 + 8 * s, (i >> 1) & 1);
+
+    float cen[2][3];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+        cen[mi][j] = bf(cs[(3 + j) * BOXW + HALO + r0 + 8 * mi]);
+    float y[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) y[e] = 0.f;
+#pragma unroll 1
+    for (int tap = 0; tap < NT; ++tap) {
+      const int n = i * NT + tap;
+      const int dy = tap / 3, dx = tap % 3;
+      const int x0 = HALO + r0 + dx - 1;  // box column of the neighbour
+      // the last tap's product is done with its agg tile
+      if (t == 0 && n + 1 < ntaps) issue_agg(n + 1);
+      float rel[2][3];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int j = 0; j < 3; ++j)
+          rel[mi][j] = bf(cs[(dy * 3 + j) * BOXW + x0 + 8 * mi]) - cen[mi][j];
+      float h1[16];
+      uint32_t ha[3][8];
+      hidden(vec, rel, qd, r0, h1r, h1, ha);
+      float wt[32];
+      uint32_t a2[16];
+      tap_stage(wt, a2, ha, fs + dy * C * BOXW + x0, BOXW, vec, w1f, h1r, r0,
+                sb + L::W1, qd);
+
+      uint32_t ra[3][16];  // relu(z), split, as A fragments (K = C)
+#pragma unroll
+      for (int e = 0; e < 32; e += 2) {
+        const int c = 8 * (e >> 2) + 2 * qd;
+        __nv_bfloat162 ab;
+        *reinterpret_cast<uint32_t*>(&ab) = a2[e / 2];
+        const float2 af = __bfloat1622float2(ab);
+        float r[2];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const float z = __fadd_rn(
+              __fmul_rn(u ? af.y : af.x, vec[V_E0 + tap * C + c + u]),
+              vec[V_E1 + tap * C + c + u]);
+          r[u] = fmaxf(z, 0.f);
+        }
+        split_pair(r[0], r[1], ra[0][e / 2], ra[1][e / 2], ra[2][e / 2]);
+      }
+      // this tap's product, added to y in f32 as the plain version adds
+      // the taps
+      mbar_wait(bar0 + 16 + 8 * (n & 1), (n >> 1) & 1);
+      float o[32];
+      wgmma_fence();
+#pragma unroll
+      for (int sp = 0; sp < 3; ++sp)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_rs64<1>(o, &ra[sp][4 * kk],
+                        desc_mn(sb + L::AT + (n & 1) * TILE, kk), sp | kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      acc_fence(o);
+      reg_fence(ra);
+#pragma unroll
+      for (int e = 0; e < 32; ++e) y[e] = __fadd_rn(y[e], o[e]);
+    }
+    const int b = bh / H, h = bh % H;
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int w = w0 + r0 + 8 * ((e >> 1) & 1);
+      const int co = 8 * (e >> 2) + 2 * qd + (e & 1);
+      if (w < W)
+        p.out[((size_t)(b * H + h) * CO + co) * W + w] =
+            __float2bfloat16(y[e]);
+    }
+    __syncthreads();  // the stage is read: the next TMA may overwrite it
+  }
+}
+
+// ------------------------------------- kernel 5: the block backward
+// Sums v[0..31] over lane bits 4, 3, 2 (the 8 lanes holding the same
+// channels), halving the set at each step: lane l keeps the items 4*L + j,
+// j < 4, L = 4*bit4 + 2*bit3 + bit2 of l, in v[0..3].
+__device__ __forceinline__ void reduce_lanes(float (&v)[32], int lane) {
+#pragma unroll
+  for (int half = 16; half >= 4; half /= 2) {
+    const bool up = lane & half;
+#pragma unroll
+    for (int i = 0; i < half; ++i) {
+      const float send = up ? v[i] : v[i + half];
+      const float keep = up ? v[i + half] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, half);
     }
   }
 }
 
-// ------------------------------------------------------------ backward
-template <int KIND>  // 2 stats, 3 agg
-__global__ void __launch_bounds__(THREADS, 2) meta_bwd_kernel(Args p) {
-  constexpr bool AGG = KIND == 3;
-  extern __shared__ __align__(16) float smem[];
-  const Smem s = carve<KIND>(smem);
-  const int tid = threadIdx.x;
-  const int c = tid % C;
-  const int g = tid / C;
-  const int lane = tid % 32, warp = tid / 32;
-  const int H = p.H, W = p.W;
-  const int Hp = H + 2;          // output rows -1 .. H
-  const int ntw = W / P + 2;     // output column tiles from -P
-  load_constants(p, s, true);
-  const int t_begin = (int)((long long)p.tiles * blockIdx.x / gridDim.x);
-  const int t_end = (int)((long long)p.tiles * (blockIdx.x + 1) / gridDim.x);
+template <bool AGG>
+__global__ void __launch_bounds__(WGT, 1)
+    meta_bwd_kernel(const __grid_constant__ CUtensorMap map_f,
+                    const __grid_constant__ CUtensorMap map_c,
+                    const __grid_constant__ CUtensorMap map_g,
+                    const __grid_constant__ CUtensorMap map_a, BlockArgs p) {
+  using L = BwdLayout<AGG>;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t sb = smem_u32(sm);
+  const float* vec = reinterpret_cast<const float*>(sm + L::VEC);
+  float* macc = reinterpret_cast<float*>(sm + L::MACC);
+  float* slot = reinterpret_cast<float*>(sm + L::SLOT);
+  float* xch = reinterpret_cast<float*>(sm + L::XCH);
+  const int t = threadIdx.x, wq = t / 32, lane = t % 32;
+  const int r0 = 16 * wq + lane / 4, qd = lane % 4;
+  const int H = p.H, W = p.W, Hq = H + 2;
+  const float* w1f = reinterpret_cast<const float*>(sm + L::W1F);
+  float* h1r = reinterpret_cast<float*>(sm + L::H1R);
+  const uint32_t bar0 = sb + L::BAR;  // 2 ring stages, 2 agg tiles
+  if (t == 0) {
+    for (int j = 0; j < 4; ++j) mbar_init(bar0 + 8 * j, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  load_operands(p, sm, L::W1, L::W1F, L::VEC);
+  // rows CM.. of the h1 planes: a row of ones in the first (its product
+  // with dwt is db1), zeros
+  for (int e = t; e < 3 * 8 * TQ; e += WGT) {
+    const int s = e / (8 * TQ), row = CM + (e / TQ) % 8, col = e % TQ;
+    *reinterpret_cast<__nv_bfloat16*>(sm + L::H1P + s * H1_PLANE +
+                                      swz(row, col)) =
+        __float2bfloat16(s == 0 && row == CM ? 1.f : 0.f);
+  }
+  for (int e = t; e < 32 * WGT; e += WGT) macc[e] = 0.f;
+  if (AGG)
+    for (int e = t; e < NT * 128; e += WGT) slot[e] = 0.f;
+  fence_async_smem();
+  __syncthreads();
+
+  const int c_begin = (int)((long long)p.chunks * blockIdx.x / gridDim.x);
+  const int c_end = (int)((long long)p.chunks * (blockIdx.x + 1) / gridDim.x);
   float* part = p.part + (size_t)blockIdx.x * ((AGG ? AGG_SUMS : 0) +
                                                MLP_SUMS);
   float* mlp = part + (AGG ? AGG_SUMS : 0);
+  auto issue = [&](int ch, int s) {  // row hq at q0 .., rows hq-1..hq+1
+    const int kq = ch % p.nq, rest = ch / p.nq;
+    const int hq = rest % Hq - 1, b = rest / Hq, q0 = kq * TQ - HALO;
+    const uint32_t st = sb + L::RING + s * L::STAGE;
+    const uint32_t bar = bar0 + 8 * s;
+    mbar_expect_tx(bar, L::FEAT + L::CRD + L::GY);
+    tma_load_4d(st, &map_f, bar, q0, 0, hq, b);
+    tma_load_4d(st + L::S_CRD, &map_c, bar, q0 - HALO, 0, hq - 1, b);
+    if (AGG) tma_load_4d(st + L::S_GY, &map_g, bar, q0 - HALO, 0, hq - 1, b);
+  };
+  // agg[t] for the block's n-th tap, into tile n % 2
+  const int ntaps = (c_end - c_begin) * NT;
+  auto issue_agg = [&](int n) {
+    const uint32_t bar = bar0 + 16 + 8 * (n & 1);
+    mbar_expect_tx(bar, TILE);
+    tma_load_4d(sb + L::AT + (n & 1) * TILE, &map_a, bar, 0, (n % NT) * C, 0,
+                0);
+  };
 
-  // dW1[k][c] for k = g*NK .. +NK-1, summed over every pixel by this thread
-  constexpr int NK = CM / G;
-  float db1 = 0.f, dw1[NK];
-#pragma unroll
-  for (int j = 0; j < NK; ++j) dw1[j] = 0.f;
-  float db0[KI], dw0[3][KI];
-#pragma unroll
-  for (int i = 0; i < KI; ++i) {
-    db0[i] = 0.f;
-    dw0[0][i] = dw0[1][i] = dw0[2][i] = 0.f;
+  float dw1[20];  // dW1^T (C x CM) and db1 (column CM) of the launch
+  if (t == 0 && c_begin < c_end) {
+    issue(c_begin, 0);
+    if (AGG) issue_agg(0);
   }
+  int i = 0;
+  for (int ch = c_begin; ch < c_end; ++ch, ++i) {
+    const int s = i & 1;
+    if (t == 0 && ch + 1 < c_end) issue(ch + 1, s ^ 1);
+    const int kq = ch % p.nq, rest = ch / p.nq;
+    const int hq = rest % Hq - 1, b = rest / Hq, q0 = kq * TQ - HALO;
+    const uint8_t* st = sm + L::RING + s * L::STAGE;
+    const __nv_bfloat16* fs = reinterpret_cast<const __nv_bfloat16*>(st);
+    const __nv_bfloat16* cs =
+        reinterpret_cast<const __nv_bfloat16*>(st + L::S_CRD);
+    const __nv_bfloat16* gs =
+        reinterpret_cast<const __nv_bfloat16*>(st + L::S_GY);
+    mbar_wait(bar0 + 8 * s, (i >> 1) & 1);
+
+    float cq[2][3];  // coordinates of the output pixels (the neighbours)
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+        cq[mi][j] = bf(cs[(3 + j) * BOXW + HALO + r0 + 8 * mi]);
+    float dfeat[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) dfeat[e] = 0.f;
 
 #pragma unroll 1
-  for (int t = 0; t < NT; ++t) {
-    const int dy = t / 3, dx = t % 3;
-    float ds9 = 0.f, db9 = 0.f, dA[NA];
+    for (int tap = 0; tap < NT; ++tap) {
+      const int n = i * NT + tap;
+      const int dy = tap / 3, dx = tap % 3;
+      const int hs = hq - dy + 1;         // the sources' row
+      const int srow = 2 - dy;            // its box row
+      const int x0 = HALO + r0 + 1 - dx;  // box column of source m = r0
+      float rel[2][3];
+      bool valid[2];
 #pragma unroll
-    for (int j = 0; j < NA; ++j) dA[j] = 0.f;
-    __syncthreads();
-    if (AGG)  // this tap's A transposed: a[co][c] = agg[t*C + c][co]
-      for (int e = tid; e < C * CO; e += THREADS) {
-        const int cc = e / CO, co = e % CO;
-        s.a[co * C + cc] = p.agg[(size_t)(t * C + cc) * CO + co];
-      }
-    const float e0 = s.e[t * C + c], e1 = s.e[NT * C + t * C + c];
-
-    for (int tile = t_begin; tile < t_end; ++tile) {
-      const int kc = tile % ntw - 1;
-      const int rest = tile / ntw;
-      const int hq = rest % Hp - 1;
-      const int b = rest / Hp;
-      const int wq0 = kc * P;
-      const int hs = hq - dy + 1;   // source row
-      const int ws0 = wq0 - dx + 1;  // source column of pixel 0
-      const bool row_ok = hs >= 0 && hs < H;
-      __syncthreads();
-      load_halo(p, s, b, hs, ws0);
-      if (AGG)
-        for (int e = tid; e < CO * P; e += THREADS) {
-          const int co = e / P, q = e % P;
-          const int ww = ws0 + q;
-          float v = 0.f;
-          if (row_ok && ww >= 0 && ww < W)
-            v = bf(p.gy[((size_t)(b * H + hs) * CO + co) * W + ww]);
-          s.gy[co * LDP + q] = v;
-        }
-      __syncthreads();
-      tap_hidden(s, dy, dx);
-      __syncthreads();
-
-      float wt[PP], nb[PP], a[PP], da[PP];
-      tap_products(p, s, c, g, dy, dx, wt, nb, a);
-      bool valid[PP];
-#pragma unroll
-      for (int i = 0; i < PP; ++i) {
-        const int ww = ws0 + g * PP + i;
-        valid[i] = row_ok && ww >= 0 && ww < W;
-      }
-      if (AGG) {
-        float dr[PP];
-#pragma unroll
-        for (int i = 0; i < PP; ++i) dr[i] = 0.f;
-#pragma unroll 4
-        for (int co = 0; co < CO; ++co) {
-          const float av = bf(s.a[co * C + c]);
-          float gv[PP];
-          load8(&s.gy[co * LDP + g * PP], gv);
-#pragma unroll
-          for (int i = 0; i < PP; ++i) dr[i] = fmaf(av, gv[i], dr[i]);
-        }
-#pragma unroll
-        for (int i = 0; i < PP; ++i) {
-          const float z = fmaf(a[i], e0, e1);
-          const bool on = valid[i] && z > 0.f;
-          const float dz = on ? dr[i] : 0.f;
-          s.t0[c * LDP + g * PP + i] = on ? z : 0.f;
-          ds9 = fmaf(dz, a[i], ds9);
-          db9 += dz;
-          da[i] = dz * e0;
-        }
-      } else {
-#pragma unroll
-        for (int i = 0; i < PP; ++i)
-          da[i] = valid[i] ? fmaf(e1, a[i], e0) : 0.f;
-      }
-      float dwt[PP];
-#pragma unroll
-      for (int i = 0; i < PP; ++i) {
-        dwt[i] = da[i] * nb[i];
-        s.t1[c * LDP + g * PP + i] = dwt[i];
-        s.t2[c * LDP + g * PP + i] = da[i] * wt[i];
-        db1 += dwt[i];
-      }
-      __syncthreads();
-
-#pragma unroll 2
-      for (int q = 0; q < P; q += 4) {  // dW1 of the owned (k, c)
-        const float4 d = *reinterpret_cast<const float4*>(&s.t1[c * LDP + q]);
-#pragma unroll
-        for (int j = 0; j < NK; ++j) {
-          const float4 h = *reinterpret_cast<const float4*>(
-              &s.h1[(g * NK + j) * LDP + q]);
-          dw1[j] = fmaf(d.x, h.x, dw1[j]);
-          dw1[j] = fmaf(d.y, h.y, dw1[j]);
-          dw1[j] = fmaf(d.z, h.z, dw1[j]);
-          dw1[j] = fmaf(d.w, h.w, dw1[j]);
-        }
-      }
-
-      if (AGG) {  // dA[c][g*NA + j] += sum_q relu(z)[c][q] gy[co][q]
-#pragma unroll 2
-        for (int q = 0; q < P; q += 4) {
-          const float4 r = *reinterpret_cast<const float4*>(
-              &s.t0[c * LDP + q]);
-#pragma unroll
-          for (int j = 0; j < NA; ++j) {
-            const float4 gv = *reinterpret_cast<const float4*>(
-                &s.gy[(g * NA + j) * LDP + q]);
-            dA[j] = fmaf(r.x, gv.x, dA[j]);
-            dA[j] = fmaf(r.y, gv.y, dA[j]);
-            dA[j] = fmaf(r.z, gv.z, dA[j]);
-            dA[j] = fmaf(r.w, gv.w, dA[j]);
-          }
-        }
-      }
-      // dh1[k][lane] for k = warp + 8i; then db0, dW0
-      float acc[KI];
-#pragma unroll
-      for (int i = 0; i < KI; ++i) acc[i] = 0.f;
-#pragma unroll 2
-      for (int cc = 0; cc < C; cc += 4) {
-        float d[4];
-#pragma unroll
-        for (int u = 0; u < 4; ++u) d[u] = s.t1[(cc + u) * LDP + lane];
-#pragma unroll
-        for (int i = 0; i < KI; ++i) {
-          const float4 w = *reinterpret_cast<const float4*>(
-              &s.w1[(warp + 8 * i) * C + cc]);
-          acc[i] = fmaf(w.x, d[0], acc[i]);
-          acc[i] = fmaf(w.y, d[1], acc[i]);
-          acc[i] = fmaf(w.z, d[2], acc[i]);
-          acc[i] = fmaf(w.w, d[3], acc[i]);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < KI; ++i) {
-        const int k = warp + 8 * i;
-        const float dh = s.h1[k * LDP + lane] > 0.f ? acc[i] : 0.f;
-        db0[i] += dh;
+      for (int mi = 0; mi < 2; ++mi) {
+        const int sq = q0 + r0 + 8 * mi + 1 - dx;
+        valid[mi] = hs >= 0 && hs < H && sq >= 0 && sq < W;
 #pragma unroll
         for (int j = 0; j < 3; ++j)
-          dw0[j][i] = fmaf(dh, s.rel[j * P + lane], dw0[j][i]);
+          rel[mi][j] =
+              cq[mi][j] - bf(cs[(srow * 3 + j) * BOXW + x0 + 8 * mi]);
       }
-      // dfeat: the owner of (c', q) adds this tap's dnb, in tap order
-      if (hq >= 0 && hq < H)
-        for (int e = tid; e < C * P; e += THREADS) {
-          const int cc = e / P, q = e % P;
-          const int ww = wq0 + q;
-          if (ww < 0 || ww >= W) continue;
-          const size_t idx = ((size_t)(b * H + hq) * C + cc) * W + ww;
-          const float v = s.t2[cc * LDP + q];
-          if (t == 0)
-            p.scratch[idx] = v;
-          else if (t < NT - 1)
-            p.scratch[idx] += v;
-          else
-            p.out[idx] = __float2bfloat16(p.scratch[idx] + v);
+      float h1[16];
+      uint32_t ha[3][8];
+      hidden(vec, rel, qd, r0, h1r, h1, ha);
+      uint32_t on1 = 0;  // bit e: h1 > 0
+#pragma unroll
+      for (int e = 0; e < 16; ++e) on1 |= (h1[e] > 0.f ? 1u : 0u) << e;
+      // the last tap's dW1 product reads the planes; its agg tile is free
+      wgmma_wait<0>();
+      acc_fence(dw1);
+      if (AGG && t == 0 && n + 1 < ntaps) issue_agg(n + 1);
+#pragma unroll
+      for (int e = 0; e < 16; e += 2) {  // h1 planes [k][m] for dW1
+        const int m = r0 + 8 * ((e >> 1) & 1), k = 8 * (e >> 2) + 2 * qd;
+#pragma unroll
+        for (int sp = 0; sp < 3; ++sp) {
+          uint8_t* pl = sm + L::H1P + sp * H1_PLANE;
+          const uint32_t v = ha[sp][e / 2];
+          *reinterpret_cast<uint16_t*>(pl + swz(k, m)) = v & 0xffff;
+          *reinterpret_cast<uint16_t*>(pl + swz(k + 1, m)) = v >> 16;
         }
-    }
-
-    if (AGG) {  // this tap's dA, ds9, db9 partials
-#pragma unroll
-      for (int j = 0; j < NA; ++j)
-        part[OFF_A + (t * C + c) * CO + g * NA + j] = dA[j];
-      __syncthreads();
-      s.red[g * C + c] = ds9;
-      s.red[(G + g) * C + c] = db9;
-      __syncthreads();
-      if (tid < 2 * C) {
-        const int m = tid / C, cc = tid % C;
-        float v = 0.f;
-        for (int gg = 0; gg < G; ++gg) v += s.red[(m * G + gg) * C + cc];
-        part[(m ? OFF_B9 : OFF_S9) + t * C + cc] = v;
       }
-    }
-  }
+      float wt[32];
+      uint32_t a2[16];
+      tap_stage(wt, a2, ha, fs + r0, TQ, vec, w1f, h1r, r0, sb + L::W1, qd);
 
-  // MLP partials: dW1 as owned, db1 over the pixel groups in order
+      float da[32];  // A_t gy (agg), then da
+      uint32_t ga[16];
+      if constexpr (AGG) {
+        // gy at the sources: A fragments (K = Co) and the N-major copy
 #pragma unroll
-  for (int j = 0; j < NK; ++j) mlp[MLP_W1 + (g * NK + j) * C + c] = dw1[j];
-  __syncthreads();
-  s.red[g * C + c] = db1;
-  __syncthreads();
-  if (tid < C) {
-    float v = 0.f;
-    for (int gg = 0; gg < G; ++gg) v += s.red[gg * C + tid];
-    mlp[MLP_B1 + tid] = v;
+        for (int e = 0; e < 32; e += 2) {
+          const int mi = (e >> 1) & 1, co = 8 * (e >> 2) + 2 * qd;
+          const __nv_bfloat16* g = gs + (srow * CO + co) * BOXW + x0 + 8 * mi;
+          __nv_bfloat162 v;
+          v.x = g[0];
+          v.y = g[BOXW];
+          ga[e / 2] = as_u32(v);
+          st_pair(sm + L::GYC, r0 + 8 * mi, co, ga[e / 2]);
+        }
+        mbar_wait(bar0 + 16 + 8 * (n & 1), (n >> 1) & 1);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_rs64<0>(da, &ga[4 * kk],
+                        desc_k(sb + L::AT + (n & 1) * TILE, kk), kk);
+        wgmma_commit();
+      }
+      if constexpr (AGG) {
+        wgmma_wait<0>();
+        acc_fence(da);
+        reg_fence(ga);
+      }
+      // per element: dz and relu(z) (agg), da; dfeat += da wt in tap order;
+      // dwt = da nb, split into the planes of dh1 and dW1
+      float red[32];  // agg: [ci] sum dz*a, [16 + ci] sum dz, per channel
+#pragma unroll
+      for (int e = 0; e < 32; ++e) red[e] = 0.f;
+#pragma unroll
+      for (int e = 0; e < 32; e += 2) {
+        const int mi = (e >> 1) & 1, m = r0 + 8 * mi;
+        const int c = 8 * (e >> 2) + 2 * qd;
+        __nv_bfloat162 ab;
+        *reinterpret_cast<uint32_t*>(&ab) = a2[e / 2];
+        const float2 af = __bfloat1622float2(ab);
+        float r[2], dw[2];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const float a = u ? af.y : af.x;
+          const float e0 = vec[V_E0 + tap * C + c + u];
+          const float e1 = vec[V_E1 + tap * C + c + u];
+          float d;
+          if constexpr (AGG) {
+            const int ci = 2 * (e >> 2) + u;
+            const float z = __fadd_rn(__fmul_rn(a, e0), e1);
+            const bool on = valid[mi] && z > 0.f;
+            const float dz = on ? da[e + u] : 0.f;
+            r[u] = on ? z : 0.f;
+            red[ci] = __fadd_rn(red[ci], __fmul_rn(dz, a));
+            red[16 + ci] += dz;
+            d = __fmul_rn(dz, e0);
+          } else {
+            d = valid[mi] ? __fadd_rn(e0, __fmul_rn(e1, a)) : 0.f;
+          }
+          dfeat[e + u] = __fadd_rn(dfeat[e + u], __fmul_rn(d, wt[e + u]));
+          dw[u] = __fmul_rn(d, bf(fs[(c + u) * TQ + m]));
+        }
+        uint32_t hi, mid, lo;
+        if constexpr (AGG) {
+          split_pair(r[0], r[1], hi, mid, lo);
+          st_pair(sm + L::RP, m, c, hi);
+          st_pair(sm + L::RP + TILE, m, c, mid);
+          st_pair(sm + L::RP + 2 * TILE, m, c, lo);
+        }
+        split_pair(dw[0], dw[1], hi, mid, lo);
+        st_pair(sm + L::DP, m, c, hi);
+        st_pair(sm + L::DP + TILE, m, c, mid);
+        st_pair(sm + L::DP + 2 * TILE, m, c, lo);
+      }
+      float dA[32];
+      float* sl = part + OFF_A + tap * C * CO;  // this tap's dA partial
+      if constexpr (AGG) {
+        if (ch != c_begin)
+#pragma unroll
+          for (int e = 0; e < 32; e += 2) {
+            const int c = r0 + 8 * ((e >> 1) & 1), co = 8 * (e >> 2) + 2 * qd;
+            const float2 v = *reinterpret_cast<const float2*>(sl + c * CO + co);
+            dA[e] = v.x;
+            dA[e + 1] = v.y;
+          }
+        reduce_lanes(red, lane);
+        const int li = 4 * (4 * ((lane >> 4) & 1) + 2 * ((lane >> 3) & 1) +
+                            ((lane >> 2) & 1));
+        float* x = xch + (n & 1) * 512;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) x[wq * 128 + qd * 32 + li + j] = red[j];
+      }
+      fence_async_smem();
+      __syncthreads();
+      if constexpr (AGG) {
+        // ds9, db9 of this tap: the four warps' sums in order
+        const float* x = xch + (n & 1) * 512;
+        slot[tap * 128 + t] += ((x[t] + x[128 + t]) + x[256 + t]) + x[384 + t];
+        // dA_t += relu(z)^T gy over the chunk's sources
+        wgmma_fence();
+#pragma unroll
+        for (int sp = 0; sp < 3; ++sp)
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_ss64<1, 1>(dA, desc_mn(sb + L::RP + sp * TILE, kk),
+                             desc_mn(sb + L::GYC, kk),
+                             (sp | kk) != 0 || ch != c_begin);
+        wgmma_commit();
+      }
+      // dh1 = dwt W1^T
+      float dh[16];
+      wgmma_fence();
+#pragma unroll
+      for (int sp = 0; sp < 3; ++sp)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss32<0, 0>(dh, desc_k(sb + L::DP + sp * TILE, kk),
+                           desc_k(sb + L::W1, kk), sp | kk);
+      wgmma_commit();
+      // dW1^T += dwt^T [h1 | 1]: six cross products of the splits
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        constexpr int SA[6] = {0, 0, 1, 0, 2, 1}, SB[6] = {0, 1, 0, 2, 0, 1};
+#pragma unroll
+        for (int pr = 0; pr < 6; ++pr)
+          wgmma_ss40<1, 0>(dw1, desc_mn(sb + L::DP + SA[pr] * TILE, kk),
+                           desc_k(sb + L::H1P + SB[pr] * H1_PLANE, kk),
+                           kk | pr | n);
+      }
+      wgmma_commit();
+      if constexpr (AGG) {
+        wgmma_wait<2>();  // dA
+        acc_fence(dA);
+#pragma unroll
+        for (int e = 0; e < 32; e += 2) {
+          const int c = r0 + 8 * ((e >> 1) & 1), co = 8 * (e >> 2) + 2 * qd;
+          *reinterpret_cast<float2*>(sl + c * CO + co) =
+              make_float2(dA[e], dA[e + 1]);
+        }
+      }
+      wgmma_wait<1>();  // dh1
+      acc_fence(dh);
+      float loc[32];  // this tap's db0 [kk], dW0 [8 (1 + j) + kk]
+#pragma unroll
+      for (int e = 0; e < 32; ++e) loc[e] = 0.f;
+#pragma unroll
+      for (int e = 0; e < 16; ++e) {  // dh1 [h1 > 0] -> db0, dW0
+        const int mi = (e >> 1) & 1, kk = 2 * (e >> 2) + (e & 1);
+        const float d = (on1 >> e) & 1 ? dh[e] : 0.f;
+        loc[kk] += d;
+#pragma unroll
+        for (int j = 0; j < 3; ++j)
+          loc[8 * (1 + j) + kk] = fmaf(d, rel[mi][j], loc[8 * (1 + j) + kk]);
+      }
+#pragma unroll
+      for (int e = 0; e < 32; ++e) macc[e * WGT + t] += loc[e];
+    }
+    if (hq >= 0 && hq < H)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int q = q0 + r0 + 8 * ((e >> 1) & 1);
+        const int c = 8 * (e >> 2) + 2 * qd + (e & 1);
+        if (q >= 0 && q < W)
+          p.out[((size_t)(b * H + hq) * C + c) * W + q] =
+              __float2bfloat16(dfeat[e]);
+      }
   }
-  __syncthreads();
-  // db0, dW0 over the 32 lanes (pixels), in order
+  wgmma_wait<0>();
+  acc_fence(dw1);
+
+  // the block's partials
 #pragma unroll
-  for (int i = 0; i < KI; ++i) {
-    const int k = warp + 8 * i;
-    s.red[(0 * CM + k) * 32 + lane] = db0[i];
-#pragma unroll
-    for (int j = 0; j < 3; ++j) s.red[((1 + j) * CM + k) * 32 + lane] = dw0[j][i];
+  for (int e = 0; e < 20; ++e) {
+    const int c = r0 + 8 * ((e >> 1) & 1);
+    const int k = 8 * (e >> 2) + 2 * qd + (e & 1);
+    if (k < CM)
+      mlp[MLP_W1 + k * C + c] = dw1[e];
+    else if (k == CM)
+      mlp[MLP_B1 + c] = dw1[e];
   }
-  __syncthreads();
-  if (tid < 4 * CM) {
+  __syncthreads();  // every thread's slot and accumulators are written
+  if (AGG)
+    for (int e = t; e < NT * 128; e += WGT) {
+      const int tap = e / 128, item = e % 32, q = (e % 128) / 32;
+      const int ci = item % 16;
+      const int c = 8 * (ci >> 1) + 2 * q + (ci & 1);
+      part[(item < 16 ? OFF_S9 : OFF_B9) + tap * C + c] = slot[e];
+    }
+  {  // db0, dW0 over the 32 threads holding each k, in thread order
+    const int kind = t / 32, k = t % 32;
+    const int kk = 2 * (k / 8) + (k & 1);
     float v = 0.f;
-    for (int l = 0; l < 32; ++l) v += s.red[tid * 32 + l];
-    const int m = tid / CM, k = tid % CM;
-    if (m == 0)
-      mlp[MLP_B0 + k] = v;
-    else
-      mlp[MLP_W0 + (m - 1) * CM + k] = v;
+    for (int u = (k % 8) / 2; u < WGT; u += 4)
+      v += macc[(8 * kind + kk) * WGT + u];
+    mlp[kind == 0 ? MLP_B0 + k : MLP_W0 + (kind - 1) * CM + k] = v;
   }
 }
 
@@ -403,9 +1017,75 @@ __global__ void reduce_blocks_kernel(const float* __restrict__ part,
   out[e] = v;
 }
 
-int tiles_of(int kind, int B, int H, int W) {
-  if (kind < 2) return B * H * ((W + P - 1) / P);
-  return B * (H + 2) * (W / P + 2);
+// chunks of a launch: kind 1 (meta_agg) 64-pixel chunks of the image's
+// rows; kinds 2, 3 (the backward) output chunks of rows -1 .. H, columns
+// -8 .. W (ops/meta_block.py:plan_meta)
+int chunks_per_row(int kind, int W) {
+  return kind == 1 ? (W + TQ - 1) / TQ : (W + HALO + 1 + TQ - 1) / TQ;
+}
+int chunks_of(int kind, int B, int H, int W) {
+  return B * (kind == 1 ? H : H + 2) * chunks_per_row(kind, W);
+}
+
+// blocks of a persistent launch: as many as fit on every SM at once, at
+// most one per `work`; negative on error
+template <typename K>
+int blocks_for(K kernel, int threads, int smem, int work) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return -(int)err;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      threads, smem);
+  if (err != cudaSuccess) return -(int)err;
+  if (per_sm < 1) return -1;
+  const int blocks = per_sm * sms;
+  return blocks < work ? blocks : work;
+}
+
+// a bf16 tensor (d3, d2, d1, d0) with row pitch p0 >= d0 elements as the
+// 4-D map (d0, d1, d2, d3); boxes of box0 x box1 x box2 elements, no
+// swizzle, zeros out of range
+int encode_box(CUtensorMap* map, const void* ptr, int d0, int d1, int d2,
+               int d3, int p0, int box0, int box1, int box2) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return -1;
+  const cuuint64_t dims[4] = {(cuuint64_t)d0, (cuuint64_t)d1, (cuuint64_t)d2,
+                              (cuuint64_t)d3};
+  const cuuint64_t strides[3] = {(cuuint64_t)p0 * 2,
+                                 (cuuint64_t)p0 * 2 * d1,
+                                 (cuuint64_t)p0 * 2 * d1 * d2};
+  const cuuint32_t box[4] = {(cuuint32_t)box0, (cuuint32_t)box1,
+                             (cuuint32_t)box2, 1};
+  const cuuint32_t estride[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                        const_cast<void*>(ptr), dims, strides, box, estride,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_NONE,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -1;
+}
+
+BlockArgs block_args(const void* w0, const void* b0, const void* w1,
+                     const void* b1, const void* e0, const void* e1,
+                     void* out, void* part, int kind, int B, int H, int W) {
+  BlockArgs a = {};
+  a.w0 = (const float*)w0;
+  a.b0 = (const float*)b0;
+  a.w1 = (const float*)w1;
+  a.b1 = (const float*)b1;
+  a.e0 = (const float*)e0;
+  a.e1 = (const float*)e1;
+  a.out = (__nv_bfloat16*)out;
+  a.part = (float*)part;
+  a.H = H;
+  a.W = W;
+  a.nq = chunks_per_row(kind, W);
+  a.chunks = chunks_of(kind, B, H, W);
+  return a;
 }
 
 }  // namespace
@@ -418,12 +1098,18 @@ int meta_block_widths(int i) { return i == 0 ? C : i == 1 ? CM : CO; }
 // Blocks of a launch (kind 0 stats, 1 agg, 2 stats backward, 3 agg
 // backward) on the current device; negative on error.
 int meta_block_grid(int kind, int B, int H, int W) {
-  const int tiles = tiles_of(kind, B, H, W);
   switch (kind) {
-    case 0: return grid_for<0>(meta_fwd_kernel<0>, tiles);
-    case 1: return grid_for<1>(meta_fwd_kernel<1>, tiles);
-    case 2: return grid_for<2>(meta_bwd_kernel<2>, tiles);
-    default: return grid_for<3>(meta_bwd_kernel<3>, tiles);
+    case 0:
+      return grid_for<0>(meta_stats_kernel, B * H * ((W + P - 1) / P));
+    case 1:
+      return blocks_for(meta_agg_kernel, WGT, FwdLayout::SMEM,
+                        chunks_of(1, B, H, W));
+    case 2:
+      return blocks_for(meta_bwd_kernel<false>, WGT, BwdLayout<false>::SMEM,
+                        chunks_of(2, B, H, W));
+    default:
+      return blocks_for(meta_bwd_kernel<true>, WGT, BwdLayout<true>::SMEM,
+                        chunks_of(3, B, H, W));
   }
 }
 
@@ -445,60 +1131,68 @@ int meta_stats_fwd(const void* feat, const void* cb, const void* w0,
                    void* stream) {
   Args a = make_args(feat, cb, w0, b0, w1, b1, B, H, W);
   a.part = (float*)part;
-  a.tiles = tiles_of(0, B, H, W);
+  a.tiles = B * H * ((W + P - 1) / P);
   cudaStream_t s = (cudaStream_t)stream;
-  meta_fwd_kernel<0><<<blocks, THREADS, smem_floats<0>() * sizeof(float),
-                       s>>>(a);
+  meta_stats_kernel<<<blocks, THREADS, smem_floats<0>() * sizeof(float),
+                      s>>>(a);
   const int n = 2 * NT * C;
   reduce_blocks_kernel<<<(n + 255) / 256, 256, 0, s>>>(
       (const float*)part, (float*)sums, blocks, n);
   return (int)cudaGetLastError();
 }
 
-// y: (B, H, Co, W) bf16.
+// y: (B, H, Co, W) bf16. feat (B, H, C, pitch) and cb (B, H, 3, pitch),
+// pitch >= W a multiple of 8 (TMA's 16-byte row strides), 16-byte aligned.
+// Returns cudaGetLastError(), or -1 if a tensor map could not be encoded.
 int meta_agg_fwd(const void* feat, const void* cb, const void* w0,
                  const void* b0, const void* w1, const void* b1,
                  const void* s9, const void* b9, const void* agg, void* y,
-                 int B, int H, int W, int blocks, void* stream) {
-  Args a = make_args(feat, cb, w0, b0, w1, b1, B, H, W);
-  a.e0 = (const float*)s9;
-  a.e1 = (const float*)b9;
-  a.agg = (const __nv_bfloat16*)agg;
-  a.out = (__nv_bfloat16*)y;
-  a.tiles = tiles_of(1, B, H, W);
-  meta_fwd_kernel<1><<<blocks, THREADS, smem_floats<1>() * sizeof(float),
-                       (cudaStream_t)stream>>>(a);
+                 int B, int H, int W, int pitch, int blocks, void* stream) {
+  CUtensorMap map_f, map_c, map_a;
+  if (encode_box(&map_f, feat, W, C, H, B, pitch, BOXW, C, 3) != 0 ||
+      encode_box(&map_c, cb, W, 3, H, B, pitch, BOXW, 3, 3) != 0 ||
+      encode_map(&map_a, agg, CO, NT * C, 1, 1, CO, CO, C) != 0)
+    return -1;
+  const BlockArgs a =
+      block_args(w0, b0, w1, b1, s9, b9, y, nullptr, 1, B, H, W);
+  meta_agg_kernel<<<blocks, WGT, FwdLayout::SMEM, (cudaStream_t)stream>>>(
+      map_f, map_c, map_a, a);
   return (int)cudaGetLastError();
 }
 
 // mode 0 "stats" (e0 = ds1, e1 = 2 ds2), 1 "agg" (e0 = s9, e1 = b9, agg,
-// gy). dfeat (B, H, C, W) bf16; scratch (B, H, C, W) f32; sums: the
-// reduced partials, [dA (9C, Co), ds9, db9] (agg only) then [dW0 (3, Cm),
-// db0, dW1 (Cm, C), db1].
+// gy (B, H, Co, pitch)). feat, cb as for meta_agg_fwd; dfeat (B, H, C, W)
+// bf16; part (blocks, meta_block_part_floats) f32; sums: the reduced
+// partials, [dA (9C, Co), ds9, db9] (agg only) then [dW0 (3, Cm), db0,
+// dW1 (Cm, C), db1].
 int meta_block_bwd(const void* feat, const void* cb, const void* w0,
                    const void* b0, const void* w1, const void* b1,
                    const void* e0, const void* e1, const void* agg,
-                   const void* gy, void* scratch, void* dfeat, void* part,
-                   void* sums, int B, int H, int W, int blocks, int mode,
+                   const void* gy, void* dfeat, void* part, void* sums, int B,
+                   int H, int W, int pitch, int blocks, int mode,
                    void* stream) {
-  Args a = make_args(feat, cb, w0, b0, w1, b1, B, H, W);
-  a.e0 = (const float*)e0;
-  a.e1 = (const float*)e1;
-  a.agg = (const __nv_bfloat16*)agg;
-  a.gy = (const __nv_bfloat16*)gy;
-  a.scratch = (float*)scratch;
-  a.out = (__nv_bfloat16*)dfeat;
-  a.part = (float*)part;
-  a.tiles = tiles_of(2, B, H, W);
+  CUtensorMap map_f, map_c, map_g, map_a;
+  if (encode_box(&map_f, feat, W, C, H, B, pitch, TQ, C, 1) != 0 ||
+      encode_box(&map_c, cb, W, 3, H, B, pitch, BOXW, 3, 3) != 0)
+    return -1;
+  if (mode != 1) {  // not read
+    map_g = map_f;
+    map_a = map_f;
+  } else if (encode_box(&map_g, gy, W, CO, H, B, pitch, BOXW, CO, 3) != 0 ||
+             encode_map(&map_a, agg, CO, NT * C, 1, 1, CO, CO, C) != 0) {
+    return -1;
+  }
   cudaStream_t s = (cudaStream_t)stream;
+  const BlockArgs a = block_args(w0, b0, w1, b1, e0, e1, dfeat, part,
+                                 mode == 1 ? 3 : 2, B, H, W);
   int n;
   if (mode == 1) {
-    meta_bwd_kernel<3><<<blocks, THREADS, smem_floats<3>() * sizeof(float),
-                         s>>>(a);
+    meta_bwd_kernel<true><<<blocks, WGT, BwdLayout<true>::SMEM, s>>>(
+        map_f, map_c, map_g, map_a, a);
     n = AGG_SUMS + MLP_SUMS;
   } else {
-    meta_bwd_kernel<2><<<blocks, THREADS, smem_floats<2>() * sizeof(float),
-                         s>>>(a);
+    meta_bwd_kernel<false><<<blocks, WGT, BwdLayout<false>::SMEM, s>>>(
+        map_f, map_c, map_g, map_a, a);
     n = MLP_SUMS;
   }
   reduce_blocks_kernel<<<(n + 255) / 256, 256, 0, s>>>(

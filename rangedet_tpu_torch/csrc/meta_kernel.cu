@@ -38,7 +38,7 @@ __global__ void __launch_bounds__(THREADS) meta_taps_kernel(Args p) {
   const int g = tid / C;
   const int H = p.H, W = p.W;
   const int ntw = (W + P - 1) / P;
-  load_constants(p, s, false);
+  load_constants(p, s);
   const int t_begin = (int)((long long)p.tiles * blockIdx.x / gridDim.x);
   const int t_end = (int)((long long)p.tiles * (blockIdx.x + 1) / gridDim.x);
 

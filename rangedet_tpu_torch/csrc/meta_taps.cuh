@@ -1,7 +1,8 @@
-// The tap stage of the Meta-Kernel at the recipe's widths, shared by
-// meta_block.cu (kernels 3-5, the fused block) and meta_kernel.cu (kernel 7,
-// the materialized taps): the widths, the block's shared-memory regions,
-// and the code that stages a tile's halo and rebuilds its 9 taps.
+// The f32-FFMA tap stage of the Meta-Kernel at the recipe's widths, shared
+// by meta_block.cu (kernel 3, meta_stats) and meta_kernel.cu (kernel 7, the
+// materialized taps): the widths, the block's shared-memory regions, and
+// the code that stages a tile's halo and rebuilds its 9 taps. (Kernels 4
+// and 5 in meta_block.cu rebuild the taps on the tensor cores.)
 //
 // A tile is P = 32 pixels of one image row. load_halo stages the feature and
 // coordinate rows h-1 .. h+1 around it (zero outside the image); per tap,
@@ -49,13 +50,8 @@ struct Args {
   const float* b0;            // (CM)
   const float* w1;            // (CM, C)
   const float* b1;            // (C)
-  const float* e0;            // (9C) s9 or ds1
-  const float* e1;            // (9C) b9 or 2 ds2
-  const __nv_bfloat16* agg;   // (9C, CO)
-  const __nv_bfloat16* gy;    // (B, H, CO, W)
-  __nv_bfloat16* out;         // y (B, H, CO, W) or dfeat (B, H, C, W)
-  float* scratch;             // (B, H, C, W) running dfeat
-  float* part;                // (blocks, per-block floats)
+  __nv_bfloat16* out;         // the taps (B, H, 9C, W), kernel 7
+  float* part;                // (blocks, per-block floats), kernel 3
   int B, H, W, tiles;
 };
 
@@ -67,13 +63,8 @@ struct Smem {
   float* rel;  // [3][P]
   float* w0;   // [3][CM], then b0 [CM]
   float* w1;   // [CM][C]
-  float* e;    // [2][9C]
-  float* t0;   // [C][LDP] relu(z), y staging
-  float* t1;   // [C][LDP] dwt
-  float* t2;   // [C][LDP] dnb
-  float* gy;   // [CO][LDP]
-  float* red;  // block sums / reduction buffer
-  __nv_bfloat16* a;  // agg: [9][C][CO] (forward), [CO][C] of one tap (bwd)
+  float* t0;   // [C][LDP] output staging (kernel 7)
+  float* red;  // block sums (kernel 3)
 };
 
 constexpr int round4(int n) { return (n + 3) / 4 * 4; }
@@ -83,23 +74,15 @@ constexpr int S_H1 = CM * LDP;
 constexpr int S_REL = 3 * P;
 constexpr int S_W0 = 4 * CM;
 constexpr int S_W1 = CM * C;
-constexpr int S_E = 2 * NT * C;
 constexpr int S_T = C * LDP;
-constexpr int S_GY = CO * LDP;
 constexpr int S_RED_STATS = G * 2 * NT * C;
-constexpr int S_RED_BWD = 4 * CM * 32;  // db0/dw0 lane reduction
-static_assert(S_RED_BWD >= 2 * G * C, "red");
 
-// 0 stats fwd, 1 agg fwd, 2 stats bwd, 3 agg bwd (meta_block.cu);
-// 4 taps (meta_kernel.cu)
+// 0 stats (meta_block.cu), 4 taps (meta_kernel.cu)
 template <int KIND>
 constexpr size_t smem_floats() {
-  size_t n = S_FH + S_CH + S_H1 + S_REL + S_W0 + S_W1 + S_E;
+  size_t n = S_FH + S_CH + S_H1 + S_REL + S_W0 + S_W1;
   if (KIND == 0) n += S_RED_STATS;
-  if (KIND == 1) n += S_T + NT * C * CO / 2;
   if (KIND == 4) n += S_T;
-  if (KIND >= 2) n += 3 * S_T + S_GY + S_RED_BWD;
-  if (KIND == 3) n += C * CO / 2;
   return n;
 }
 
@@ -113,33 +96,18 @@ __device__ Smem carve(float* base) {
   s.rel = p; p += S_REL;
   s.w0 = p; p += S_W0;
   s.w1 = p; p += S_W1;
-  s.e = p; p += S_E;
-  s.t0 = s.t1 = s.t2 = s.gy = s.red = nullptr;
-  s.a = nullptr;
-  if (KIND == 0) { s.red = p; p += S_RED_STATS; }
-  if (KIND == 1 || KIND == 4) { s.t0 = p; p += S_T; }
-  if (KIND >= 2) {
-    s.t0 = p; p += S_T;
-    s.t1 = p; p += S_T;
-    s.t2 = p; p += S_T;
-    s.gy = p; p += S_GY;
-    s.red = p; p += S_RED_BWD;
-  }
-  if (KIND == 1 || KIND == 3) s.a = reinterpret_cast<__nv_bfloat16*>(p);
+  s.t0 = s.red = nullptr;
+  if (KIND == 0) s.red = p;
+  if (KIND == 4) s.t0 = p;
   return s;
 }
 
-// Constants every tile uses: MLP weights, and the (9C) vectors e0, e1.
-__device__ void load_constants(const Args& p, const Smem& s, bool vecs) {
+// Constants every tile uses: the MLP weights.
+__device__ void load_constants(const Args& p, const Smem& s) {
   const int tid = threadIdx.x;
   for (int e = tid; e < 3 * CM; e += THREADS) s.w0[e] = p.w0[e];
   for (int e = tid; e < CM; e += THREADS) s.w0[3 * CM + e] = p.b0[e];
   for (int e = tid; e < CM * C; e += THREADS) s.w1[e] = p.w1[e];
-  if (vecs)
-    for (int e = tid; e < NT * C; e += THREADS) {
-      s.e[e] = p.e0[e];
-      s.e[NT * C + e] = p.e1[e];
-    }
 }
 
 // Stage feature and coordinate rows hs-1 .. hs+1, columns ws0-1 .. ws0+P

@@ -23,6 +23,12 @@ features' dtype. Weights are in the JAX package's layout: w0 (3, Cm), b0
 f32, as the block casts them before the Pallas call. Gradients come back in
 f32. Coordinates get no gradient.
 
+``plan_meta`` is the geometry of the tensor-core kernels (meta_agg and the
+block backward: chunks, TMA boxes, the tap order, the order of the
+partials) and ``split_bf16`` the exact split of an f32 operand into bf16
+terms that they feed to the tensor cores; ``tests/test_torch_meta_plan.py``
+drives a CPU emulation of the kernels with both.
+
 A CPU tensor goes to the plain version; a CUDA tensor goes to the kernel or
 raises. The Functions look the three ops up on this module at call time, so
 patching them (as chip_smoke does with the plain versions) routes the
@@ -30,7 +36,8 @@ forward and the backward alike.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from dataclasses import dataclass
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -172,6 +179,113 @@ def meta_bwd_plain(feat, cb, w0, b0, w1, b1, extras, mode: str,
     return dfeat, dw0, db0, dw1, db1
 
 
+# ------------------------------------------- the tensor-core kernels' plan
+TQ = 64             # pixels of a chunk: wgmma's M
+HALO = 8            # box columns left of a chunk: 16 bytes of bf16
+BOXW = TQ + 2 * HALO  # width of a box of the shifted rows
+# the kernels recompute wt in the plain version's order where nb * wt lies
+# within NEAR_TIE * |nb| * sum_k |h1 W1| of a bf16 rounding boundary
+NEAR_TIE = 2.0 ** -21
+
+
+def split_bf16(x: torch.Tensor, terms: int = 3) -> List[torch.Tensor]:
+    """bf16 tensors t_0, .., t_{terms-1} with t_0 = bf16(x), t_i =
+    bf16(x - t_0 - .. - t_{i-1}). Three terms hold an f32 x exactly (24
+    significand bits; every difference is exact in f32), so three bf16
+    products with an exact bf16 factor, summed in f32, give the f32
+    products (csrc/meta_block.cu)."""
+    out, r = [], x.float()
+    for _ in range(terms):
+        t = r.to(torch.bfloat16)
+        out.append(t)
+        r = r - t.float()
+    return out
+
+
+@dataclass(frozen=True)
+class MetaPlan:
+    """Geometry of one meta_agg ("agg") or block backward ("bwd") launch
+    of csrc/meta_block.cu, which computes the same formulas.
+
+    A chunk is TQ pixels of one row. meta_agg: the rows 0 .. H-1, chunk
+    columns w0 = kq*TQ; its TMA boxes hold feature and coordinate rows h-1
+    .. h+1 from column w0 - HALO, BOXW wide. The backward walks OUTPUT
+    chunks (the gather form): rows hq = -1 .. H and columns q0 = kq*TQ -
+    HALO, nq chunks a row covering -HALO .. W, so that every (source, tap)
+    pair of the image is visited once; its boxes: the feature row hq from
+    q0 (TQ wide), coordinate and gy rows hq-1 .. hq+1 from q0 - HALO
+    (BOXW). Tap t = (dy, dx) of output pixel q takes the source s = q -
+    (dy-1, dx-1): box row 2 - dy, box column q - q0 + HALO + 1 - dx. Every
+    box starts on 16 bytes along W. Rows are W wide at a pitch rounded up
+    to 8 (16-byte TMA strides). Block i (one warpgroup) takes chunks
+    [begin, end) = (chunks*i // blocks, chunks*(i+1) // blocks), in order,
+    taps inside; the agg tile of its n-th tap streams into tile n % 2. The
+    backward's partials are added per block in chunk order, then over
+    blocks in order."""
+    kind: str
+    B: int
+    H: int
+    W: int
+    blocks: int
+
+    @property
+    def pitch(self) -> int:
+        return -(-self.W // 8) * 8
+
+    @property
+    def nq(self) -> int:
+        if self.kind == "agg":
+            return -(-self.W // TQ)
+        return -(-(self.W + HALO + 1) // TQ)
+
+    @property
+    def rows(self) -> int:
+        return self.H if self.kind == "agg" else self.H + 2
+
+    @property
+    def chunks(self) -> int:
+        return self.B * self.rows * self.nq
+
+    def block_range(self, i: int) -> Tuple[int, int]:
+        return (self.chunks * i // self.blocks,
+                self.chunks * (i + 1) // self.blocks)
+
+    def chunk(self, ch: int) -> Tuple[int, int, int]:
+        """(b, row, first column) of chunk ch: (b, h, w0) for meta_agg,
+        (b, hq, q0) for the backward."""
+        kq, rest = ch % self.nq, ch // self.nq
+        if self.kind == "agg":
+            return rest // self.H, rest % self.H, kq * TQ
+        return rest // self.rows, rest % self.rows - 1, kq * TQ - HALO
+
+    def boxes(self, ch: int):
+        """name -> (column, first row, rows, width) of the chunk's boxes,
+        the column innermost (it must start on 16 bytes)."""
+        b, h, c0 = self.chunk(ch)
+        if self.kind == "agg":
+            return {"feat": (c0 - HALO, h - 1, 3, BOXW),
+                    "crd": (c0 - HALO, h - 1, 3, BOXW)}
+        return {"feat": (c0, h, 1, TQ), "crd": (c0 - HALO, h - 1, 3, BOXW),
+                "gy": (c0 - HALO, h - 1, 3, BOXW)}
+
+
+def plan_meta(kind: str, B: int, H: int, W: int, blocks: int) -> MetaPlan:
+    if kind not in ("agg", "bwd"):
+        raise ValueError(f"kind must be 'agg' or 'bwd', got {kind!r}")
+    return MetaPlan(kind, B, H, W, blocks)
+
+
+def _pitched(t, pitch):
+    """t (B, H, ., W) bf16 as rows of ``pitch`` elements, 16-byte aligned:
+    itself, or a zero-padded copy."""
+    W = t.shape[-1]
+    if pitch == W and t.data_ptr() % 16 == 0:
+        return t
+    out = t.new_zeros(t.shape[:-1] + (pitch,))
+    out[..., :W] = t
+    return out
+
+
 # ---------------------------------------------------------------- kernels
 def _kernel_inputs(feat, cb, w0, b0, w1, b1):
     """Checks for the kernel and its f32 weights."""
@@ -246,13 +360,14 @@ def meta_agg(feat, cb, w0, b0, w1, b1, s9, b9, agg):
     Co = widths[2]
     s9f, b9f = _vec9(feat, "s9", s9, C), _vec9(feat, "b9", b9, C)
     a = _agg_weight(feat, agg, C, Co)
-    blocks = _grid(lib, 1, B, H, W)
+    plan = plan_meta("agg", B, H, W, _grid(lib, 1, B, H, W))
+    fp, cp = _pitched(feat, plan.pitch), _pitched(cbb, plan.pitch)
     y = torch.empty((B, H, Co, W), dtype=feat.dtype, device=feat.device)
     with torch.cuda.device(feat.device):
         err = lib.meta_agg_fwd(
-            feat.data_ptr(), cbb.data_ptr(), *(w.data_ptr() for w in ws),
+            fp.data_ptr(), cp.data_ptr(), *(w.data_ptr() for w in ws),
             s9f.data_ptr(), b9f.data_ptr(), a.data_ptr(), y.data_ptr(),
-            B, H, W, blocks, _stream(feat))
+            B, H, W, plan.pitch, plan.blocks, _stream(feat))
     if err != 0:
         raise RuntimeError(f"meta_agg_fwd launch failed: cudaError {err}")
     AGG_LAUNCHES += 1
@@ -280,20 +395,21 @@ def meta_bwd(feat, cb, w0, b0, w1, b1, extras, mode: str):
     else:
         e0, e1 = (_vec9(feat, n, e, C) for n, e in zip(("c1", "c2"), extras))
     kind = 3 if mode == "agg" else 2
-    blocks = _grid(lib, kind, B, H, W)
+    plan = plan_meta("bwd", B, H, W, _grid(lib, kind, B, H, W))
+    fp, cp = _pitched(feat, plan.pitch), _pitched(cbb, plan.pitch)
+    if gy is not None:
+        gy = _pitched(gy, plan.pitch)
     n = lib.meta_block_part_floats(kind)
     dev = feat.device
-    part = torch.empty((blocks, n), dtype=torch.float32, device=dev)
+    part = torch.empty((plan.blocks, n), dtype=torch.float32, device=dev)
     sums = torch.empty((n,), dtype=torch.float32, device=dev)
-    scratch = torch.empty((B, H, C, W), dtype=torch.float32, device=dev)
     dfeat = torch.empty_like(feat)
     with torch.cuda.device(dev):
         err = lib.meta_block_bwd(
-            feat.data_ptr(), cbb.data_ptr(), *(w.data_ptr() for w in ws),
+            fp.data_ptr(), cp.data_ptr(), *(w.data_ptr() for w in ws),
             e0.data_ptr(), e1.data_ptr(), _ptr(a), _ptr(gy),
-            scratch.data_ptr(), dfeat.data_ptr(), part.data_ptr(),
-            sums.data_ptr(), B, H, W, blocks, int(mode == "agg"),
-            _stream(feat))
+            dfeat.data_ptr(), part.data_ptr(), sums.data_ptr(), B, H, W,
+            plan.pitch, plan.blocks, int(mode == "agg"), _stream(feat))
     if err != 0:
         raise RuntimeError(f"meta_block_bwd launch failed: cudaError {err}")
     BWD_LAUNCHES += 1

@@ -308,7 +308,13 @@ def test_meta_kernels_match_plain_on_cuda():
         pytest.skip("needs a CUDA card; the kernels have no CPU mode")
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
-    B, H, W, C_, Cm, Co = 2, 8, 96, 64, 32, 64  # the recipe's widths
+    # the recipe's widths; W = 70 is ragged (rows copied to a pitch of 72)
+    for B, H, W in ((2, 8, 96), (1, 3, 70)):
+        _check_meta_kernels(dev, g, B, H, W)
+
+
+def _check_meta_kernels(dev, g, B, H, W):
+    C_, Cm, Co = 64, 32, 64
 
     def rn(*s, scale=1.0):
         return scale * torch.randn(*s, device=dev, generator=g)

@@ -1,0 +1,353 @@
+"""The tensor-core Meta-Kernel kernels' index algebra and numerics on the CPU.
+
+csrc/meta_block.cu (meta_agg and the block backward) runs only on the card.
+Its geometry comes from the planner in rangedet_tpu_torch/ops/meta_block.py
+(plan_meta: 64-pixel chunks, the backward's output chunks over rows -1 .. H
+and columns -8 .. W, TMA box coordinates that start on 16 bytes, the tap
+order, the blocks' chunk ranges and the order of the partials) and its f32
+operands go to the tensor cores as split_bf16's exact three-term splits.
+Here a torch emulation of the kernels' loops is driven by that real plan:
+TMA boxes with zero fill outside the image, per tap the one-pixel shifts as
+offsets into the boxes, every contraction as a sum of products of bf16
+split terms accumulated in f32 (dW1 from six cross products, db1 from the
+ones row), meta_agg's plain-order wt near bf16 rounding boundaries, the
+masked sources, dfeat added in tap order per output chunk, per-block
+partials added in block order. It must equal the plain versions
+at the kernels' widths (C = 64, Cm = 32, Co = 64) and, in one case each,
+the JAX package's Pallas kernels in interpret mode.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rangedet_tpu.ops import meta_block_pallas as jmb
+from rangedet_tpu_torch.ops import meta_block as mb
+
+# one intra-op thread per test process: several workers share the cores
+torch.set_num_threads(1)
+
+C, CM, CO = 64, 32, 64
+# y and dfeat: both sides accumulate in f32 and round once to bf16
+# (chip_smoke's gate): |got - ref| <= 2^-6 |ref| + 1e-3 max|ref|
+BF16_RTOL, BF16_ATOL = 2.0 ** -6, 1e-3
+# f32 sums: chip_smoke's F32_SUM_TOL. The tap product a = bf16(nb * wt) is
+# rounded mid-way, so a wt summed in another f32 order moves a few a by one
+# bf16 ulp, and the sums that see a (dA, ds9) move with them
+SUM_TOL = 1e-3
+SHAPES = [(1, 1, 70), (2, 3, 130), (1, 4, 257)]
+
+
+def _inputs(seed, B, H, W):
+    r = np.random.default_rng(seed)
+
+    def n(*shape, scale=1.0):
+        return torch.from_numpy((scale * r.standard_normal(shape))
+                                .astype(np.float32))
+
+    return dict(
+        feat=n(B, H, C, W).bfloat16(), cb=n(B, H, 3, W, scale=3.0).bfloat16(),
+        w0=n(3, CM, scale=0.6), b0=n(CM, scale=0.1), w1=n(CM, C, scale=0.2),
+        b1=n(C, scale=0.1), s9=1.0 + n(9 * C, scale=0.3),
+        b9=n(9 * C, scale=0.2), agg=n(9 * C, CO, scale=1 / 24).bfloat16(),
+        gy=n(B, H, CO, W).bfloat16(), c1=n(9 * C, scale=1e-3),
+        c2=n(9 * C, scale=1e-4))
+
+
+def _mlp(x):
+    """The MLP weights as the kernels see them: bf16 values in f32."""
+    return [x[k].bfloat16().float() for k in ("w0", "b0", "w1", "b1")]
+
+
+def _rel(got, want):
+    return ((got.double() - want.double()).abs().max()
+            / want.double().abs().max().clamp(min=1e-30)).item()
+
+
+def _bf16_ok(got, ref):
+    err = (got.float() - ref).abs()
+    return bool((err <= BF16_RTOL * ref.abs()
+                 + BF16_ATOL * ref.abs().max()).all())
+
+
+# ------------------------------------------------------------ emulation
+def tma_box(t, W, b, col, row, rows, width):
+    """A TMA box of t (B, H, X, pitch) whose W extent is W: rows row ..
+    row+rows-1 of image b, all X, columns col .. col+width-1, zeros outside
+    the image. The column must start on 16 bytes (8 bf16)."""
+    assert col % 8 == 0, "TMA faults on an unaligned innermost coordinate"
+    H, X = t.shape[1], t.shape[2]
+    out = torch.zeros(rows, X, width)
+    for i in range(rows):
+        h = row + i
+        if not 0 <= h < H:
+            continue
+        s0, e0 = max(col, 0), min(col + width, W)
+        if s0 < e0:
+            out[i, :, s0 - col:e0 - col] = t[b, h, :, s0:e0].float()
+    return out
+
+
+def split_mm(x, w):
+    """x (f32) @ w (bf16 values) as the tensor cores take it: the three
+    split terms of x, each product exact, summed in f32."""
+    acc = None
+    for t in mb.split_bf16(x):
+        p = t.float() @ w
+        acc = p if acc is None else acc + p
+    return acc
+
+
+def exact_wt(h1, w1, b1, nb):
+    """meta_agg's wt: the tensor cores' sum, but the plain version's sum
+    where nb * wt lies within the margin of a bf16 rounding boundary; and
+    a = bf16(nb * wt)."""
+    wt = split_mm(h1, w1) + b1
+    mag = mb.split_bf16(h1)[0].float() @ w1.abs()
+    p = nb * wt
+    d = mb.NEAR_TIE * 1.01 * nb.abs() * mag + p.abs() * 2.0 ** -22
+    near = (p - d).bfloat16() != (p + d).bfloat16()
+    wt = torch.where(near, h1 @ w1 + b1, wt)
+    return wt, (nb * wt).bfloat16().float()
+
+
+def hidden(rel, w0, b0):
+    h = w0[0] * rel[:, 0:1]
+    h = h + w0[1] * rel[:, 1:2]
+    h = h + w0[2] * rel[:, 2:3]
+    return torch.relu(h + b0)
+
+
+def emulate_agg(x, blocks):
+    feat, cb = x["feat"], x["cb"]
+    B, H, _, W = feat.shape
+    w0, b0, w1, b1 = _mlp(x)
+    A = x["agg"].float().view(9, C, CO)
+    plan = mb.plan_meta("agg", B, H, W, blocks)
+    fp = torch.zeros(B, H, C, plan.pitch, dtype=torch.bfloat16)
+    fp[..., :W] = feat
+    out = torch.full((B, H, CO, W), float("nan"))
+    m = torch.arange(mb.TQ)
+    for blk in range(plan.blocks):
+        for ch in range(*plan.block_range(blk)):
+            b, h, w0c = plan.chunk(ch)
+            boxes = plan.boxes(ch)
+            fs = tma_box(fp, W, b, *boxes["feat"])
+            cs = tma_box(cb, W, b, *boxes["crd"])
+            cen = cs[1][:, mb.HALO + m].T
+            y = torch.zeros(mb.TQ, CO)
+            for t, (dy, dx) in enumerate(mb.TAPS):
+                x0 = mb.HALO + m + dx - 1
+                rel = cs[dy][:, x0].T - cen
+                _, a = exact_wt(hidden(rel, w0, b0), w1, b1, fs[dy][:, x0].T)
+                z = a * x["s9"][t * C:(t + 1) * C] + x["b9"][t * C:(t + 1) * C]
+                y = y + split_mm(torch.relu(z), A[t])
+            ok = w0c + m < W
+            out[b, h, :, w0c + m[ok]] = y[ok].T
+    assert not out.isnan().any()
+    return out
+
+
+def emulate_bwd(x, mode, blocks):
+    feat, cb = x["feat"], x["cb"]
+    B, H, _, W = feat.shape
+    w0, b0, w1, b1 = _mlp(x)
+    plan = mb.plan_meta("bwd", B, H, W, blocks)
+    A = x["agg"].float().view(9, C, CO)
+    e0, e1 = ((x["s9"], x["b9"]) if mode == "agg" else (x["c1"], x["c2"]))
+    dfeat = torch.full((B, H, C, W), float("nan"))
+    visits = torch.zeros(B, H, W, 9, dtype=torch.int64)
+    m = torch.arange(mb.TQ)
+    parts = []
+    for blk in range(plan.blocks):
+        begin, end = plan.block_range(blk)
+        dA, ds9, db9 = (torch.zeros(9, C, CO), torch.zeros(9, C),
+                        torch.zeros(9, C))
+        dw0, db0 = torch.zeros(3, CM), torch.zeros(CM)
+        dw1, db1 = torch.zeros(CM, C), torch.zeros(C)
+        for ch in range(begin, end):
+            b, hq, q0 = plan.chunk(ch)
+            boxes = plan.boxes(ch)
+            nb = tma_box(feat, W, b, *boxes["feat"])[0].T  # (TQ, C)
+            cs = tma_box(cb, W, b, *boxes["crd"])
+            gs = tma_box(x["gy"], W, b, *boxes["gy"])
+            q = q0 + m
+            cq = cs[1][:, mb.HALO + m].T
+            dfe = torch.zeros(mb.TQ, C)
+            for t, (dy, dx) in enumerate(mb.TAPS):
+                hs, srow, xs = hq - dy + 1, 2 - dy, mb.HALO + m + 1 - dx
+                s = q + 1 - dx
+                valid = (s >= 0) & (s < W) & (0 <= hs < H)
+                if 0 <= hs < H:
+                    visits[b, hs, s[valid], t] += 1
+                rel = cq - cs[srow][:, xs].T
+                h1 = hidden(rel, w0, b0)
+                wt = split_mm(h1, w1) + b1
+                a = (nb * wt).bfloat16().float()
+                sl = slice(t * C, (t + 1) * C)
+                if mode == "agg":
+                    gys = gs[srow][:, xs].T  # (TQ, CO), bf16 values
+                    dr = gys @ A[t].T
+                    z = a * e0[sl] + e1[sl]
+                    on = valid[:, None] & (z > 0)
+                    dz = torch.where(on, dr, torch.zeros(()))
+                    ds9[t] += (dz * a).sum(0)
+                    db9[t] += dz.sum(0)
+                    dA[t] += split_mm(torch.where(on, z, torch.zeros(())).T
+                                      .contiguous(), gys)
+                    da = dz * e0[sl]
+                else:
+                    da = torch.where(valid[:, None], e0[sl] + e1[sl] * a,
+                                     torch.zeros(()))
+                dfe = dfe + da * wt
+                dwt = da * nb
+                dh = torch.where(h1 > 0, split_mm(dwt, w1.T), torch.zeros(()))
+                db0 += dh.sum(0)
+                for j in range(3):
+                    dw0[j] += (dh * rel[:, j:j + 1]).sum(0)
+                # dW1^T = dwt^T [h1 | 1] from six cross products of splits
+                ds, hsp = mb.split_bf16(dwt), mb.split_bf16(h1)
+                for i, k in ((0, 0), (0, 1), (1, 0), (0, 2), (2, 0), (1, 1)):
+                    dw1 += (ds[i].float().T @ hsp[k].float()).T
+                db1 += sum(d.float() for d in ds).sum(0)
+            ok = (q >= 0) & (q < W)
+            if 0 <= hq < H:
+                dfeat[b, hq, :, q[ok]] = dfe[ok].T
+        parts.append((dA, ds9, db9, dw0, db0, dw1, db1))
+    # every (source, tap) pair of the image exactly once, every output once
+    assert bool((visits == 1).all())
+    assert not dfeat.isnan().any()
+    sums = [sum(p[i] for p in parts) for i in range(7)]
+    dA, ds9, db9, dw0, db0, dw1, db1 = sums
+    if mode == "agg":
+        return (dfeat, dA.reshape(9 * C, CO), ds9.reshape(-1),
+                db9.reshape(-1), dw0, db0, dw1, db1)
+    return dfeat, dw0, db0, dw1, db1
+
+
+# ----------------------------------------------------------------- tests
+def test_split_reconstructs_f32_exactly():
+    r = np.random.default_rng(0)
+    x = r.standard_normal(4096).astype(np.float32) * np.float32(
+        2.0) ** r.integers(-30, 30, 4096).astype(np.float32)
+    # values at and next to bf16 rounding ties: a bf16 value plus half an
+    # ulp, one f32 ulp either side of it
+    base = torch.from_numpy(x).bfloat16().float()
+    half = base.abs() * 2.0 ** -8
+    ties = torch.cat([base + half, base - half])
+    ties = torch.cat([ties, torch.nextafter(ties, ties + 1),
+                      torch.nextafter(ties, ties - 1)])
+    x = torch.cat([torch.from_numpy(x), ties, torch.tensor([0.0, -0.0])])
+    terms = mb.split_bf16(x)
+    assert all(t.dtype == torch.bfloat16 for t in terms)
+    total = sum(t.double() for t in terms)
+    assert torch.equal(total, x.double())
+    # each term at most half an ulp of the one before
+    for hi, lo in zip(terms, terms[1:]):
+        assert bool((lo.double().abs() <= hi.double().abs() * 2.0 ** -8).all())
+
+
+def test_split_products_sum_to_the_f32_product():
+    r = np.random.default_rng(1)
+    x = torch.from_numpy(r.standard_normal((64, 96)).astype(np.float32))
+    w = torch.from_numpy(r.standard_normal((96, 64)).astype(np.float32))
+    w = w.bfloat16().float()
+    exact = x.double() @ w.double()
+    got = split_mm(x, w)
+    # three f32 sums of 96 exact products, plus the two adds of the terms
+    bound = 100 * 2.0 ** -24 * (x.double().abs() @ w.double().abs())
+    assert bool(((got.double() - exact).abs() <= bound).all())
+
+
+def test_exact_wt_takes_the_plain_sum_near_a_tie():
+    r = np.random.default_rng(6)
+    h1 = torch.from_numpy(r.standard_normal((4096, CM)).astype(np.float32))
+    h1 = torch.relu(h1)
+    w1 = torch.from_numpy((0.2 * r.standard_normal((CM, C))).astype(
+        np.float32)).bfloat16().float()
+    nb = torch.from_numpy(r.standard_normal((4096, C)).astype(
+        np.float32)).bfloat16().float()
+    b1 = torch.zeros(C)
+    plain = h1 @ w1 + b1
+    _, a = exact_wt(h1, w1, b1, nb)
+    # the split sum alone rounds some a the other way (17 of 262144
+    # here); with the margin every a is the plain version's
+    a_tc = (nb * (split_mm(h1, w1) + b1)).bfloat16().float()
+    a_plain = (nb * plain).bfloat16().float()
+    assert bool((a_tc != a_plain).any())
+    assert torch.equal(a, a_plain)
+
+
+def test_plan_geometry():
+    p = mb.plan_meta("bwd", 2, 64, 2656, 132)
+    assert (p.nq, p.rows, p.chunks, p.pitch) == (42, 66, 2 * 66 * 42, 2656)
+    assert p.chunk(0) == (0, -1, -8)
+    assert p.chunk(p.chunks - 1) == (1, 64, 41 * 64 - 8)
+    f = mb.plan_meta("agg", 1, 3, 70, 4)
+    assert (f.nq, f.chunks, f.pitch) == (2, 6, 72)
+    assert [f.block_range(i) for i in range(4)] == [(0, 1), (1, 3), (3, 4),
+                                                    (4, 6)]
+    for plan in (p, f):
+        for ch in (0, 1, plan.chunks - 1):
+            assert all(box[0] % 8 == 0 for box in plan.boxes(ch).values())
+    with pytest.raises(ValueError):
+        mb.plan_meta("stats", 1, 1, 8, 1)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_emulated_meta_agg_matches_plain(shape):
+    x = _inputs(2, *shape)
+    got = emulate_agg(x, blocks=3)
+    ref = mb.meta_agg_plain(x["feat"], x["cb"], *_mlp(x), x["s9"], x["b9"],
+                            x["agg"], out_dtype=torch.float32)
+    assert _bf16_ok(got.bfloat16(), ref)
+
+
+@pytest.mark.parametrize("mode", ["agg", "stats"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_emulated_backward_matches_plain(shape, mode):
+    x = _inputs(3, *shape)
+    extras = ((x["s9"], x["b9"], x["agg"], x["gy"]) if mode == "agg"
+              else (x["c1"], x["c2"]))
+    got = emulate_bwd(x, mode, blocks=5)
+    ref = mb.meta_bwd_plain(x["feat"], x["cb"], *_mlp(x), extras, mode,
+                            out_dtype=torch.float32)
+    assert len(got) == len(ref)
+    assert _bf16_ok(got[0].bfloat16(), ref[0])
+    for i, (g, r) in enumerate(zip(got[1:], ref[1:])):
+        assert g.shape == r.shape
+        assert _rel(g, r) <= SUM_TOL, (i, _rel(g, r))
+
+
+def _jax(x, k):
+    return jnp.asarray(x[k].float().numpy()).astype(
+        jnp.bfloat16 if x[k].dtype == torch.bfloat16 else jnp.float32)
+
+
+def test_emulated_meta_agg_matches_pallas():
+    x = _inputs(4, 1, 3, 70)
+    want = jmb.meta_agg_pallas(
+        *(_jax(x, k) for k in ("feat", "cb")),
+        *(jnp.asarray(w.numpy()) for w in _mlp(x)), _jax(x, "s9"),
+        _jax(x, "b9"), _jax(x, "agg"), interpret=True)
+    got = emulate_agg(x, blocks=2)
+    assert _bf16_ok(got.bfloat16(),
+                    torch.from_numpy(np.asarray(want, np.float32)))
+
+
+def test_emulated_backward_matches_pallas():
+    x = _inputs(5, 1, 3, 70)
+    mlp = [jnp.asarray(w.numpy()) for w in _mlp(x)]
+    out = jmb._bwd_call(_jax(x, "feat"), _jax(x, "cb"), *mlp,
+                        tuple(_jax(x, k) for k in ("s9", "b9", "agg", "gy")),
+                        "agg", True)
+    dfeat, dA, ds9, db9 = (torch.from_numpy(np.asarray(o, np.float32))
+                           for o in out[:4])
+    want = (dfeat, dA, ds9[:, 0], db9[:, 0],
+            *(torch.from_numpy(np.asarray(o, np.float32))
+              for o in jmb._unpack_mlp(*out[-4:])))
+    got = emulate_bwd(x, "agg", blocks=2)
+    # the Pallas kernel rounds dfeat to bf16: one more rounding
+    assert _bf16_ok(got[0].bfloat16(), want[0])
+    for i, (g, w) in enumerate(zip(got[1:], want[1:])):
+        assert _rel(g, w) <= SUM_TOL, (i, _rel(g, w))
