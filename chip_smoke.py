@@ -27,9 +27,14 @@ Phases, one line of output each (or a table), failing on the first error:
    level, and every launch of the Meta-Kernel block's kernels (meta_stats,
    meta_agg, the block backward in both modes) on the inputs the step gave
    it, each twice with bit-equal outputs; a zeroed dA planted in the
-   backward's output must fail its gates; meta_agg and the backward summed
-   over the step must stay within META_AGG_BOUND_MAX and META_BWD_BOUND_MAX
-   of their f32-FFMA bounds (their tensor-core bounds printed beside);
+   backward's output must fail its gates; on meta_stats' inputs, kernel 7
+   against the training plain version's tap product a (at most TAP_OFF_MAX
+   of the elements differ, each by one bf16 ulp) and meta_stats' sums
+   against float64 sums of kernel 7's output (TAP_SUM_TOL): the two
+   kernels form one a; meta_stats, meta_agg and the backward summed over
+   the step must stay within META_STATS_BOUND_MAX, META_AGG_BOUND_MAX and
+   META_BWD_BOUND_MAX of their f32-FFMA bounds (their tensor-core bounds,
+   the kernels line's bound_ms, printed beside);
    max error, kernel ms, plain ms, cuDNN ms and the bound; for the
    three conv kernels also the device time of their prologue and GEMM
    (and reduction), the GEMM's TFLOP/s and registers and spills, and
@@ -45,7 +50,10 @@ Phases, one line of output each (or a table), failing on the first error:
    memory;
 7. the Meta-Kernel's taps (kernel 7) and the serving path from files: the
    kernel against its plain version on the inputs a B=4 and a B=1 eval
-   forward give it (max error, kernel ms, plain ms, bound), its gradient
+   forward give it (max error, bit-equal repeat, kernel ms, plain ms,
+   bound; within META_TAPS_BOUND_MAX of its f32-FFMA bound, its
+   tensor-core bound, the kernels line's bound_ms, printed beside), its
+   gradient
    against the plain version's, the eval step with and without it (outputs
    within the model gate, step ms, peak memory); then 8 full-size frames
    written as roidb + npz files, ``tools.train`` for 2 steps into a
@@ -56,8 +64,13 @@ Phases, one line of output each (or a table), failing on the first error:
 
 It prints a JSON line of the kernels, one entry per kernel and path (the
 serving forward of phases 2-3 and 7, the train step of phases 5-6), then as
-its last line ``{"ok": true, "device": {...}}``. Without CUDA it exits
-non-zero.
+its last line ``{"ok": true, "device": {...}}``. Every kernel, plain and
+cuDNN time in it is the median of 5 timings of 10 calls by CUDA events
+(plain Meta-Kernel versions: of 3 calls). bound_ms is the least time of
+the work as the kernel does it: for the Meta-Kernel kernels, which run
+their contractions on the tensor cores, the tensor-core bound
+(profile_meta.tc_bound_ms), with the f32-FFMA bound that their speed
+gates read beside it as f32_bound_ms. Without CUDA it exits non-zero.
 """
 import contextlib
 import copy
@@ -138,6 +151,19 @@ IOU_OPS_PER_PAIR = 600  # f32 operations per (pixel, candidate) clip
 # factors. The FFMA kernels before the tensor-core ones read 6.5x and 4.8x
 META_BWD_BOUND_MAX = 3.5
 META_AGG_BOUND_MAX = 3.0
+# meta_stats over the step and kernel 7 per eval forward (B=4 and B=1),
+# the same; their FFMA kernels read 4.2x and 4.9x
+META_STATS_BOUND_MAX = 3.0
+META_TAPS_BOUND_MAX = 3.0
+# kernel 7 against the training plain version's tap product a on
+# meta_stats' inputs: a is rounded mid-way, and the plain f32 wt's order
+# (cuBLAS's, unstated) may differ from the kernels' near a bf16 tie, so at
+# most this share of the elements may differ, each by one bf16 ulp. And
+# meta_stats' (sum a, sum a^2) against float64 sums of kernel 7's output:
+# |s - ref| <= TAP_SUM_TOL * (sum |a| resp. sum a^2) per channel, f32 sums
+# of ~340k terms in another order
+TAP_OFF_MAX = 1e-4
+TAP_SUM_TOL = 1e-5
 
 
 def _smi():
@@ -148,20 +174,25 @@ def _smi():
     ).stdout.strip()
 
 
-def _time_ms(fn, iters=10, warmup=2):
-    """Mean ms of fn() over iters launches, by CUDA events."""
+def _time_ms(fn, iters=10, warmup=2, reps=5):
+    """The median of reps means of fn()'s ms over iters launches, by CUDA
+    events: one slow stretch of the host or the clocks moved a single mean
+    of 10 calls of kernel 7 at B=1 (~0.25 ms) by 12%."""
     import torch
 
     for _ in range(warmup):
         fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    means = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        means.append(start.elapsed_time(end) / iters)
+    return statistics.median(means)
 
 
 def _median_ms(fn, iters=10, warmup=2):
@@ -212,9 +243,9 @@ def meta_units(cfg):
 
 
 def ptxas_report(log, kernel):
-    """Registers and spills of the entry functions whose names contain
-    ``kernel`` (every instantiation of a template), from an ``nvcc
-    -Xptxas -v`` log."""
+    """Registers and spills of the entry functions whose mangled names
+    contain ``kernel`` (every instantiation of a template, or one, as
+    ``name<0>`` is ``nameILi0E``), from an ``nvcc -Xptxas -v`` log."""
     found, spill, regs = False, None, []
     spills = set()
     for line in log.splitlines():
@@ -292,7 +323,9 @@ class KernelTotals:
         self.ms = self.plain_ms = self.bound_ms = self.library_ms = 0.0
         self.err = 0.0
         self.by = {}
-        self.tc_bound_ms = 0.0  # rows 4, 5: the tensor-core bound
+        # rows 3-5, 7: the f32-FFMA bound of the speed gates (bound_ms is
+        # the tensor-core bound)
+        self.f32_bound_ms = 0.0
 
     def add(self, n, ms, plain_ms, bound, library_ms, err):
         self.n += n
@@ -387,7 +420,41 @@ def _plain_convs(conv3x3, plain=True, meta=None):
     return stack
 
 
-def phase5(torch, conv3x3, iou_mod, layers, meta, recorded, H, dev):
+def one_tap_product(torch, meta, taps, args, fail):
+    """Kernel 7 on the arguments of a meta_stats launch against the
+    training plain version's a, and meta_stats' sums against float64 sums
+    of kernel 7's output."""
+    from rangedet_tpu_torch.tools.profile_meta import training_taps, ulps
+
+    a7 = taps.meta_kernel_taps(*args)
+    s1, s2 = meta.meta_stats(*args)
+    torch.cuda.synchronize()
+    d = ulps(a7, training_taps(*args))
+    n_off, d_max, n = int((d > 0).sum()), int(d.max()), d.numel()
+    del d
+    C9 = a7.shape[2]
+    a = a7.double().permute(2, 0, 1, 3).reshape(C9, -1)
+    del a7
+    r1, r2, m1 = a.sum(1), (a * a).sum(1), a.abs().sum(1)
+    del a
+    e1 = ((s1.double() - r1).abs() / m1.clamp(min=1e-300)).max().item()
+    e2 = ((s2.double() - r2).abs() / r2.clamp(min=1e-300)).max().item()
+    ok1 = bool(((s1.double() - r1).abs() <= TAP_SUM_TOL * m1).all())
+    ok2 = bool(((s2.double() - r2).abs() <= TAP_SUM_TOL * r2).all())
+    print(f"[5] one tap product: kernel 7 on meta_stats' inputs differs from "
+          f"the training plain version's a at {n_off} of {n} elements "
+          f"({n_off / n:.3g}; limit {TAP_OFF_MAX}), by at most {d_max} bf16 "
+          f"ulp; meta_stats' sums against float64 sums of kernel 7's output,"
+          f" per channel: |s1 - ref| / sum|a| {e1:.3g}, |s2 - ref| / sum a^2 "
+          f"{e2:.3g} (limit {TAP_SUM_TOL})")
+    if d_max > 1 or n_off > TAP_OFF_MAX * n:
+        fail(f"kernel 7's a differs from the training plain version's at "
+             f"{n_off} elements, by up to {d_max} ulp")
+    if not (ok1 and ok2):
+        fail(f"meta_stats' sums are not kernel 7's a: {e1:.3g}, {e2:.3g}")
+
+
+def phase5(torch, conv3x3, iou_mod, layers, meta, taps, recorded, H, dev):
     from rangedet_tpu_torch import _build
     from rangedet_tpu_torch.tools.profile_meta import meta_work, tc_bound_ms
     from rangedet_tpu_torch.tools.profile_wgrad import (
@@ -662,6 +729,7 @@ def phase5(torch, conv3x3, iou_mod, layers, meta, recorded, H, dev):
                 name, work, Co = "meta_stats", "stats", 0
                 detail = f"sum a, sum a^2 max|a-b|/max|b| {rels[0]:.3g}, " \
                          f"{rels[1]:.3g}"
+                one_tap_product(torch, meta, taps, args, fail)
             elif kind == "agg":
                 Co = args[8].shape[1]
                 out = meta.meta_agg(*args)
@@ -697,14 +765,15 @@ def phase5(torch, conv3x3, iou_mod, layers, meta, recorded, H, dev):
             plain = getattr(meta, f"meta_{kind}_plain")
             p_ms = _time_ms(lambda: plain(*args), iters=3, warmup=1)
             flops, nbytes = meta_work(work, B, Hm, W, C, Cm, Co)
-            bound = _bound_ms(flops, nbytes, PEAK_F32)
+            f32 = _bound_ms(flops, nbytes, PEAK_F32)[0]
             tc = tc_bound_ms(work, B, Hm, W, C, Cm, Co)
-            totals[name].add(1, k_ms, p_ms, bound, None, err)
-            totals[name].tc_bound_ms += tc
+            totals[name].add(1, k_ms, p_ms, tc, None, err)
+            totals[name].f32_bound_ms += f32
             print(f"[5] {name} (B={B} H={Hm} C={C} W={W} Cm={Cm} Co={Co}): "
                   f"{detail}; repeat bit-equal; kernel {k_ms:.4f} ms, plain "
-                  f"{p_ms:.4f} ms, bound {bound[0]:.4f} ms f32 FFMA "
-                  f"({flops / 1e9:.2f} GFLOP), {tc:.4f} ms tensor cores")
+                  f"{p_ms:.4f} ms, bound {tc[0]:.4f} ms tensor cores "
+                  f"({tc[1]}), {f32:.4f} ms f32 FFMA ({flops / 1e9:.2f} "
+                  f"GFLOP)")
     if fault_rejected is not True:
         fail("the gates of the block backward pass a zeroed dA contraction"
              if fault_rejected is False else "no agg-mode backward launch")
@@ -712,16 +781,18 @@ def phase5(torch, conv3x3, iou_mod, layers, meta, recorded, H, dev):
           "rejected by its gates")
     for name, limit, kernel in (
             ("meta_block_bwd", META_BWD_BOUND_MAX, "meta_bwd_kernel"),
-            ("meta_agg", META_AGG_BOUND_MAX, "meta_agg_kernel")):
+            ("meta_agg", META_AGG_BOUND_MAX, "meta_fwd_kernelILi1E"),
+            ("meta_stats", META_STATS_BOUND_MAX, "meta_fwd_kernelILi0E")):
         t = totals[name]
         print(f"[5] {name} over the step: kernel {t.ms:.3f} ms = "
-              f"{t.ms / t.bound_ms:.2f}x its f32-FFMA bound {t.bound_ms:.3f}"
-              f" ms (limit {limit}x), {t.ms / t.tc_bound_ms:.1f}x its "
-              f"tensor-core bound {t.tc_bound_ms:.3f} ms; kernel (ptxas) "
+              f"{t.ms / t.f32_bound_ms:.2f}x its f32-FFMA bound "
+              f"{t.f32_bound_ms:.3f} ms (limit {limit}x), "
+              f"{t.ms / t.bound_ms:.1f}x its tensor-core bound "
+              f"{t.bound_ms:.3f} ms; kernel (ptxas) "
               f"{ptxas_report(_build.build_log, kernel)}")
-        if not t.ms <= limit * t.bound_ms:
+        if not t.ms <= limit * t.f32_bound_ms:
             fail(f"{name} summed over the step takes "
-                 f"{t.ms / t.bound_ms:.2f}x its f32 bound, more than "
+                 f"{t.ms / t.f32_bound_ms:.2f}x its f32 bound, more than "
                  f"{limit}x")
     for name, t in totals.items():
         lib = (f"cuDNN {t.library_ms:.3f} ms" if name in ("fwd", "dgrad",
@@ -903,7 +974,8 @@ def phase7(torch, m, cfg, dev):
     """Kernel 7 against its plain version on the inputs of a B=4 and a B=1
     eval forward, its gradient, and the eval step with and without it.
     Returns {B: KernelTotals} of the kernel."""
-    from rangedet_tpu_torch.tools.profile_meta import meta_work
+    from rangedet_tpu_torch import _build
+    from rangedet_tpu_torch.tools.profile_meta import meta_work, tc_bound_ms
 
     taps = m["taps"]
 
@@ -948,6 +1020,8 @@ def phase7(torch, m, cfg, dev):
         if not ok:
             fail(f"B={B}: kernel vs f32 plain max abs err {err} (max|ref| "
                  f"{ref_max})")
+        if not torch.equal(y, taps.meta_kernel_taps(*args)):
+            fail(f"B={B}: a repeat of the taps kernel gave other bits")
         xla = taps.meta_kernel_taps_plain(*args).float()
         y = y.float()
         d = (y - xla).abs()
@@ -964,17 +1038,26 @@ def phase7(torch, m, cfg, dev):
                         warmup=1)
         flops, nbytes = meta_work("taps", B, H, W, C, Cm, 0)
         bound = _bound_ms(flops, nbytes, PEAK_F32)
+        tc = tc_bound_ms("taps", B, H, W, C, Cm, 0)
         totals[B] = KernelTotals()
-        totals[B].add(1, k_ms, p_ms, bound, None, err)
+        totals[B].add(1, k_ms, p_ms, tc, None, err)
+        totals[B].f32_bound_ms = bound[0]
         print(f"[7] meta_kernel_taps B={B} (H={H} C={C} W={W} Cm={Cm}): max "
               f"abs err {err:.4g} vs the f32 plain version (bf16 gate; "
               f"max|ref| {ref_max:.4g}); "
               f"{d_max:.4g} vs the bf16 plain version (the XLA form), "
               f"{n_out} of {B * H * 9 * C * W} elements outside JAX's bound "
-              f"{TAPS_TOL}, each nearer the f32 reference; kernel "
-              f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {bound[0]:.4f} ms "
-              f"({bound[1]}; {flops / 1e9:.2f} GFLOP f32, "
-              f"{nbytes / 1e6:.1f} MB)")
+              f"{TAPS_TOL}, each nearer the f32 reference; repeat "
+              f"bit-equal; kernel {k_ms:.4f} ms = {k_ms / bound[0]:.2f}x its "
+              f"f32 bound {bound[0]:.4f} ms ({bound[1]}; {flops / 1e9:.2f} "
+              f"GFLOP f32, {nbytes / 1e6:.1f} MB; limit "
+              f"{META_TAPS_BOUND_MAX}x), {k_ms / tc[0]:.1f}x its "
+              f"tensor-core bound {tc[0]:.4f} ms ({tc[1]}); kernel (ptxas) "
+              f"{ptxas_report(_build.build_log, 'meta_fwd_kernelILi2E')}; "
+              f"plain {p_ms:.4f} ms")
+        if not k_ms <= META_TAPS_BOUND_MAX * bound[0]:
+            fail(f"B={B}: the taps kernel takes {k_ms / bound[0]:.2f}x its "
+                 f"f32 bound, more than {META_TAPS_BOUND_MAX}x")
 
         with torch.inference_mode():
             outs = {k: v(inputs["input_data"], inputs["coord"])
@@ -1374,8 +1457,8 @@ def main():
                         dev),
         conv3x3, iou_mod, layers, meta_block)
     del rmodel, rstate
-    totals = phase5(torch, conv3x3, iou_mod, layers, meta_block, recorded,
-                    H, dev)
+    totals = phase5(torch, conv3x3, iou_mod, layers, meta_block, taps,
+                    recorded, H, dev)
 
     # ------------------------------------------------------------ phase 6
     mods = dict(conv3x3=conv3x3, iou=iou_mod, meta=meta_block, taps=taps,
@@ -1409,8 +1492,7 @@ def main():
     for path, name, t, n, source, replaces in (
         ("serve", "conv3x3_bhcw", serve, serve_launches, conv_src, conv_tpu),
         ("serve", "meta_kernel_taps", taps_totals[1], serve_taps_launches,
-         "rangedet_tpu_torch/csrc/meta_kernel.cu",
-         "rangedet_tpu/ops/meta_kernel_pallas.py:138"),
+         meta_src, "rangedet_tpu/ops/meta_kernel_pallas.py:138"),
         ("train", "conv3x3_bhcw_train", totals["fwd"], launches["fwd"],
          conv_src, conv_tpu),
         ("train", "conv3x3_dgrad", totals["dgrad"], launches["dgrad"],
@@ -1437,6 +1519,8 @@ def main():
             "library_ms": (t.library_ms if name.startswith("conv3x3")
                            else None),
         })
+        if source == meta_src:
+            entries[-1]["f32_bound_ms"] = t.f32_bound_ms
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

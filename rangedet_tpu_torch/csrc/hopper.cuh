@@ -1,7 +1,8 @@
 // Hopper plumbing shared by the conv3x3 kernels (conv3x3_bhcw.cu,
-// conv3x3_wgrad.cu): mbarriers, TMA tile loads, wgmma descriptors and
-// fences, tensor-map encoding, and the transposing ingest prologue that
-// writes the GEMMs' channel-innermost operand.
+// conv3x3_wgrad.cu) and the Meta-Kernel kernels (meta_block.cu): mbarriers,
+// TMA tile loads and stores, wgmma descriptors and fences, the transposing
+// fragment store, tensor-map encoding, and the transposing ingest prologue
+// that writes the GEMMs' channel-innermost operand.
 //
 // Each .cu file includes this header into its own anonymous namespace, so
 // the kernels below are compiled once per file (no relocatable device code).
@@ -70,6 +71,59 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// orders this thread's generic-proxy shared-memory writes before later
+// asynchronous-proxy (TMA, wgmma) accesses of them
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// stores the box at coordinates (c0, c1, c2, c3), innermost first, from
+// shared memory at src into the tensor map's tensor; elements out of range
+// are not written. c0 must start on 16 bytes. The writes of src must be
+// fenced (fence_async_smem) and synchronised before the store is issued.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// closes the group of the bulk stores this thread issued since the last one
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// until at most N of this thread's store groups have not yet read their
+// shared memory (the source may then be rewritten)
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// until at most N of this thread's store groups are incomplete
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// four 8 x 8 bf16 matrices held as mma fragments (lane l: row l / 4,
+// columns 2 (l % 4) and + 1 in one register, r_q for matrix q), stored
+// transposed: lane l gives the address of row l % 8 of the transpose of
+// matrix l / 8 (16 bytes: that column of the matrix)
+__device__ __forceinline__ void stmatrix_x4_trans(uint32_t addr, uint32_t r0,
+                                                  uint32_t r1, uint32_t r2,
+                                                  uint32_t r3) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, "
+      "%4};\n" ::"r"(addr),
+      "r"(r0), "r"(r1), "r"(r2), "r"(r3)
       : "memory");
 }
 

@@ -10,9 +10,11 @@
 //   a   = bf16(feat[h+dy-1, :, w+dx-1] * wt)       (C, the tap product)
 //
 // meta_stats_fwd replaces meta_stats_pallas (_fwd_kernel, mode "stats"):
-//   s1 = sum a, s2 = sum a^2 over all B*H*W pixels, per channel of 9C. It
-//   is the first port's kernel, f32 FFMA from shared memory with the tap
-//   stage of meta_taps.cuh (shared with kernel 7), and is not changed here.
+//   s1 = sum a, s2 = sum a^2 over all B*H*W pixels, per channel of 9C.
+// meta_kernel_taps replaces _meta_kernel_fused_impl
+//   (rangedet_tpu/ops/meta_kernel_pallas.py, kernel 7, the eval taps): a
+//   itself, as (B, H, 9C, W) bf16, tap-major and channel-minor (the TPU
+//   kernel rounds rel and h1 to bf16; this one rounds once, at the product).
 // meta_agg_fwd replaces meta_agg_pallas (_fwd_kernel, mode "agg"):
 //   y[co] = sum_t sum_c A[t*C+c, co] * relu(a_t[c] * s9 + b9), f32, rounded
 //   once to bf16.
@@ -23,10 +25,11 @@
 //   both:    dnb = da wt goes to dfeat at the neighbour; dwt = da nb feeds
 //            the MLP backward (dW1, db1, dW0, db0).
 //
-// meta_agg_fwd and meta_block_bwd on Hopper: tensor cores over exact bf16
-// splits. Every contraction has one factor that is exactly bf16: W1 (the
-// block rounds it to bf16), agg, gy. The other factor x, f32, goes in as
-// three bf16 terms hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi -
+// All four on Hopper: tensor cores over exact bf16 splits, and one tap
+// stage (hidden, tap_stage) that forms the same a for every kernel. Every
+// contraction has one factor that is exactly bf16: W1 (rounded to bf16 on
+// load, as the block rounds it), agg, gy. The other factor x, f32, goes in
+// as three bf16 terms hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi -
 // mid), which sum to x exactly (24 significand bits; both differences are
 // exact in f32), and a bf16 x bf16 product is exact in f32. So three
 // wgmma products accumulated in f32 give the f32 FFMA's products; only the
@@ -64,24 +67,38 @@
 // on the CUDA cores in the plain version's order (tap_stage), and a is the
 // plain version's bit for bit.
 //
-// Loads: the feature, coordinate and gy rows of a chunk come by TMA (boxes
-// of a 4-D map, zero fill outside the image: that is the taps' zero
-// padding, and rel at a border tap is -centre as in the plain version),
-// into a 2-stage ring under mbarriers: the next chunk loads while this one
-// computes; the agg tile of each tap (8 KB, from L2) streams into a 2-tile
-// ring the same way. A box must start on 16 bytes along W, so boxes start 8
-// pixels left of the chunk and the one-pixel shifts are offsets of the
-// elementwise stage's ordinary shared-memory loads.
+// Loads: the feature, coordinate and gy rows of a chunk come by TMA (boxes of
+// a 4-D map, zero fill outside the image: that is the taps' zero padding, and
+// rel at a border tap is -centre as in the plain version), into a 2-stage
+// ring under mbarriers: the next chunk loads while this one computes (TAPS:
+// one stage, loaded after the chunk, which leaves room for three blocks an
+// SM: 3% and 9% faster at B=4 and B=1, PERF.md); the agg tile of each tap (8
+// KB, from L2) streams into a 2-tile ring the same way. A box must start on
+// 16 bytes along W, so boxes start 8 pixels left of the chunk and the
+// one-pixel shifts are offsets of the elementwise stage's ordinary
+// shared-memory loads.
 //
-// Loop order. Forward: a block is one warpgroup (two blocks an SM) walking
-// its chunks of 64 pixels of one row, taps inside; each tap's product is
-// added to y in f32 as the plain version adds the taps. Backward: the
-// gather form. A block (one warpgroup, one an SM) owns a chunk of 64 OUTPUT
-// pixels q of one row; for tap t it rebuilds the tap at the source s = q -
-// (dy-1, dx-1), whose tap-t neighbour is q, so nb is feat[q] and dnb lands
-// on q: the 9 taps of dfeat add up in registers in tap order, and no f32
-// dfeat leaves the chip (the first port's backward kept a (B, H, C, W) f32
-// scratch, 87 MB at B=2, read and written at each tap). Chunks cover the
+// Loop order. Forward (meta_fwd_kernel, one template for kernels 3, 4 and 7):
+// a block is one warpgroup (two or three blocks an SM) walking its chunks of
+// 64 pixels of one row, taps inside, and each mode has its own tap epilogue.
+// AGG: the tap's product with agg is added to y in f32 as the plain version
+// adds the taps. STATS: a and a^2 of the chunk's columns < W summed over the
+// thread's two pixel rows, then over the 8 lanes holding the same channels,
+// into the warp's f32 sums in shared memory (no barrier inside a chunk); at
+// the end the 4 warps' sums are added in order into the block's (2, 9C)
+// partial. TAPS: the (64 channels x 64 pixels) tile of a goes to shared
+// memory transposed (stmatrix .trans, [c][px], 128-byte swizzle) and from
+// there to the output rows t*C .. t*C+63 by one TMA store (columns >= W
+// clipped), through a 2-tile ring: before a tap's barrier thread 0 waits
+// until the last tap's store has read its tile, so the tile written next is
+// free. (A store of each warp's 16 pixels without the barrier measured 2%
+// slower, PERF.md.) Backward: the gather form. A block (one warpgroup, one an
+// SM) owns a chunk of 64 OUTPUT pixels q of one row; for tap t it rebuilds
+// the tap at the source s = q - (dy-1, dx-1), whose tap-t neighbour is q, so
+// nb is feat[q] and dnb lands on q: the 9 taps of dfeat add up in registers
+// in tap order, and no f32 dfeat leaves the chip (the first port's backward
+// kept a (B, H, C, W) f32 scratch, 87 MB at B=2, read and written at each
+// tap). Chunks cover the
 // rows -1 .. H and the columns -8 .. W, so that every (source, tap) pair
 // inside the image is visited exactly once and the sums are complete;
 // sources outside the image are masked. The f32 gradient sums: dA_t moves
@@ -94,21 +111,36 @@
 // two runs give the same bits.
 //
 // What bounds them now: at the recipe's widths the split contractions are
-// 0.11 TFLOP (forward) and 0.25 TFLOP (agg-mode backward) per B=2 step,
+// 0.11 TFLOP (meta_agg) and 0.25 TFLOP (agg-mode backward) per B=2 step,
 // 0.1-0.3 ms at 989 TFLOP/s (the tensor-core bounds, with the rest of the
 // work, are 0.038 and 0.089 ms); the CUDA-core elementwise stage between
 // the dependent products of a tap, with few warps an SM to hide their
-// waits, holds them at ~20-35x that (PERF.md).
+// waits, holds them at ~20-35x that (PERF.md). meta_stats is bound by its
+// f32 elementwise work (0.025 ms per B=2 step) and the taps by the 783 MB
+// they write at B=4 (0.26 ms at 3.35 TB/s); the same tap stage holds them
+// at ~20x and ~3.3x (PERF.md).
 //
 // The geometry (chunks, box coordinates, the tap order and the order of
 // the partials) is rangedet_tpu_torch/ops/meta_block.py:plan_meta, and
 // tests/test_torch_meta_plan.py runs a torch emulation of these loops on
 // the CPU with it.
 
-#include "meta_taps.cuh"
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
 #include "hopper.cuh"
 
 namespace {
+
+constexpr int C = 64;    // feature channels (the MLP's output)
+constexpr int CM = 32;   // MLP hidden width
+constexpr int CO = 64;   // aggregation outputs
+constexpr int NT = 9;    // taps
+
+__device__ __forceinline__ float bf(const __nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
 
 // per-block partial layout of the backward (floats)
 constexpr int OFF_A = 0;                    // (9C, CO)
@@ -121,56 +153,7 @@ constexpr int MLP_W1 = MLP_B0 + CM;       // (CM, C)
 constexpr int MLP_B1 = MLP_W1 + CM * C;   // (C)
 constexpr int MLP_SUMS = MLP_B1 + C;
 
-// --------------------------------------------------- kernel 3: meta_stats
-__global__ void __launch_bounds__(THREADS) meta_stats_kernel(Args p) {
-  extern __shared__ __align__(16) float smem[];
-  const Smem s = carve<0>(smem);
-  const int tid = threadIdx.x;
-  const int c = tid % C;
-  const int g = tid / C;
-  const int H = p.H, W = p.W;
-  const int ntw = (W + P - 1) / P;
-  load_constants(p, s);
-  for (int e = tid; e < S_RED_STATS; e += THREADS) s.red[e] = 0.f;
-  const int t_begin = (int)((long long)p.tiles * blockIdx.x / gridDim.x);
-  const int t_end = (int)((long long)p.tiles * (blockIdx.x + 1) / gridDim.x);
-
-  for (int tile = t_begin; tile < t_end; ++tile) {
-    const int bh = tile / ntw;
-    const int w0 = (tile - bh * ntw) * P;
-    const int b = bh / H;
-    const int h = bh - b * H;
-    __syncthreads();  // the previous tile is done with the buffers
-    load_halo(p, s, b, h, w0);
-#pragma unroll 1
-    for (int t = 0; t < NT; ++t) {
-      const int dy = t / 3, dx = t % 3;
-      __syncthreads();  // halo staged; last tap's readers of h1 done
-      tap_hidden(s, dy, dx);
-      __syncthreads();
-      float wt[PP], nb[PP], a[PP];
-      tap_products(p, s, c, g, dy, dx, wt, nb, a);
-      float s1 = 0.f, s2 = 0.f;
-#pragma unroll
-      for (int i = 0; i < PP; ++i)
-        if (w0 + g * PP + i < W) {
-          s1 += a[i];
-          s2 += a[i] * a[i];
-        }
-      s.red[(g * 2) * NT * C + t * C + c] += s1;
-      s.red[(g * 2 + 1) * NT * C + t * C + c] += s2;
-    }
-  }
-  __syncthreads();
-  for (int e = tid; e < 2 * NT * C; e += THREADS) {
-    const int m = e / (NT * C), j = e % (NT * C);
-    float v = 0.f;
-    for (int gg = 0; gg < G; ++gg) v += s.red[(gg * 2 + m) * NT * C + j];
-    p.part[(size_t)blockIdx.x * 2 * NT * C + e] = v;
-  }
-}
-
-// ---------------------------------------- kernels 4 and 5: tensor cores
+// ------------------------------------------------ the tensor-core kernels
 constexpr int TQ = 64;               // pixels of a chunk (wgmma M)
 constexpr int HALO = 8;              // box columns left of the chunk: 16 B
 constexpr int BOXW = TQ + 2 * HALO;  // box width of the shifted rows
@@ -191,25 +174,36 @@ constexpr int H1_PITCH = CM + 4;       // f32 rows of h1 in shared memory
 constexpr int up128(int n) { return (n + 127) / 128 * 128; }
 
 // f32 vectors in shared memory (float offsets)
-constexpr int V_E0 = 0;               // (9C) s9 or c1
-constexpr int V_E1 = NT * C;          // (9C) b9 or c2
-constexpr int V_B1 = 2 * NT * C;      // (C)
+constexpr int V_B1 = 0;               // (C)
 constexpr int V_W0 = V_B1 + C;        // (3, CM)
 constexpr int V_B0 = V_W0 + 3 * CM;   // (CM)
-constexpr int V_FLOATS = V_B0 + CM;
+constexpr int V_MLP = V_B0 + CM;      // the MLP's; then, for AGG and the
+constexpr int V_E0 = V_MLP;           // (9C) s9 or c1      backward:
+constexpr int V_E1 = V_E0 + NT * C;   // (9C) b9 or c2
+constexpr int V_FLOATS = V_E1 + NT * C;
 
-// meta_agg shared memory, bytes from a 1024-aligned base
+// the forward kernel's modes: kernels 3, 4 and 7 (meta_block_grid's kinds
+// 0, 1 and 4)
+enum FwdMode { STATS = 0, AGG = 1, TAPS = 2 };
+
+// meta_fwd_kernel shared memory, bytes from a 1024-aligned base
+template <int MODE>
 struct FwdLayout {
   static constexpr int W1 = 0;                      // W1, |W1| [k][c]
-  static constexpr int AT = W1 + W1_TILES;          // agg tiles, 2 taps
+  // AGG: the agg tiles of 2 taps; TAPS: 2 tiles of a [c][px] for the store
+  static constexpr int AT = W1 + W1_TILES;
   static constexpr int FEAT = 3 * C * BOXW * 2;     // rows h-1..h+1 [c][x]
   static constexpr int CRD = 3 * 3 * BOXW * 2;      // rows h-1..h+1 [j][x]
   static constexpr int STAGE = up128(FEAT + CRD);
-  static constexpr int RING = AT + 2 * TILE;        // 2 stages
-  static constexpr int W1F = RING + 2 * STAGE;      // W1 f32 [k][c]
+  // TAPS: one stage, which leaves room for three blocks an SM
+  static constexpr int STAGES = MODE == TAPS ? 1 : 2;
+  static constexpr int RING = AT + (MODE == STATS ? 0 : 2 * TILE);
+  static constexpr int W1F = RING + STAGES * STAGE;  // W1 f32 [k][c]
   static constexpr int H1R = W1F + CM * C * 4;      // h1 f32 [m][H1_PITCH]
   static constexpr int VEC = H1R + TQ * H1_PITCH * 4;
-  static constexpr int BAR = VEC + V_FLOATS * 4;
+  // STATS: each warp's sums [warp][tap][128] (slot_channel)
+  static constexpr int SLOT = VEC + (MODE == AGG ? V_FLOATS : V_MLP) * 4;
+  static constexpr int BAR = SLOT + (MODE == STATS ? 4 * NT * 128 * 4 : 0);
   static constexpr int SMEM = BAR + 4 * 8 + 1024;
 };
 
@@ -239,17 +233,19 @@ struct BwdLayout {
   static constexpr int SMEM = BAR + 4 * 8 + 1024;
 };
 static_assert(BwdLayout<true>::SMEM <= 232448, "shared memory");
-static_assert(2 * (FwdLayout::SMEM + 1024) <= 233472, "2 blocks an SM");
+static_assert(2 * (FwdLayout<AGG>::SMEM + 1024) <= 233472, "2 blocks an SM");
+static_assert(3 * (FwdLayout<TAPS>::SMEM + 1024) <= 233472, "3 blocks an SM");
+static_assert(2 * (FwdLayout<STATS>::SMEM + 1024) <= 233472, "2 blocks an SM");
 
 struct BlockArgs {
-  const float* w0;            // (3, CM)
+  const float* w0;            // (3, CM), f32 (rounded to bf16 on load)
   const float* b0;            // (CM)
-  const float* w1;            // (CM, C), bf16 values
+  const float* w1;            // (CM, C)
   const float* b1;            // (C)
-  const float* e0;            // (9C) s9 or c1
-  const float* e1;            // (9C) b9 or c2
+  const float* e0;            // (9C) s9 or c1; null for STATS, TAPS
+  const float* e1;            // (9C) b9 or c2; null for STATS, TAPS
   __nv_bfloat16* out;         // y (B, H, CO, W) or dfeat (B, H, C, W)
-  float* part;                // (blocks, per-block floats), backward
+  float* part;                // (blocks, per-block floats): STATS, backward
   int H, W, chunks, nq;
 };
 
@@ -361,10 +357,6 @@ __device__ __forceinline__ void split_pair(float x0, float x1, uint32_t& hi,
   lo = as_u32(__floats2bfloat162_rn(__fsub_rn(r0, mf.x), __fsub_rn(r1, mf.y)));
 }
 
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
 // keeps registers read by an asynchronous wgmma alive until its wait
 template <int N>
 __device__ __forceinline__ void reg_fence(uint32_t (&r)[N]) {
@@ -386,15 +378,22 @@ __device__ __forceinline__ uint64_t desc_k(uint32_t addr, int kk) {
   return sw128_desc(addr + kk * 32, 16);
 }
 
+// x rounded to bf16, in f32
+__device__ __forceinline__ float rbf(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
 // The block's constant operands: W1 and |W1| as [k][c], bf16 with the
-// 128-byte swizzle, W1 in f32, and the f32 vectors.
+// 128-byte swizzle, W1 in f32, and the f32 vectors. The MLP's weights are
+// rounded to bf16 here (the block's cast before the TPU kernel), so the
+// caller passes them as they are.
 __device__ void load_operands(const BlockArgs& p, uint8_t* sm, int w1_off,
                               int w1f_off, int vec_off) {
   const int tid = threadIdx.x, n = blockDim.x;
   float* w1f = reinterpret_cast<float*>(sm + w1f_off);
   for (int e = tid; e < CM * C / 2; e += n) {
     const int k = e / (C / 2), c = 2 * (e % (C / 2));
-    const float w0 = p.w1[k * C + c], w1 = p.w1[k * C + c + 1];
+    const float w0 = rbf(p.w1[k * C + c]), w1 = rbf(p.w1[k * C + c + 1]);
     st_pair(sm + w1_off, k, c, as_u32(__floats2bfloat162_rn(w0, w1)));
     st_pair(sm + w1_off + CM * 128, k, c,
             as_u32(__floats2bfloat162_rn(fabsf(w0), fabsf(w1))));
@@ -402,13 +401,14 @@ __device__ void load_operands(const BlockArgs& p, uint8_t* sm, int w1_off,
     w1f[k * C + c + 1] = w1;
   }
   float* v = reinterpret_cast<float*>(sm + vec_off);
-  for (int e = tid; e < NT * C; e += n) {
-    v[V_E0 + e] = p.e0[e];
-    v[V_E1 + e] = p.e1[e];
-  }
-  for (int e = tid; e < C; e += n) v[V_B1 + e] = p.b1[e];
-  for (int e = tid; e < 3 * CM; e += n) v[V_W0 + e] = p.w0[e];
-  for (int e = tid; e < CM; e += n) v[V_B0 + e] = p.b0[e];
+  if (p.e0 != nullptr)
+    for (int e = tid; e < NT * C; e += n) {
+      v[V_E0 + e] = p.e0[e];
+      v[V_E1 + e] = p.e1[e];
+    }
+  for (int e = tid; e < C; e += n) v[V_B1 + e] = rbf(p.b1[e]);
+  for (int e = tid; e < 3 * CM; e += n) v[V_W0 + e] = rbf(p.w0[e]);
+  for (int e = tid; e < CM; e += n) v[V_B0 + e] = rbf(p.b0[e]);
 }
 
 // h1[k] of one pixel = relu(W0^T rel + b0), with the plain version's f32
@@ -521,20 +521,58 @@ __device__ __forceinline__ void tap_stage(
   }
 }
 
-// -------------------------------------------------- kernel 4: meta_agg
+// One step of reduce_lanes: v[0..HALF-1] += the partner's half (lane bit
+// HALF), each lane keeping the half its bit selects. HALF is a template
+// argument so that every index is a constant: with a loop over the halves
+// ptxas kept v in local memory (a 128-byte stack frame, PERF.md).
+template <int HALF>
+__device__ __forceinline__ void fold_lanes(float (&v)[32], int lane) {
+  const bool up = lane & HALF;
+#pragma unroll
+  for (int i = 0; i < HALF; ++i) {
+    const float send = up ? v[i] : v[i + HALF];
+    const float keep = up ? v[i + HALF] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, HALF);
+  }
+}
+
+// Sums v[0..31] over lane bits 4, 3, 2 (the 8 lanes holding the same
+// channels), halving the set at each step: lane l keeps the items 4*L + j,
+// j < 4, L = 4*bit4 + 2*bit3 + bit2 of l, in v[0..3].
+__device__ __forceinline__ void reduce_lanes(float (&v)[32], int lane) {
+  fold_lanes<16>(v, lane);
+  fold_lanes<8>(v, lane);
+  fold_lanes<4>(v, lane);
+}
+
+// The channel of slot s (0..127) of a warp's sums of a tap: after
+// reduce_lanes, lane l of quad qd holds its items 4L .. 4L+3 for slots s =
+// 32 qd + item; item ci < 16 (the first sum) and 16 + ci (the second) are
+// channel 8 (ci >> 1) + 2 qd + (ci & 1).
+__device__ __forceinline__ int slot_channel(int s) {
+  const int q = s / 32, ci = s % 16;
+  return 8 * (ci >> 1) + 2 * q + (ci & 1);
+}
+
+// -------------------------------- kernels 3, 4 and 7: the forward taps
+// MODE STATS (meta_stats), AGG (meta_agg) or TAPS (the eval taps). map_a:
+// the agg tiles (AGG) or the output (B, H, 9C, W) (TAPS); p.part: the
+// block's (2, 9C) sums (STATS).
+template <int MODE>
 __global__ void __launch_bounds__(WGT, 2)
-    meta_agg_kernel(const __grid_constant__ CUtensorMap map_f,
+    meta_fwd_kernel(const __grid_constant__ CUtensorMap map_f,
                     const __grid_constant__ CUtensorMap map_c,
                     const __grid_constant__ CUtensorMap map_a, BlockArgs p) {
-  using L = FwdLayout;
+  using L = FwdLayout<MODE>;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const uint32_t sb = smem_u32(sm);
   const float* vec = reinterpret_cast<const float*>(sm + L::VEC);
   const float* w1f = reinterpret_cast<const float*>(sm + L::W1F);
   float* h1r = reinterpret_cast<float*>(sm + L::H1R);
-  const int t = threadIdx.x, lane = t % 32;
-  const int r0 = 16 * (t / 32) + lane / 4, qd = lane % 4;
+  float* slot = reinterpret_cast<float*>(sm + L::SLOT);
+  const int t = threadIdx.x, wq = t / 32, lane = t % 32;
+  const int r0 = 16 * wq + lane / 4, qd = lane % 4;
   const int H = p.H, W = p.W;
   const uint32_t bar0 = sb + L::BAR;  // 2 ring stages, 2 agg tiles
   if (t == 0) {
@@ -542,6 +580,8 @@ __global__ void __launch_bounds__(WGT, 2)
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   load_operands(p, sm, L::W1, L::W1F, L::VEC);
+  if (MODE == STATS)
+    for (int e = t; e < 4 * NT * 128; e += WGT) slot[e] = 0.f;
   fence_async_smem();
   __syncthreads();
 
@@ -565,19 +605,21 @@ __global__ void __launch_bounds__(WGT, 2)
   };
   if (t == 0 && c_begin < c_end) {
     issue(c_begin, 0);
-    issue_agg(0);
+    if (MODE == AGG) issue_agg(0);
   }
   int i = 0;
   for (int ch = c_begin; ch < c_end; ++ch, ++i) {
-    const int s = i & 1;
-    if (t == 0 && ch + 1 < c_end) issue(ch + 1, s ^ 1);
+    // stage s of the ring; its phase flips every STAGES chunks
+    const int s = L::STAGES == 2 ? i & 1 : 0;
+    if (L::STAGES == 2 && t == 0 && ch + 1 < c_end) issue(ch + 1, s ^ 1);
     const int kq = ch % p.nq, bh = ch / p.nq;
     const int w0 = kq * TQ;
+    const int b = bh / H, h = bh % H;
     const uint8_t* st = sm + L::RING + s * L::STAGE;
     const __nv_bfloat16* fs = reinterpret_cast<const __nv_bfloat16*>(st);
     const __nv_bfloat16* cs =
         reinterpret_cast<const __nv_bfloat16*>(st + L::FEAT);
-    mbar_wait(bar0 + 8 * s, (i >> 1) & 1);
+    mbar_wait(bar0 + 8 * s, (i / L::STAGES) & 1);
 
     float cen[2][3];
 #pragma unroll
@@ -594,7 +636,7 @@ __global__ void __launch_bounds__(WGT, 2)
       const int dy = tap / 3, dx = tap % 3;
       const int x0 = HALO + r0 + dx - 1;  // box column of the neighbour
       // the last tap's product is done with its agg tile
-      if (t == 0 && n + 1 < ntaps) issue_agg(n + 1);
+      if (MODE == AGG && t == 0 && n + 1 < ntaps) issue_agg(n + 1);
       float rel[2][3];
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi)
@@ -609,71 +651,122 @@ __global__ void __launch_bounds__(WGT, 2)
       tap_stage(wt, a2, ha, fs + dy * C * BOXW + x0, BOXW, vec, w1f, h1r, r0,
                 sb + L::W1, qd);
 
-      uint32_t ra[3][16];  // relu(z), split, as A fragments (K = C)
+      if constexpr (MODE == AGG) {
+        uint32_t ra[3][16];  // relu(z), split, as A fragments (K = C)
 #pragma unroll
-      for (int e = 0; e < 32; e += 2) {
-        const int c = 8 * (e >> 2) + 2 * qd;
-        __nv_bfloat162 ab;
-        *reinterpret_cast<uint32_t*>(&ab) = a2[e / 2];
-        const float2 af = __bfloat1622float2(ab);
-        float r[2];
+        for (int e = 0; e < 32; e += 2) {
+          const int c = 8 * (e >> 2) + 2 * qd;
+          __nv_bfloat162 ab;
+          *reinterpret_cast<uint32_t*>(&ab) = a2[e / 2];
+          const float2 af = __bfloat1622float2(ab);
+          float r[2];
 #pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          const float z = __fadd_rn(
-              __fmul_rn(u ? af.y : af.x, vec[V_E0 + tap * C + c + u]),
-              vec[V_E1 + tap * C + c + u]);
-          r[u] = fmaxf(z, 0.f);
+          for (int u = 0; u < 2; ++u) {
+            const float z = __fadd_rn(
+                __fmul_rn(u ? af.y : af.x, vec[V_E0 + tap * C + c + u]),
+                vec[V_E1 + tap * C + c + u]);
+            r[u] = fmaxf(z, 0.f);
+          }
+          split_pair(r[0], r[1], ra[0][e / 2], ra[1][e / 2], ra[2][e / 2]);
         }
-        split_pair(r[0], r[1], ra[0][e / 2], ra[1][e / 2], ra[2][e / 2]);
+        // this tap's product, added to y in f32 as the plain version adds
+        // the taps
+        mbar_wait(bar0 + 16 + 8 * (n & 1), (n >> 1) & 1);
+        float o[32];
+        wgmma_fence();
+#pragma unroll
+        for (int sp = 0; sp < 3; ++sp)
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_rs64<1>(o, &ra[sp][4 * kk],
+                          desc_mn(sb + L::AT + (n & 1) * TILE, kk), sp | kk);
+        wgmma_commit();
+        wgmma_wait<0>();
+        acc_fence(o);
+        reg_fence(ra);
+#pragma unroll
+        for (int e = 0; e < 32; ++e) y[e] = __fadd_rn(y[e], o[e]);
+      } else if constexpr (MODE == STATS) {
+        // [ci] sum a, [16 + ci] sum a^2 of channel 8 (ci >> 1) + 2 qd +
+        // (ci & 1) over the thread's pixel rows inside the image
+        const bool in0 = w0 + r0 < W, in1 = w0 + r0 + 8 < W;
+        float red[32];
+#pragma unroll
+        for (int e = 0; e < 32; ++e) red[e] = 0.f;
+#pragma unroll
+        for (int k = 0; k < 16; ++k) {  // a2[k]: row r0 + 8 (k & 1)
+          __nv_bfloat162 ab;
+          *reinterpret_cast<uint32_t*>(&ab) = a2[k];
+          const float2 af = __bfloat1622float2(ab);
+          if ((k & 1) ? in1 : in0) {
+            const int ci = 2 * (k >> 1);
+            red[ci] = __fadd_rn(red[ci], af.x);
+            red[ci + 1] = __fadd_rn(red[ci + 1], af.y);
+            red[16 + ci] = __fadd_rn(red[16 + ci], __fmul_rn(af.x, af.x));
+            red[17 + ci] = __fadd_rn(red[17 + ci], __fmul_rn(af.y, af.y));
+          }
+        }
+        reduce_lanes(red, lane);
+        // added to the warp's sums of this tap (each lane its own slots)
+        const int li = 4 * (4 * ((lane >> 4) & 1) + 2 * ((lane >> 3) & 1) +
+                            ((lane >> 2) & 1));
+        float* sl = slot + (wq * NT + tap) * 128 + qd * 32 + li;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) sl[j] += red[j];
+      } else {
+        // the tile of a, [c][px], into the free tile of the ring: four
+        // transposing fragment stores a warp (matrix q of store k: channels
+        // 8 (2k + q / 2) .., pixels 16 wq + 8 (q % 2) ..)
+        const uint32_t tile = sb + L::AT + (n & 1) * TILE;
+        const int q = lane / 8, rr = lane % 8;
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          stmatrix_x4_trans(tile + swz(8 * (2 * k + q / 2) + rr,
+                                       16 * wq + 8 * (q % 2)),
+                            a2[4 * k], a2[4 * k + 1], a2[4 * k + 2],
+                            a2[4 * k + 3]);
+        fence_async_smem();
+        // the last tap's store has read its tile: the next tap may
+        // rewrite it
+        if (t == 0) bulk_wait_read<0>();
+        __syncthreads();
+        if (t == 0) {
+          tma_store_4d(&map_a, tile, w0, tap * C, h, b);
+          bulk_commit();
+        }
       }
-      // this tap's product, added to y in f32 as the plain version adds
-      // the taps
-      mbar_wait(bar0 + 16 + 8 * (n & 1), (n >> 1) & 1);
-      float o[32];
-      wgmma_fence();
-#pragma unroll
-      for (int sp = 0; sp < 3; ++sp)
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          wgmma_rs64<1>(o, &ra[sp][4 * kk],
-                        desc_mn(sb + L::AT + (n & 1) * TILE, kk), sp | kk);
-      wgmma_commit();
-      wgmma_wait<0>();
-      acc_fence(o);
-      reg_fence(ra);
-#pragma unroll
-      for (int e = 0; e < 32; ++e) y[e] = __fadd_rn(y[e], o[e]);
     }
-    const int b = bh / H, h = bh % H;
+    if constexpr (MODE == AGG) {
 #pragma unroll
-    for (int e = 0; e < 32; ++e) {
-      const int w = w0 + r0 + 8 * ((e >> 1) & 1);
-      const int co = 8 * (e >> 2) + 2 * qd + (e & 1);
-      if (w < W)
-        p.out[((size_t)(b * H + h) * CO + co) * W + w] =
-            __float2bfloat16(y[e]);
+      for (int e = 0; e < 32; ++e) {
+        const int w = w0 + r0 + 8 * ((e >> 1) & 1);
+        const int co = 8 * (e >> 2) + 2 * qd + (e & 1);
+        if (w < W)
+          p.out[((size_t)(b * H + h) * CO + co) * W + w] =
+              __float2bfloat16(y[e]);
+      }
     }
     __syncthreads();  // the stage is read: the next TMA may overwrite it
+    if (L::STAGES == 1 && t == 0 && ch + 1 < c_end) issue(ch + 1, 0);
+  }
+  if constexpr (MODE == TAPS) {
+    if (t == 0) bulk_wait<0>();  // the stores are done with shared memory
+  }
+  if constexpr (MODE == STATS) {
+    // the block's sums: (2, 9C), row 0 sum a, row 1 sum a^2; the four
+    // warps' in order
+    __syncthreads();
+    float* part = p.part + (size_t)blockIdx.x * 2 * NT * C;
+    for (int e = t; e < NT * 128; e += WGT) {
+      const int tap = e / 128, item = e % 32;
+      const float v = ((slot[e] + slot[NT * 128 + e]) +
+                       slot[2 * NT * 128 + e]) + slot[3 * NT * 128 + e];
+      part[(item < 16 ? 0 : NT * C) + tap * C + slot_channel(e % 128)] = v;
+    }
   }
 }
 
 // ------------------------------------- kernel 5: the block backward
-// Sums v[0..31] over lane bits 4, 3, 2 (the 8 lanes holding the same
-// channels), halving the set at each step: lane l keeps the items 4*L + j,
-// j < 4, L = 4*bit4 + 2*bit3 + bit2 of l, in v[0..3].
-__device__ __forceinline__ void reduce_lanes(float (&v)[32], int lane) {
-#pragma unroll
-  for (int half = 16; half >= 4; half /= 2) {
-    const bool up = lane & half;
-#pragma unroll
-    for (int i = 0; i < half; ++i) {
-      const float send = up ? v[i] : v[i + half];
-      const float keep = up ? v[i + half] : v[i];
-      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, half);
-    }
-  }
-}
-
 template <bool AGG>
 __global__ void __launch_bounds__(WGT, 1)
     meta_bwd_kernel(const __grid_constant__ CUtensorMap map_f,
@@ -991,10 +1084,9 @@ __global__ void __launch_bounds__(WGT, 1)
   __syncthreads();  // every thread's slot and accumulators are written
   if (AGG)
     for (int e = t; e < NT * 128; e += WGT) {
-      const int tap = e / 128, item = e % 32, q = (e % 128) / 32;
-      const int ci = item % 16;
-      const int c = 8 * (ci >> 1) + 2 * q + (ci & 1);
-      part[(item < 16 ? OFF_S9 : OFF_B9) + tap * C + c] = slot[e];
+      const int tap = e / 128, item = e % 32;
+      part[(item < 16 ? OFF_S9 : OFF_B9) + tap * C + slot_channel(e % 128)] =
+          slot[e];
     }
   {  // db0, dW0 over the 32 threads holding each k, in thread order
     const int kind = t / 32, k = t % 32;
@@ -1017,14 +1109,16 @@ __global__ void reduce_blocks_kernel(const float* __restrict__ part,
   out[e] = v;
 }
 
-// chunks of a launch: kind 1 (meta_agg) 64-pixel chunks of the image's
-// rows; kinds 2, 3 (the backward) output chunks of rows -1 .. H, columns
-// -8 .. W (ops/meta_block.py:plan_meta)
+// chunks of a launch: kinds 0, 1, 4 (meta_stats, meta_agg, the taps)
+// 64-pixel chunks of the image's rows; kinds 2, 3 (the backward) output
+// chunks of rows -1 .. H, columns -8 .. W (ops/meta_block.py:plan_meta)
+bool forward_kind(int kind) { return kind == 0 || kind == 1 || kind == 4; }
 int chunks_per_row(int kind, int W) {
-  return kind == 1 ? (W + TQ - 1) / TQ : (W + HALO + 1 + TQ - 1) / TQ;
+  return forward_kind(kind) ? (W + TQ - 1) / TQ
+                            : (W + HALO + 1 + TQ - 1) / TQ;
 }
 int chunks_of(int kind, int B, int H, int W) {
-  return B * (kind == 1 ? H : H + 2) * chunks_per_row(kind, W);
+  return B * (forward_kind(kind) ? H : H + 2) * chunks_per_row(kind, W);
 }
 
 // blocks of a persistent launch: as many as fit on every SM at once, at
@@ -1069,6 +1163,16 @@ int encode_box(CUtensorMap* map, const void* ptr, int d0, int d1, int d2,
   return r == CUDA_SUCCESS ? 0 : -1;
 }
 
+// feat (B, H, C, pitch) and cb (B, H, 3, pitch) as the forward's maps:
+// boxes of rows h-1 .. h+1 from 8 pixels left of a chunk
+int encode_fwd(CUtensorMap* map_f, CUtensorMap* map_c, const void* feat,
+               const void* cb, int B, int H, int W, int pitch) {
+  return encode_box(map_f, feat, W, C, H, B, pitch, BOXW, C, 3) != 0 ||
+                 encode_box(map_c, cb, W, 3, H, B, pitch, BOXW, 3, 3) != 0
+             ? -1
+             : 0;
+}
+
 BlockArgs block_args(const void* w0, const void* b0, const void* w1,
                      const void* b1, const void* e0, const void* e1,
                      void* out, void* part, int kind, int B, int H, int W) {
@@ -1096,20 +1200,25 @@ extern "C" {
 int meta_block_widths(int i) { return i == 0 ? C : i == 1 ? CM : CO; }
 
 // Blocks of a launch (kind 0 stats, 1 agg, 2 stats backward, 3 agg
-// backward) on the current device; negative on error.
+// backward, 4 the eval taps) on the current device; negative on error.
 int meta_block_grid(int kind, int B, int H, int W) {
+  const int work = chunks_of(kind, B, H, W);
   switch (kind) {
     case 0:
-      return grid_for<0>(meta_stats_kernel, B * H * ((W + P - 1) / P));
+      return blocks_for(meta_fwd_kernel<STATS>, WGT, FwdLayout<STATS>::SMEM,
+                        work);
     case 1:
-      return blocks_for(meta_agg_kernel, WGT, FwdLayout::SMEM,
-                        chunks_of(1, B, H, W));
+      return blocks_for(meta_fwd_kernel<AGG>, WGT, FwdLayout<AGG>::SMEM,
+                        work);
     case 2:
       return blocks_for(meta_bwd_kernel<false>, WGT, BwdLayout<false>::SMEM,
-                        chunks_of(2, B, H, W));
-    default:
+                        work);
+    case 3:
       return blocks_for(meta_bwd_kernel<true>, WGT, BwdLayout<true>::SMEM,
-                        chunks_of(3, B, H, W));
+                        work);
+    default:
+      return blocks_for(meta_fwd_kernel<TAPS>, WGT, FwdLayout<TAPS>::SMEM,
+                        work);
   }
 }
 
@@ -1118,50 +1227,77 @@ int meta_block_grid(int kind, int B, int H, int W) {
 int meta_block_part_floats(int kind) {
   switch (kind) {
     case 0: return 2 * NT * C;
-    case 1: return 0;
     case 2: return MLP_SUMS;
-    default: return AGG_SUMS + MLP_SUMS;
+    case 3: return AGG_SUMS + MLP_SUMS;
+    default: return 0;
   }
 }
 
-// sums: (2, 9C) f32 = (sum a, sum a^2).
+// sums: (2, 9C) f32 = (sum a, sum a^2); part (blocks, 2 * 9C) f32. feat
+// (B, H, C, pitch) and cb (B, H, 3, pitch) with pitch = W rounded up to 8
+// (TMA's 16-byte row strides), 16-byte aligned. Returns
+// cudaGetLastError(), or -1 if a tensor map could not be encoded.
 int meta_stats_fwd(const void* feat, const void* cb, const void* w0,
                    const void* b0, const void* w1, const void* b1, void* part,
                    void* sums, int B, int H, int W, int blocks,
                    void* stream) {
-  Args a = make_args(feat, cb, w0, b0, w1, b1, B, H, W);
-  a.part = (float*)part;
-  a.tiles = B * H * ((W + P - 1) / P);
+  const int pitch = (W + 7) / 8 * 8;
+  CUtensorMap map_f, map_c;
+  if (encode_fwd(&map_f, &map_c, feat, cb, B, H, W, pitch) != 0) return -1;
+  const BlockArgs a = block_args(w0, b0, w1, b1, nullptr, nullptr, nullptr,
+                                 part, 0, B, H, W);
   cudaStream_t s = (cudaStream_t)stream;
-  meta_stats_kernel<<<blocks, THREADS, smem_floats<0>() * sizeof(float),
-                      s>>>(a);
+  meta_fwd_kernel<STATS><<<blocks, WGT, FwdLayout<STATS>::SMEM, s>>>(
+      map_f, map_c, map_f, a);
   const int n = 2 * NT * C;
   reduce_blocks_kernel<<<(n + 255) / 256, 256, 0, s>>>(
       (const float*)part, (float*)sums, blocks, n);
   return (int)cudaGetLastError();
 }
 
-// y: (B, H, Co, W) bf16. feat (B, H, C, pitch) and cb (B, H, 3, pitch),
-// pitch >= W a multiple of 8 (TMA's 16-byte row strides), 16-byte aligned.
-// Returns cudaGetLastError(), or -1 if a tensor map could not be encoded.
+// y: (B, H, Co, W) bf16; feat (B, H, C, pitch) and cb (B, H, 3, pitch),
+// pitch >= W a multiple of 8, 16-byte aligned.
 int meta_agg_fwd(const void* feat, const void* cb, const void* w0,
                  const void* b0, const void* w1, const void* b1,
                  const void* s9, const void* b9, const void* agg, void* y,
                  int B, int H, int W, int pitch, int blocks, void* stream) {
   CUtensorMap map_f, map_c, map_a;
-  if (encode_box(&map_f, feat, W, C, H, B, pitch, BOXW, C, 3) != 0 ||
-      encode_box(&map_c, cb, W, 3, H, B, pitch, BOXW, 3, 3) != 0 ||
+  if (encode_fwd(&map_f, &map_c, feat, cb, B, H, W, pitch) != 0 ||
       encode_map(&map_a, agg, CO, NT * C, 1, 1, CO, CO, C) != 0)
     return -1;
   const BlockArgs a =
       block_args(w0, b0, w1, b1, s9, b9, y, nullptr, 1, B, H, W);
-  meta_agg_kernel<<<blocks, WGT, FwdLayout::SMEM, (cudaStream_t)stream>>>(
-      map_f, map_c, map_a, a);
+  meta_fwd_kernel<AGG><<<blocks, WGT, FwdLayout<AGG>::SMEM,
+                         (cudaStream_t)stream>>>(map_f, map_c, map_a, a);
+  return (int)cudaGetLastError();
+}
+
+// Blocks of a launch of the eval taps: meta_block_grid's kind 4.
+int meta_kernel_grid(int B, int H, int W) {
+  return meta_block_grid(4, B, H, W);
+}
+
+// The eval taps: out (B, H, 9C, pitch) bf16, tap-major and channel-minor,
+// of which columns < W are written; feat, cb and the pitch as for
+// meta_stats_fwd.
+int meta_kernel_taps(const void* feat, const void* cb, const void* w0,
+                     const void* b0, const void* w1, const void* b1,
+                     void* out, int B, int H, int W, int blocks,
+                     void* stream) {
+  const int pitch = (W + 7) / 8 * 8;
+  CUtensorMap map_f, map_c, map_o;
+  if (encode_fwd(&map_f, &map_c, feat, cb, B, H, W, pitch) != 0 ||
+      encode_map(&map_o, out, W, NT * C, H, B, pitch, TQ, C) != 0)
+    return -1;
+  const BlockArgs a =
+      block_args(w0, b0, w1, b1, nullptr, nullptr, out, nullptr, 4, B, H, W);
+  meta_fwd_kernel<TAPS><<<blocks, WGT, FwdLayout<TAPS>::SMEM,
+                          (cudaStream_t)stream>>>(map_f, map_c, map_o, a);
   return (int)cudaGetLastError();
 }
 
 // mode 0 "stats" (e0 = ds1, e1 = 2 ds2), 1 "agg" (e0 = s9, e1 = b9, agg,
-// gy (B, H, Co, pitch)). feat, cb as for meta_agg_fwd; dfeat (B, H, C, W)
+// gy (B, H, Co, pitch)). feat, cb as for meta_stats_fwd; dfeat (B, H, C, W)
 // bf16; part (blocks, meta_block_part_floats) f32; sums: the reduced
 // partials, [dA (9C, Co), ds9, db9] (agg only) then [dW0 (3, Cm), db0,
 // dW1 (Cm, C), db1].

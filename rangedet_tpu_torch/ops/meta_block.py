@@ -23,11 +23,13 @@ features' dtype. Weights are in the JAX package's layout: w0 (3, Cm), b0
 f32, as the block casts them before the Pallas call. Gradients come back in
 f32. Coordinates get no gradient.
 
-``plan_meta`` is the geometry of the tensor-core kernels (meta_agg and the
-block backward: chunks, TMA boxes, the tap order, the order of the
-partials) and ``split_bf16`` the exact split of an f32 operand into bf16
-terms that they feed to the tensor cores; ``tests/test_torch_meta_plan.py``
-drives a CPU emulation of the kernels with both.
+``plan_meta`` is the geometry of the tensor-core kernels (meta_stats,
+meta_agg and the eval taps of ``ops/meta_kernel.py``, which share one
+forward kernel, and the block backward: chunks, TMA boxes, the tap order,
+the order of the partials) and ``split_bf16`` the exact split of an f32
+operand into bf16 terms that they feed to the tensor cores;
+``tests/test_torch_meta_plan.py`` drives a CPU emulation of the kernels
+with both. All of them form the same tap product a, the plain version's.
 
 A CPU tensor goes to the plain version; a CUDA tensor goes to the kernel or
 raises. The Functions look the three ops up on this module at call time, so
@@ -202,14 +204,20 @@ def split_bf16(x: torch.Tensor, terms: int = 3) -> List[torch.Tensor]:
     return out
 
 
+FORWARD_KINDS = ("stats", "agg", "taps")
+
+
 @dataclass(frozen=True)
 class MetaPlan:
-    """Geometry of one meta_agg ("agg") or block backward ("bwd") launch
-    of csrc/meta_block.cu, which computes the same formulas.
+    """Geometry of one launch of csrc/meta_block.cu's forward kernel
+    (kinds "stats", "agg", "taps": meta_stats, meta_agg, the eval taps) or
+    of the block backward ("bwd"), which compute the same formulas.
 
-    A chunk is TQ pixels of one row. meta_agg: the rows 0 .. H-1, chunk
+    A chunk is TQ pixels of one row. The forward: the rows 0 .. H-1, chunk
     columns w0 = kq*TQ; its TMA boxes hold feature and coordinate rows h-1
-    .. h+1 from column w0 - HALO, BOXW wide. The backward walks OUTPUT
+    .. h+1 from column w0 - HALO, BOXW wide. meta_stats sums the chunk's
+    columns < W; the taps store each tap's (C, TQ) tile of a at rows t*C ..
+    of the output, columns >= W clipped. The backward walks OUTPUT
     chunks (the gather form): rows hq = -1 .. H and columns q0 = kq*TQ -
     HALO, nq chunks a row covering -HALO .. W, so that every (source, tap)
     pair of the image is visited once; its boxes: the feature row hq from
@@ -233,14 +241,18 @@ class MetaPlan:
         return -(-self.W // 8) * 8
 
     @property
+    def forward(self) -> bool:
+        return self.kind in FORWARD_KINDS
+
+    @property
     def nq(self) -> int:
-        if self.kind == "agg":
+        if self.forward:
             return -(-self.W // TQ)
         return -(-(self.W + HALO + 1) // TQ)
 
     @property
     def rows(self) -> int:
-        return self.H if self.kind == "agg" else self.H + 2
+        return self.H if self.forward else self.H + 2
 
     @property
     def chunks(self) -> int:
@@ -251,10 +263,10 @@ class MetaPlan:
                 self.chunks * (i + 1) // self.blocks)
 
     def chunk(self, ch: int) -> Tuple[int, int, int]:
-        """(b, row, first column) of chunk ch: (b, h, w0) for meta_agg,
+        """(b, row, first column) of chunk ch: (b, h, w0) for the forward,
         (b, hq, q0) for the backward."""
         kq, rest = ch % self.nq, ch // self.nq
-        if self.kind == "agg":
+        if self.forward:
             return rest // self.H, rest % self.H, kq * TQ
         return rest // self.rows, rest % self.rows - 1, kq * TQ - HALO
 
@@ -262,7 +274,7 @@ class MetaPlan:
         """name -> (column, first row, rows, width) of the chunk's boxes,
         the column innermost (it must start on 16 bytes)."""
         b, h, c0 = self.chunk(ch)
-        if self.kind == "agg":
+        if self.forward:
             return {"feat": (c0 - HALO, h - 1, 3, BOXW),
                     "crd": (c0 - HALO, h - 1, 3, BOXW)}
         return {"feat": (c0, h, 1, TQ), "crd": (c0 - HALO, h - 1, 3, BOXW),
@@ -270,8 +282,9 @@ class MetaPlan:
 
 
 def plan_meta(kind: str, B: int, H: int, W: int, blocks: int) -> MetaPlan:
-    if kind not in ("agg", "bwd"):
-        raise ValueError(f"kind must be 'agg' or 'bwd', got {kind!r}")
+    if kind not in (*FORWARD_KINDS, "bwd"):
+        raise ValueError(f"kind must be one of {(*FORWARD_KINDS, 'bwd')}, "
+                         f"got {kind!r}")
     return MetaPlan(kind, B, H, W, blocks)
 
 
@@ -288,7 +301,9 @@ def _pitched(t, pitch):
 
 # ---------------------------------------------------------------- kernels
 def _kernel_inputs(feat, cb, w0, b0, w1, b1):
-    """Checks for the kernel and its f32 weights."""
+    """Checks for the kernel, and its f32 weights as they are: the kernels
+    round them to bf16 as they load them (on the card the casts of
+    ``_weights`` were ten small launches a call)."""
     if feat.dtype != torch.bfloat16:
         raise TypeError(f"the kernels take bf16 features, got {feat.dtype}")
     _need(feat, "feat", feat, torch.bfloat16)
@@ -298,9 +313,9 @@ def _kernel_inputs(feat, cb, w0, b0, w1, b1):
     if (C, w0.shape[1]) != widths[:2]:
         raise ValueError(f"the kernels are built for C={widths[0]}, "
                          f"Cm={widths[1]}; got C={C}, Cm={w0.shape[1]}")
-    cbb = cb.to(torch.bfloat16).contiguous()
+    cbb = cb.to(torch.bfloat16, memory_format=torch.contiguous_format)
     _need(feat, "cb", cbb, torch.bfloat16)
-    ws = _weights(feat, (w0, b0, w1, b1))
+    ws = [w.float().contiguous() for w in (w0, b0, w1, b1)]
     for name, t in zip(("w0", "b0", "w1", "b1"), ws):
         _need(feat, name, t, torch.float32)
     return lib, cbb, ws, widths
@@ -334,14 +349,17 @@ def meta_stats(feat, cb, w0, b0, w1, b1):
         return meta_stats_plain(feat, cb, w0, b0, w1, b1)
     lib, cbb, ws, _ = _kernel_inputs(feat, cb, w0, b0, w1, b1)
     B, H, C, W = feat.shape
-    blocks = _grid(lib, 0, B, H, W)
+    plan = plan_meta("stats", B, H, W, _grid(lib, 0, B, H, W))
+    fp, cp = _pitched(feat, plan.pitch), _pitched(cbb, plan.pitch)
     n = lib.meta_block_part_floats(0)
-    part = torch.empty((blocks, n), dtype=torch.float32, device=feat.device)
-    sums = torch.empty((2, 9 * C), dtype=torch.float32, device=feat.device)
-    with torch.cuda.device(feat.device):
+    dev = feat.device
+    part = torch.empty((plan.blocks, n), dtype=torch.float32, device=dev)
+    sums = torch.empty((2, 9 * C), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
         err = lib.meta_stats_fwd(
-            feat.data_ptr(), cbb.data_ptr(), *(w.data_ptr() for w in ws),
-            part.data_ptr(), sums.data_ptr(), B, H, W, blocks, _stream(feat))
+            fp.data_ptr(), cp.data_ptr(), *(w.data_ptr() for w in ws),
+            part.data_ptr(), sums.data_ptr(), B, H, W, plan.blocks,
+            _stream(feat))
     if err != 0:
         raise RuntimeError(f"meta_stats_fwd launch failed: cudaError {err}")
     STATS_LAUNCHES += 1

@@ -1,7 +1,7 @@
 """The Meta-Kernel's weighted neighbourhood over (B, H, C, W), materialized:
 (B, H, 9C, W), tap-major and channel-minor. Counterpart of
 ``rangedet_tpu/ops/meta_kernel_pallas.py`` (``meta_kernel_fused``); the
-kernel is ``csrc/meta_kernel.cu``.
+kernel is the "taps" mode of ``csrc/meta_block.cu``'s forward kernel.
 
 Per pixel p and tap t = (dy, dx) of its 3x3 neighbourhood:
 rel = coords[p + o_t] - coords[p] (zero padding, so a border tap's rel is
@@ -14,8 +14,13 @@ feat[p + o_t] * w. Weights are in the JAX package's layout: w0 (3, Cm), b0
   operand cast to feat.dtype, so in bf16 ``h`` and ``w`` round to bf16.
 * ``meta_kernel_taps`` routes: a CPU tensor to the plain version, a CUDA
   tensor to the kernel (bf16, the recipe's widths C=64, Cm=32) or raises.
-  The kernel computes rel, h and w in f32 from the bf16 operands and rounds
-  once, at the product, as ``csrc/meta_block.cu``'s taps do.
+  The kernel is the "taps" mode of ``csrc/meta_block.cu``'s forward kernel,
+  whose tap stage meta_stats, meta_agg and the block backward share: rel,
+  h and w in f32 from the bf16 operands, rounded once, at the product,
+  to the tap product a of the training plain version
+  (``ops/meta_block.py:_taps``). It stores its tiles by TMA, whose rows
+  need 16-byte strides: for W % 8 != 0 it writes rows of plan.pitch and
+  returns a view of the first W columns.
 * ``MetaKernelTaps`` is the custom VJP ``meta_kernel_fused``: the forward
   is ``meta_kernel_taps``, the backward the plain version's autograd VJP
   for every input, coordinates included (``_meta_vjp_bwd``).
@@ -26,7 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from .conv3x3 import _route, _stream
-from .meta_block import _check, _kernel_inputs
+from .meta_block import _check, _kernel_inputs, _pitched, plan_meta
 
 # kernel launches since the last reset: one per call that launches the
 # kernel
@@ -72,15 +77,18 @@ def meta_kernel_taps(feat, cb, w0, b0, w1, b1):
     blocks = lib.meta_kernel_grid(B, H, W)
     if blocks <= 0:
         raise RuntimeError(f"meta_kernel_grid failed: {blocks}")
-    out = torch.empty((B, H, 9 * C, W), dtype=feat.dtype, device=feat.device)
+    plan = plan_meta("taps", B, H, W, blocks)
+    fp, cp = _pitched(feat, plan.pitch), _pitched(cbb, plan.pitch)
+    out = torch.empty((B, H, 9 * C, plan.pitch), dtype=feat.dtype,
+                      device=feat.device)
     with torch.cuda.device(feat.device):
         err = lib.meta_kernel_taps(
-            feat.data_ptr(), cbb.data_ptr(), *(w.data_ptr() for w in ws),
-            out.data_ptr(), B, H, W, blocks, _stream(feat))
+            fp.data_ptr(), cp.data_ptr(), *(w.data_ptr() for w in ws),
+            out.data_ptr(), B, H, W, plan.blocks, _stream(feat))
     if err != 0:
         raise RuntimeError(f"meta_kernel_taps launch failed: cudaError {err}")
     LAUNCHES += 1
-    return out
+    return out if plan.pitch == W else out[..., :W]
 
 
 class MetaKernelTaps(torch.autograd.Function):

@@ -1,23 +1,27 @@
-"""The Meta-Kernel kernels (csrc/meta_block.cu: meta_stats, meta_agg, the
-block backward in both modes; csrc/meta_kernel.cu: the eval taps) on the
-inputs one full-size B=2 train step and one B=4 and B=1 eval forward of
-``rangedet_veh_wo_aug_4_18e`` give them (seeded random weights, synthetic
-frames):
+"""The Meta-Kernel kernels of csrc/meta_block.cu (the forward kernel's
+three modes: meta_stats, meta_agg, the eval taps; the block backward in
+both modes) on the inputs one full-size B=2 train step and one B=4 and B=1
+eval forward of ``rangedet_veh_wo_aug_4_18e`` give them (seeded random
+weights, synthetic frames):
 
     python -m rangedet_tpu_torch.tools.profile_meta [--against DIR]
 
 For each launch: the error against the plain version inside chip_smoke's
-gates (for meta_agg also the count of bf16 outputs that differ from the
-plain version's), whether two calls give the same bits, the time of one
-call by CUDA events (10 back-to-back calls, host work included), its
-device time by torch.profiler split into the main kernel and the
-reduction of the block partials, the f32 operations it stands for
-(meta_work) in TFLOP/s of the main kernel's device time, and two bounds:
-f32 FFMA (meta_work at 67 TFLOP/s, or its bytes) and tensor cores
-(tc_bound_ms). With ``--against DIR``, a ``csrc`` directory of another
-build (e.g. a parent commit's, unpacked under the git-ignored build/),
-meta_stats and the eval taps of both builds are compared bit for bit and
-timed in turns. Needs a CUDA card.
+gates (for meta_agg the count of bf16 outputs that differ from the plain
+version's; for the taps the count of elements that differ from the
+training plain version's tap product a, ``ops/meta_block.py:_taps``, and
+their largest distance in bf16 ulps), whether two calls give the same
+bits, the time of one call by CUDA events (10 back-to-back calls, host
+work included), its device time by torch.profiler split into the main
+kernel and the reduction of the block partials, the f32 operations it
+stands for (meta_work) in TFLOP/s of the main kernel's device time, and
+two bounds: f32 FFMA (meta_work at 67 TFLOP/s, or its bytes) and tensor
+cores (tc_bound_ms). With ``--against DIR``, a ``csrc`` directory of
+another build (e.g. a parent commit's, unpacked under the git-ignored
+build/), every launch of both builds is timed in turns; meta_agg and the
+backward must be bit-equal, and for meta_stats and the taps the count of
+elements that differ is printed (for the taps also each build's count of
+elements other than the training plain version's a). Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -40,11 +44,12 @@ SEED = 0
 # chip_smoke's gates: bf16 outputs |a - b| <= 2^-6 |b| + 1e-3 max|b|, f32
 # sums max|a - b| <= 1e-3 max|b|
 REL_TOL, MAX_TOL, SUM_TOL = 2.0 ** -6, 1e-3, 1e-3
-# kernel-name fragments of each launch's main kernel; the reduction of the
+# kernel-name fragments of each launch's main kernel (the forward kernel's
+# three modes are instantiations of one template); the reduction of the
 # block partials is reduce_blocks_kernel
-MAIN = {"stats": "meta_stats_kernel", "agg": "meta_agg_kernel",
-        "bwd_agg": "meta_bwd_kernel", "bwd_stats": "meta_bwd_kernel",
-        "taps": "meta_taps_kernel"}
+MAIN = {"stats": "meta_fwd_kernel", "agg": "meta_fwd_kernel",
+        "taps": "meta_fwd_kernel", "bwd_agg": "meta_bwd_kernel",
+        "bwd_stats": "meta_bwd_kernel"}
 
 
 def meta_work(kind, B, H, W, C, Cm, Co):
@@ -83,14 +88,16 @@ def tc_bound_ms(kind, B, H, W, C, Cm, Co):
     (the MLP's 2*C*Cm a pixel and tap, agg 2*C*Co more, the agg backward
     4*C*Co + 4*C*Cm more, the stats backward 4*C*Cm) at the bf16 peak, the
     rest of meta_work's operations at the f32 peak, or its bytes,
-    whichever is longest; in ms."""
+    whichever is longest; (ms, "operations" or "bytes")."""
     ops, nbytes = meta_work(kind, B, H, W, C, Cm, Co)
     per = {"taps": 2 * C * Cm, "stats": 2 * C * Cm,
            "agg": 2 * C * Cm + 2 * C * Co,
            "bwd_agg": 6 * C * Cm + 4 * C * Co, "bwd_stats": 6 * C * Cm}[kind]
     mma = 9 * B * H * W * per
-    return 1e3 * max(mma / PEAK_BF16, (ops - mma) / PEAK_F32,
-                     nbytes / PEAK_BYTES)
+    t_ops = max(mma / PEAK_BF16, (ops - mma) / PEAK_F32)
+    t_bytes = nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
 
 
 def device_ms(fn, main, iters=3, tries=3):
@@ -116,6 +123,26 @@ def device_ms(fn, main, iters=3, tries=3):
         if split[0] > 0:
             return tuple(split)
     return None
+
+
+def training_taps(feat, cb, w0, b0, w1, b1):
+    """The tap product a of the training plain version
+    (``ops/meta_block.py:_taps``: f32 from the same bf16 operands, rounded
+    to feat.dtype) as the taps' (B, H, 9C, W) tensor."""
+    from ..ops import meta_block as mb
+
+    return torch.cat([a.to(feat.dtype) for _, a, *_ in mb._taps(
+        feat, cb, w0, b0, w1, b1)], dim=2)
+
+
+def ulps(a, b):
+    """The distance of two bf16 tensors in bf16 ulps, elementwise (int32;
+    -0 and +0 are one)."""
+    def ordered(x):
+        i = x.contiguous().view(torch.int16).int()
+        return torch.where(i >= 0, i, -(i & 0x7FFF))
+
+    return (ordered(a) - ordered(b)).abs()
 
 
 def _rel(a, b):
@@ -202,12 +229,18 @@ def case(kind, args):
         fn = mb.meta_agg
         got = fn(*args)
         ok = _bf16_ok(got, mb.meta_agg_plain(*args, out_dtype=torch.float32))
-        off = int((got != mb.meta_agg_plain(*args)).sum())
+        off = (f"{int((got != mb.meta_agg_plain(*args)).sum())} bf16 "
+               f"outputs other than the plain version's")
     elif kind == "taps":
         fn = taps.meta_kernel_taps
         got = fn(*args)
         ok = _bf16_ok(got, taps.meta_kernel_taps_plain(
             *(a.to(feat.dtype).float() for a in args)))
+        d = ulps(got, training_taps(*args))
+        off = (f"{int((d > 0).sum())} of {d.numel()} elements other than "
+               f"the training plain version's a, at most "
+               f"{int(d.max())} bf16 ulp")
+        del d
     else:
         if kind == "bwd_agg":
             Co = args[6][2].shape[1]
@@ -225,14 +258,14 @@ def case(kind, args):
                 same=same, off=off, events=events_ms(lambda: fn(*args)),
                 split=device_ms(lambda: fn(*args), MAIN[kind]), ops=ops,
                 bound=bound_ms(kind, B, H, W, C, Cm, Co),
-                tc=tc_bound_ms(kind, B, H, W, C, Cm, Co))
+                tc=tc_bound_ms(kind, B, H, W, C, Cm, Co)[0])
 
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--against", type=Path, default=None,
-                   help="a csrc directory of another build to hold "
-                        "meta_stats and the eval taps against")
+                   help="a csrc directory of another build to compare and "
+                        "time every launch against")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_meta needs a CUDA card")
@@ -263,8 +296,7 @@ def main(argv=None):
             detail = (f"device {main_ms:.4f} ms main + {red_ms:.4f} ms "
                       f"reduction ({m['ops'] / main_ms / 1e9:.1f} TFLOP/s "
                       f"f32-equivalent)")
-        off = ("" if m["off"] is None else f", {m['off']} bf16 outputs "
-               "other than the plain version's")
+        off = "" if m["off"] is None else f", {m['off']}"
         print(f"{kind} ({label}, {m['shape']}): gate "
               f"{'ok' if m['ok'] else 'FAILED'}{off}, bit-equal repeat "
               f"{m['same']}; events {m['events']:.4f} ms; {detail}; bound "
@@ -284,32 +316,51 @@ def main(argv=None):
 
 
 def against(csrc, launches):
-    """meta_stats and the eval taps of this build and of the build of
-    ``csrc``, on the same inputs: bit-equal outputs, events ms in turns.
-    True when every output is bit-equal."""
+    """Every launch on this build and on the build of ``csrc``, on the same
+    inputs, timed by events in turns. True when meta_agg and the backward
+    are bit-equal across the two builds; meta_stats and the taps may
+    differ (counted)."""
     from ..ops import meta_block as mb
     from ..ops import meta_kernel as taps
 
+    fns = {"stats": mb.meta_stats, "agg": mb.meta_agg, "taps":
+           taps.meta_kernel_taps, "bwd_agg": mb.meta_bwd,
+           "bwd_stats": mb.meta_bwd}
     libs = {"this build": _build.load(), str(csrc): _build.load_from(csrc)}
     kept, all_same = _build._lib, True
+
+    def run(lib, fn, a):
+        _build._lib = lib
+        out = fn(*a)
+        return out if isinstance(out, tuple) else (out,)
+
     try:
         for kind, label, a in launches:
-            if kind not in ("stats", "taps"):
-                continue
-            fn = mb.meta_stats if kind == "stats" else taps.meta_kernel_taps
+            fn = fns[kind]
+            # the MLP weights rounded to bf16 and contiguous, as builds
+            # before the kernels rounded them on load take them
+            a = (*a[:2], *mb._weights(a[0], a[2:6]), *a[6:])
             outs, ms = {}, {}
             for name in (*libs, *libs):
-                _build._lib = libs[name]
-                outs.setdefault(name, fn(*a))
+                outs.setdefault(name, run(libs[name], fn, a))
                 ms.setdefault(name, []).append(events_ms(lambda: fn(*a)))
-            x, y = (o if isinstance(o, tuple) else (o,)
-                    for o in outs.values())
-            same = all(torch.equal(p, q) for p, q in zip(x, y))
-            all_same &= same
-            print(f"{kind} ({label}): bit-equal to {csrc}'s build {same}; "
-                  "events ms in turns " + "; ".join(
-                      f"{n} " + " ".join(f"{v:.4f}" for v in t)
-                      for n, t in ms.items()), flush=True)
+            x, y = outs.values()
+            off = sum(int((p != q).sum()) for p, q in zip(x, y))
+            n = sum(p.numel() for p in x)
+            if kind in ("agg", "bwd_agg", "bwd_stats"):
+                all_same &= off == 0
+            line = (f"{kind} ({label}): {off} of {n} elements other than "
+                    f"{csrc}'s build")
+            if kind == "taps":
+                ref = training_taps(*a)
+                line += "; elements other than the training plain a: " + \
+                    ", ".join(f"{nm} {int((o[0] != ref).sum())}"
+                              for nm, o in (("this build", x), (str(csrc), y)))
+                del ref
+            del outs
+            print(line + "; events ms in turns " + "; ".join(
+                f"{nm} " + " ".join(f"{v:.4f}" for v in t)
+                for nm, t in ms.items()), flush=True)
     finally:
         _build._lib = kept
     return all_same

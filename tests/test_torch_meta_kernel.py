@@ -170,7 +170,16 @@ def test_taps_kernel_matches_plain_on_cuda():
         pytest.skip("needs a CUDA card; the kernel has no CPU mode")
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
-    B, H, W, C_, Cm = 2, 8, 77, 64, 32  # the recipe's widths
+    mk.reset_counts()
+    # the recipe's widths; W = 77 and 70 are ragged (rows copied to a pitch
+    # of 80 and 72, the output written at that pitch and viewed)
+    for B, H, W in ((2, 8, 77), (1, 3, 70)):
+        _check_taps_kernel(dev, g, B, H, W)
+    assert mk.LAUNCHES == 4
+
+
+def _check_taps_kernel(dev, g, B, H, W):
+    C_, Cm = 64, 32
 
     def rn(*s, scale=1.0):
         return scale * torch.randn(*s, device=dev, generator=g)
@@ -179,7 +188,6 @@ def test_taps_kernel_matches_plain_on_cuda():
     cb = rn(B, H, 3, W, scale=0.5).bfloat16()
     mlp = (rn(3, Cm, scale=0.6), rn(Cm, scale=0.1), rn(Cm, C_, scale=0.2),
            rn(C_, scale=0.1))
-    mk.reset_counts()
     y = mk.meta_kernel_taps(feat, cb, *mlp)
     ref = mk.meta_kernel_taps_plain(feat.float(), cb.float(),
                                     *(w.bfloat16().float() for w in mlp))
@@ -187,4 +195,3 @@ def test_taps_kernel_matches_plain_on_cuda():
     assert ((y.float() - ref).abs() <= 2 ** -6 * ref.abs()
             + 1e-3 * ref.abs().max()).all()
     assert torch.equal(y, mk.meta_kernel_taps(feat, cb, *mlp))
-    assert mk.LAUNCHES == 2

@@ -1,6 +1,7 @@
 """The tensor-core Meta-Kernel kernels' index algebra and numerics on the CPU.
 
-csrc/meta_block.cu (meta_agg and the block backward) runs only on the card.
+csrc/meta_block.cu (the forward kernel in its three modes: meta_stats,
+meta_agg, the eval taps; and the block backward) runs only on the card.
 Its geometry comes from the planner in rangedet_tpu_torch/ops/meta_block.py
 (plan_meta: 64-pixel chunks, the backward's output chunks over rows -1 .. H
 and columns -8 .. W, TMA box coordinates that start on 16 bytes, the tap
@@ -10,11 +11,13 @@ Here a torch emulation of the kernels' loops is driven by that real plan:
 TMA boxes with zero fill outside the image, per tap the one-pixel shifts as
 offsets into the boxes, every contraction as a sum of products of bf16
 split terms accumulated in f32 (dW1 from six cross products, db1 from the
-ones row), meta_agg's plain-order wt near bf16 rounding boundaries, the
-masked sources, dfeat added in tap order per output chunk, per-block
-partials added in block order. It must equal the plain versions
-at the kernels' widths (C = 64, Cm = 32, Co = 64) and, in one case each,
-the JAX package's Pallas kernels in interpret mode.
+ones row), the forward's plain-order wt near bf16 rounding boundaries, the
+stats' masked columns, the taps' stores clipped at W, the masked sources,
+dfeat added in tap order per output chunk, per-block partials added in
+block order. It must equal the plain versions at the kernels' widths (C =
+64, Cm = 32, Co = 64) and, in one case each, the JAX package's Pallas
+kernels in interpret mode; and the three forward modes form one tap
+product a.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -22,7 +25,9 @@ import pytest
 import torch
 
 from rangedet_tpu.ops import meta_block_pallas as jmb
+from rangedet_tpu.ops.meta_kernel_pallas import meta_kernel_fused
 from rangedet_tpu_torch.ops import meta_block as mb
+from rangedet_tpu_torch.ops import meta_kernel as mk
 
 # one intra-op thread per test process: several workers share the cores
 torch.set_num_threads(1)
@@ -31,6 +36,13 @@ C, CM, CO = 64, 32, 64
 # y and dfeat: both sides accumulate in f32 and round once to bf16
 # (chip_smoke's gate): |got - ref| <= 2^-6 |ref| + 1e-3 max|ref|
 BF16_RTOL, BF16_ATOL = 2.0 ** -6, 1e-3
+# the taps against the Pallas kernel of meta_kernel_pallas.py, which rounds
+# rel and h to bf16: tests/test_torch_meta_kernel.py's BF16_TOL (JAX's own
+# bound between that kernel and the XLA form), |a - b| <= TAPS_TOL (1 +
+# |b|); where the Pallas kernel's own roundings put it outside (at this
+# file's coordinate and MLP scales), the emulation must be the nearer of
+# the two to the f32 plain version, chip_smoke [7]'s rule
+TAPS_TOL = 4e-2
 # f32 sums: chip_smoke's F32_SUM_TOL. The tap product a = bf16(nb * wt) is
 # rounded mid-way, so a wt summed in another f32 order moves a few a by one
 # bf16 ulp, and the sums that see a (dA, ds9) move with them
@@ -118,34 +130,58 @@ def hidden(rel, w0, b0):
     return torch.relu(h + b0)
 
 
-def emulate_agg(x, blocks):
+def emulate_fwd(x, kind, blocks):
+    """The forward kernel's loop in mode ``kind``: "agg" -> y (B, H, CO,
+    W); "stats" -> (sum a, sum a^2), each (9C,); "taps" -> a (B, H, 9C, W).
+    Also returns the tap products a the mode formed, (B, H, 9C, W)."""
     feat, cb = x["feat"], x["cb"]
     B, H, _, W = feat.shape
     w0, b0, w1, b1 = _mlp(x)
     A = x["agg"].float().view(9, C, CO)
-    plan = mb.plan_meta("agg", B, H, W, blocks)
+    plan = mb.plan_meta(kind, B, H, W, blocks)
     fp = torch.zeros(B, H, C, plan.pitch, dtype=torch.bfloat16)
     fp[..., :W] = feat
-    out = torch.full((B, H, CO, W), float("nan"))
+    seen = torch.full((B, H, 9 * C, W), float("nan"))
+    out = torch.full((B, H, CO, W), float("nan")) if kind == "agg" else seen
+    parts = []
     m = torch.arange(mb.TQ)
     for blk in range(plan.blocks):
+        part = torch.zeros(2, 9, C)
         for ch in range(*plan.block_range(blk)):
             b, h, w0c = plan.chunk(ch)
             boxes = plan.boxes(ch)
             fs = tma_box(fp, W, b, *boxes["feat"])
             cs = tma_box(cb, W, b, *boxes["crd"])
             cen = cs[1][:, mb.HALO + m].T
+            ok = w0c + m < W  # the chunk's columns inside the image
             y = torch.zeros(mb.TQ, CO)
             for t, (dy, dx) in enumerate(mb.TAPS):
                 x0 = mb.HALO + m + dx - 1
                 rel = cs[dy][:, x0].T - cen
                 _, a = exact_wt(hidden(rel, w0, b0), w1, b1, fs[dy][:, x0].T)
-                z = a * x["s9"][t * C:(t + 1) * C] + x["b9"][t * C:(t + 1) * C]
-                y = y + split_mm(torch.relu(z), A[t])
-            ok = w0c + m < W
-            out[b, h, :, w0c + m[ok]] = y[ok].T
-    assert not out.isnan().any()
-    return out
+                sl = slice(t * C, (t + 1) * C)
+                if kind == "agg":
+                    z = a * x["s9"][sl] + x["b9"][sl]
+                    y = y + split_mm(torch.relu(z), A[t])
+                elif kind == "stats":
+                    part[0, t] += a[ok].sum(0)
+                    part[1, t] += (a[ok] * a[ok]).sum(0)
+                # the taps' TMA store writes the columns < W
+                seen[b, h, sl, w0c + m[ok]] = a[ok].T
+            if kind == "agg":
+                out[b, h, :, w0c + m[ok]] = y[ok].T
+        parts.append(part)
+    assert not seen.isnan().any() and not out.isnan().any()
+    if kind == "stats":
+        s = parts[0]
+        for p in parts[1:]:
+            s = s + p
+        out = (s[0].reshape(-1), s[1].reshape(-1))
+    return out, seen
+
+
+def emulate_agg(x, blocks):
+    return emulate_fwd(x, "agg", blocks)[0]
 
 
 def emulate_bwd(x, mode, blocks):
@@ -290,8 +326,14 @@ def test_plan_geometry():
     for plan in (p, f):
         for ch in (0, 1, plan.chunks - 1):
             assert all(box[0] % 8 == 0 for box in plan.boxes(ch).values())
+    # meta_stats and the taps walk meta_agg's chunks with its boxes
+    for kind in ("stats", "taps"):
+        k = mb.plan_meta(kind, 1, 3, 70, 4)
+        assert (k.nq, k.chunks, k.pitch) == (f.nq, f.chunks, f.pitch)
+        assert all(k.chunk(ch) == f.chunk(ch) and k.boxes(ch) == f.boxes(ch)
+                   for ch in range(f.chunks))
     with pytest.raises(ValueError):
-        mb.plan_meta("stats", 1, 1, 8, 1)
+        mb.plan_meta("fwd", 1, 1, 8, 1)
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -301,6 +343,33 @@ def test_emulated_meta_agg_matches_plain(shape):
     ref = mb.meta_agg_plain(x["feat"], x["cb"], *_mlp(x), x["s9"], x["b9"],
                             x["agg"], out_dtype=torch.float32)
     assert _bf16_ok(got.bfloat16(), ref)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_emulated_meta_stats_matches_plain(shape):
+    x = _inputs(7, *shape)
+    got, _ = emulate_fwd(x, "stats", blocks=3)
+    ref = mb.meta_stats_plain(x["feat"], x["cb"], *_mlp(x))
+    for g, r in zip(got, ref):
+        assert _rel(g, r) <= SUM_TOL, _rel(g, r)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_emulated_taps_match_plain(shape):
+    x = _inputs(8, *shape)
+    got, _ = emulate_fwd(x, "taps", blocks=3)
+    ref = mk.meta_kernel_taps_plain(x["feat"].float(), x["cb"].float(),
+                                    *_mlp(x))
+    assert _bf16_ok(got.bfloat16(), ref)
+
+
+def test_emulated_modes_form_one_tap_product():
+    # the taps' output is meta_agg's a and meta_stats' a, bit for bit, at
+    # other block counts
+    x = _inputs(9, 1, 3, 70)
+    taps, _ = emulate_fwd(x, "taps", blocks=2)
+    for kind, blocks in (("agg", 3), ("stats", 5)):
+        assert torch.equal(emulate_fwd(x, kind, blocks)[1], taps), kind
 
 
 @pytest.mark.parametrize("mode", ["agg", "stats"])
@@ -351,3 +420,30 @@ def test_emulated_backward_matches_pallas():
     assert _bf16_ok(got[0].bfloat16(), want[0])
     for i, (g, w) in enumerate(zip(got[1:], want[1:])):
         assert _rel(g, w) <= SUM_TOL, (i, _rel(g, w))
+
+
+def test_emulated_meta_stats_matches_pallas():
+    x = _inputs(10, 1, 3, 70)
+    want = jmb.meta_stats_pallas(
+        *(_jax(x, k) for k in ("feat", "cb")),
+        *(jnp.asarray(w.numpy()) for w in _mlp(x)), interpret=True)
+    got, _ = emulate_fwd(x, "stats", blocks=2)
+    for g, w in zip(got, want):
+        w = torch.from_numpy(np.asarray(w, np.float32))
+        assert _rel(g, w) <= SUM_TOL, _rel(g, w)
+
+
+def test_emulated_taps_match_pallas_nhwc():
+    x = _inputs(11, 1, 3, 70)
+    nhwc = [jnp.asarray(x[k].float().numpy().transpose(0, 1, 3, 2)).astype(
+        jnp.bfloat16) for k in ("feat", "cb")]
+    mlp = [jnp.asarray(w.numpy()).astype(jnp.bfloat16) for w in _mlp(x)]
+    want = torch.from_numpy(np.asarray(
+        meta_kernel_fused(*nhwc, *mlp, 32, True), np.float32)).permute(
+            0, 1, 3, 2)
+    got, _ = emulate_fwd(x, "taps", blocks=2)
+    ref = mk.meta_kernel_taps_plain(x["feat"].float(), x["cb"].float(),
+                                    *_mlp(x))
+    outside = (got - want).abs() > TAPS_TOL * (1 + want.abs())
+    nearer = (got - ref).abs() <= (want - ref).abs()
+    assert not (outside & ~nearer).any()
