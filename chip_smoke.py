@@ -24,7 +24,13 @@ Phases, one line of output each (or a table), failing on the first error:
    included): conv3x3 forward (stats, ingest + stats), dgrad (plain, cot,
    affine-backward + cot), wgrad (plain, ingest + cot), the stride-2 and
    deconv backward through the autograd Function, the IoU target at each
-   level, and every launch of the Meta-Kernel block's kernels (meta_stats,
+   level (on the inputs the step gave it: the output within IOU_TOL of the
+   plain version and a bit-equal repeat; the blocks whose nv or live
+   candidate rows differ from the plain prep's counted; the prep, the
+   clip and the old prep with this clip timed; the clip summed over the
+   step within IOU_CLIP_BOUND_MAX of its bound over the pairs the
+   candidate contract runs, and its bound over the live pairs printed
+   beside), and every launch of the Meta-Kernel block's kernels (meta_stats,
    meta_agg, the block backward in both modes) on the inputs the step gave
    it, each twice with bit-equal outputs; a zeroed dA planted in the
    backward's output must fail its gates; on meta_stats' inputs, kernel 7
@@ -145,7 +151,12 @@ FILE_BATCH = 4
 PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
-IOU_OPS_PER_PAIR = 600  # f32 operations per (pixel, candidate) clip
+# the IoU target's clip (its kernel and clean pass) summed over one B=2
+# step against its bound (profile_iou.iou_work at PEAK_F32, over the
+# ceil(nv/8)*8 candidates a block that the candidate contract runs): at
+# most this factor. The first port's kernel, one block per 2048-pixel
+# block, read 20x
+IOU_CLIP_BOUND_MAX = 10.0
 # the Meta-Kernel block's kernels summed over one B=2 step against their
 # f32-FFMA bound (meta_work at PEAK_F32), in the same run: at most these
 # factors. The FFMA kernels before the tensor-core ones read 6.5x and 4.8x
@@ -326,6 +337,7 @@ class KernelTotals:
         # rows 3-5, 7: the f32-FFMA bound of the speed gates (bound_ms is
         # the tensor-core bound)
         self.f32_bound_ms = 0.0
+        self.extra = {}  # more keys of the kernels line
 
     def add(self, n, ms, plain_ms, bound, library_ms, err):
         self.n += n
@@ -350,7 +362,7 @@ def record_train_step(step, batch, conv3x3, iou_mod, layers, meta):
     metas = {"stats": [], "agg": [], "bwd": []}
     real_f, real_d, real_w = (conv3x3.conv3x3_bhcw, conv3x3.conv3x3_dgrad,
                               conv3x3.conv3x3_wgrad)
-    real_i, real_dc = iou_mod.iou_target_blocks, layers.deconv_bhcw
+    real_i, real_dc = iou_mod.iou_target, layers.deconv_bhcw
     real_ms, real_ma, real_mb = meta.meta_stats, meta.meta_agg, meta.meta_bwd
 
     def count(d, key):
@@ -371,9 +383,10 @@ def record_train_step(step, batch, conv3x3, iou_mod, layers, meta):
                       scale is not None, cot is not None))
         return real_w(x, gy, scale, bias, cot)
 
-    def rec_i(*args):
-        iou.append(tuple(a.clone() for a in args))
-        return real_i(*args)
+    def rec_i(d, p, gt, topk_gt=32):
+        # clone keeps the head's layout: the kernels read the view's strides
+        iou.append((d.clone(), p.clone(), gt.clone(), topk_gt))
+        return real_i(d, p, gt, topk_gt)
 
     def rec_dc(x, weight, stride_w):
         count(deconv, (x.shape[0], x.shape[2], weight.shape[1], x.shape[3],
@@ -394,7 +407,7 @@ def record_train_step(step, batch, conv3x3, iou_mod, layers, meta):
     with mock.patch.object(conv3x3, "conv3x3_bhcw", rec_f), \
             mock.patch.object(conv3x3, "conv3x3_dgrad", rec_d), \
             mock.patch.object(conv3x3, "conv3x3_wgrad", rec_w), \
-            mock.patch.object(iou_mod, "iou_target_blocks", rec_i), \
+            mock.patch.object(iou_mod, "iou_target", rec_i), \
             mock.patch.object(layers, "deconv_bhcw", rec_dc), \
             mock.patch.multiple(meta, meta_stats=keep("stats", real_ms),
                                 meta_agg=keep("agg", real_ma),
@@ -452,6 +465,82 @@ def one_tap_product(torch, meta, taps, args, fail):
              f"{n_off} elements, by up to {d_max} ulp")
     if not (ok1 and ok2):
         fail(f"meta_stats' sums are not kernel 7's a: {e1:.3g}, {e2:.3g}")
+
+
+def phase5_iou(torch, iou_mod, iou, t):
+    """The IoU target's gates and times on the calls the step made, one per
+    level and class, summed into the KernelTotals ``t``."""
+    from rangedet_tpu_torch import _build
+    from rangedet_tpu_torch.tools.profile_iou import bound_ms as iou_bound_ms
+    from rangedet_tpu_torch.tools.profile_iou import check as iou_check
+    from rangedet_tpu_torch.tools.profile_iou import iou_work
+
+    def fail(msg):
+        raise SystemExit(f"[5] {msg}")
+
+    iou_bound = iou_live = iou_t = 0.0
+    iou_ms = dict(prep_ms=0.0, clip_ms=0.0, before_ms=0.0)
+    for lvl, call in enumerate(iou):
+        d, p, gt, topk = call
+        err, finite, off, same, cand, nv = iou_check(call)
+        Gk = cand.shape[1]
+        out = iou_mod.iou_target(d, p, gt, topk)
+        print(f"[5] IoU target level {lvl}: deltas {tuple(d.shape)} strides "
+              f"{d.stride()}, {nv.numel()} blocks, G={Gk}, nv sum "
+              f"{int(nv.sum())}, max abs err {err:.3g} (limit {IOU_TOL}); "
+              f"blocks whose prep output differs from the plain prep's: "
+              f"in nv {off[0]}, in a live row's corners {off[1]}, in a live "
+              f"row's area bits alone {off[2]}; bit-equal repeat {same}")
+        if not (err <= IOU_TOL and finite):
+            fail(f"IoU target disagrees at level {lvl}: max err {err}")
+        if not same:
+            fail(f"IoU target not reproducible at level {lvl}")
+        work, pairs, live_pairs = iou_work(d, gt, nv, Gk)
+        k_ms = _time_ms(lambda: iou_mod.iou_target(d, p, gt, topk))
+        prep_ms = _time_ms(lambda: iou_mod.candidates(d, p, gt, topk))
+        scratch = torch.zeros_like(out)
+        clip_ms = _time_ms(lambda: iou_mod.clip(cand, nv, d, p, scratch))
+
+        def before():
+            # the old path's prep (the plain prep in torch ops, as the
+            # card ran it before the prep kernel) and this clip: the first
+            # port's clip kernel is no longer in the tree
+            # (tools/profile_iou.py --against times the whole old path)
+            c, n, _, _ = iou_mod.prepare_candidates(d, p, gt, topk)
+            return iou_mod.clip(c, n, d, p, torch.zeros_like(out))
+
+        before_ms = _time_ms(before)
+        p_ms = _time_ms(lambda: iou_mod.iou_target_plain(d, p, gt, topk),
+                        iters=3)
+        bound = iou_bound_ms(*work["all"])
+        clip_bound = iou_bound_ms(*work["clip"])[0]
+        iou_live += iou_bound_ms(*work["clip_live"])[0]
+        t.add(1, k_ms, p_ms, bound, None, err)
+        iou_bound += clip_bound
+        iou_t += clip_ms
+        for k, v in (("prep_ms", prep_ms), ("clip_ms", clip_ms),
+                     ("before_ms", before_ms)):
+            iou_ms[k] += v
+        print(f"[5] IoU target level {lvl}: {pairs} (pixel, candidate) "
+              f"pairs ({live_pairs} live), {int((out > 0).sum())} pixels "
+              f"with IoU > 0; kernels {k_ms:.4f} ms (prep {prep_ms:.4f}, "
+              f"clip {clip_ms:.4f}), the old prep with this clip "
+              f"{before_ms:.4f} ms, plain {p_ms:.4f} ms; bound "
+              f"{bound[0]:.4f} ms ({bound[1]}), the clip's "
+              f"{clip_bound:.4f} ms")
+    t.extra = dict(iou_ms, clip_bound_ms=iou_bound,
+                   clip_live_bound_ms=iou_live)
+    print(f"[5] IoU target over the step: prep {iou_ms['prep_ms']:.4f} ms + "
+          f"clip {iou_ms['clip_ms']:.4f} ms; the old prep with this clip "
+          f"{iou_ms['before_ms']:.4f} ms; the clip at "
+          f"{iou_t / iou_bound:.2f}x its bound {iou_bound:.4f} ms (limit "
+          f"{IOU_CLIP_BOUND_MAX}), {iou_t / iou_live:.2f}x its bound over "
+          f"live pairs {iou_live:.4f} ms; clip kernel (ptxas) "
+          f"{ptxas_report(_build.build_log, 'iou_clip_kernel')}; prep kernel "
+          f"(ptxas) {ptxas_report(_build.build_log, 'iou_prep_kernel')}")
+    if not iou_t <= IOU_CLIP_BOUND_MAX * iou_bound:
+        fail(f"the IoU clip takes {iou_t / iou_bound:.2f}x its bound, more "
+             f"than {IOU_CLIP_BOUND_MAX}x")
 
 
 def phase5(torch, conv3x3, iou_mod, layers, meta, taps, recorded, H, dev):
@@ -682,28 +771,7 @@ def phase5(torch, conv3x3, iou_mod, layers, meta, taps, recorded, H, dev):
         if not max(rels) <= FN_TOL:
             fail(f"deconv backward kernel vs plain {max(rels)} > {FN_TOL}")
 
-    for lvl, (cand, nv, d, p) in enumerate(iou):
-        out = iou_mod.iou_target_blocks(cand, nv, d, p)
-        torch.cuda.synchronize()
-        ref = iou_mod.iou_target_plain_blocks(cand, nv, d, p)
-        err = (out - ref).abs().max().item()
-        if not (err <= IOU_TOL and bool(out.isfinite().all())):
-            fail(f"IoU target disagrees at level {lvl}: max err {err}")
-        k_ms = _time_ms(lambda: iou_mod.iou_target_blocks(cand, nv, d, p))
-        p_ms = _time_ms(lambda: iou_mod.iou_target_plain_blocks(cand, nv, d,
-                                                                p), iters=3)
-        Gk = cand.shape[1]
-        pairs = int(((nv.long() + 7) // 8 * 8).clamp(max=Gk).sum()) \
-            * iou_mod.TILE
-        bound = _bound_ms(IOU_OPS_PER_PAIR * pairs,
-                          4 * (cand.numel() + nv.numel() + d.numel()
-                               + p.numel() + d.shape[0] * iou_mod.TILE),
-                          PEAK_F32)
-        totals["iou"].add(1, k_ms, p_ms, bound, None, err)
-        print(f"[5] IoU target level {lvl}: {d.shape[0]} blocks, G={Gk}, "
-              f"{pairs} (pixel, candidate) pairs, {int((out > 0).sum())} "
-              f"pixels with IoU > 0, max abs err {err:.3g}; kernel "
-              f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {bound[0]:.4f} ms")
+    phase5_iou(torch, iou_mod, iou, totals["iou"])
     # the fused Meta-Kernel block: every launch of the step, on the inputs
     # it had there, each run twice (bit-equal)
     def bwd_check(out, ref):
@@ -835,12 +903,12 @@ def phase6(torch, m, cfg, dev):
                                      use_pallas_meta=fused))
         model.load_state_dict(init_sd)
         model = model.to(dev).train()
-        iou_fn = (iou_mod.iou_target_plain_blocks if plain
-                  else iou_mod.iou_target_blocks)
+        iou_fn = (iou_mod.iou_target_plain if plain
+                  else iou_mod.iou_target)
         planted = (mock.patch.multiple(conv3x3, **faults[fault]) if fault
                    else contextlib.nullcontext())
         with _plain_convs(conv3x3, plain, meta), planted, \
-                mock.patch.object(iou_mod, "iou_target_blocks", iou_fn):
+                mock.patch.object(iou_mod, "iou_target", iou_fn):
             targets = m["build_train_targets"](batch, cfg)
             cls, reg = model(batch["input_data"], batch["coord"])
             total, metrics = m["compute_losses"](cls, reg, targets, cfg)
@@ -915,26 +983,29 @@ def phase6(torch, m, cfg, dev):
     n_fwd = conv_launches(cfg)[0]
     n_meta = meta_units(cfg) if cfg.use_pallas_meta else 0
     expected = {"fwd": n_fwd, "dgrad": n_fwd - 1, "wgrad": n_fwd,
-                "iou": n_levels * cfg.num_classes, "meta_stats": n_meta,
+                "iou": n_levels * cfg.num_classes,
+                "iou_prep": n_levels * cfg.num_classes, "meta_stats": n_meta,
                 "meta_agg": n_meta, "meta_block_bwd": 2 * n_meta,
                 "meta_kernel_taps": 0}
     print(f"[6] expected launches per step: forward {n_fwd} (as the eval "
           f"forward), dgrad {n_fwd - 1} (all but res1_unit1.conv1, whose "
           f"input is the data), wgrad {n_fwd}, IoU target {n_levels} levels "
-          f"x {cfg.num_classes} classes = {expected['iou']}; per fused "
+          f"x {cfg.num_classes} classes = {expected['iou']} (one prep and "
+          f"one clip launch each); per fused "
           f"Meta-Kernel block ({n_meta}) one meta_stats, one meta_agg, two "
           f"meta_block_bwd (one per mode); no taps kernel (eval only)")
     losses, launches = [], None
     for i in range(5):
         torch.cuda.synchronize()
         conv3x3.reset_counts()
-        iou_mod.LAUNCHES = 0
+        iou_mod.reset_counts()
         meta.reset_counts()
         taps.reset_counts()
         metrics = step(batch)
         torch.cuda.synchronize()
         launches = {"fwd": conv3x3.LAUNCHES, "dgrad": conv3x3.DGRAD_LAUNCHES,
                     "wgrad": conv3x3.WGRAD_LAUNCHES, "iou": iou_mod.LAUNCHES,
+                    "iou_prep": iou_mod.PREP_LAUNCHES,
                     "meta_stats": meta.STATS_LAUNCHES,
                     "meta_agg": meta.AGG_LAUNCHES,
                     "meta_block_bwd": meta.BWD_LAUNCHES,
@@ -1521,6 +1592,8 @@ def main():
         })
         if source == meta_src:
             entries[-1]["f32_bound_ms"] = t.f32_bound_ms
+        if name == "iou_target":  # its prep and clip kernels, the old path
+            entries[-1].update(t.extra, prep_launches=launches["iou_prep"])
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

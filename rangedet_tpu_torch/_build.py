@@ -109,28 +109,30 @@ def load() -> ctypes.CDLL:
 
 def load_from(csrc: Path) -> ctypes.CDLL:
     """Build the sources in ``csrc`` (a variant of csrc/, for a profiling
-    tool) and bind them; the package's own library is left as it is."""
+    tool) and bind them; the package's own library is left as it is. An
+    entry point that the variant does not have (an older build's) stays
+    unbound."""
     lib = ctypes.CDLL(str(build(csrc)))
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.conv3x3_bhcw_fwd.argtypes = [vp] * 14 + [i32] * 15 + [vp]
-    lib.conv3x3_bhcw_fwd.restype = i32
-    lib.conv3x3_wgrad.argtypes = [vp] * 11 + [i32] * 10 + [vp]
-    lib.conv3x3_wgrad.restype = i32
-    lib.iou_target_run.argtypes = [vp] * 5 + [i32] * 2 + [vp]
-    lib.iou_target_run.restype = i32
-    lib.meta_block_widths.argtypes = [i32]
-    lib.meta_block_grid.argtypes = [i32] * 4
-    lib.meta_block_part_floats.argtypes = [i32]
-    for fn in (lib.meta_block_widths, lib.meta_block_grid,
-               lib.meta_block_part_floats):
-        fn.restype = i32
-    lib.meta_stats_fwd.argtypes = [vp] * 8 + [i32] * 4 + [vp]
-    lib.meta_agg_fwd.argtypes = [vp] * 10 + [i32] * 5 + [vp]
-    lib.meta_block_bwd.argtypes = [vp] * 13 + [i32] * 6 + [vp]
-    for fn in (lib.meta_stats_fwd, lib.meta_agg_fwd, lib.meta_block_bwd):
-        fn.restype = i32
-    lib.meta_kernel_grid.argtypes = [i32] * 3
-    lib.meta_kernel_grid.restype = i32
-    lib.meta_kernel_taps.argtypes = [vp] * 7 + [i32] * 4 + [vp]
-    lib.meta_kernel_taps.restype = i32
+    strides = ctypes.POINTER(ctypes.c_longlong)
+    entry_points = {
+        "conv3x3_bhcw_fwd": [vp] * 14 + [i32] * 15 + [vp],
+        "conv3x3_wgrad": [vp] * 11 + [i32] * 10 + [vp],
+        "iou_prep": ([vp, strides] * 2 + [i32] * 3 + [vp] + [i32] * 3
+                     + [vp] * 4),
+        "iou_clip": ([vp, strides] * 2 + [i32] * 3 + [vp] * 2 + [i32] * 3
+                     + [vp] * 2),
+        "meta_block_widths": [i32],
+        "meta_block_grid": [i32] * 4,
+        "meta_block_part_floats": [i32],
+        "meta_stats_fwd": [vp] * 8 + [i32] * 4 + [vp],
+        "meta_agg_fwd": [vp] * 10 + [i32] * 5 + [vp],
+        "meta_block_bwd": [vp] * 13 + [i32] * 6 + [vp],
+        "meta_kernel_grid": [i32] * 3,
+        "meta_kernel_taps": [vp] * 7 + [i32] * 4 + [vp],
+    }
+    for name, argtypes in entry_points.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = argtypes, i32
     return lib

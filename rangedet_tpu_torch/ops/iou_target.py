@@ -1,9 +1,9 @@
-"""IoU-aware classification target: the hand-written Hopper kernel
-(``csrc/iou_target.cu``), its wrapper, its plain version, and the candidate
-prep they share. Counterpart of
+"""IoU-aware classification target: the hand-written Hopper kernels
+(``csrc/iou_target.cu``: the candidate prep and the clip), their wrappers,
+and the plain version. Counterpart of
 ``rangedet_tpu/ops/iou_target_pallas.py:iou_target_fused`` (skip mode
-"gate8"); the target is consumed under stop-gradient, so the op runs under
-``torch.no_grad`` and returns a tensor without history.
+"gate8") with its XLA prep; the target is consumed under stop-gradient, so
+the op runs under ``torch.no_grad`` and returns a tensor without history.
 
 Candidate contract (the TPU kernel's, kept so the port equals JAX
 everywhere, crowded blocks included): pixels are flattened column-major and
@@ -16,23 +16,58 @@ to a multiple of 8 with zero-area rows). When more than G GTs overlap a
 block the result is a one-sided lower bound of the dense max IoU, as in
 JAX.
 
-A CPU tensor goes to the plain version; a CUDA tensor goes to the kernel or
-raises.
+* ``iou_target`` routes: a CPU tensor to the plain version, a CUDA tensor
+  to the kernels or raises, three launches a call. ``candidates`` (the
+  prep kernel) computes the per-GT quantities, reads the deltas and points
+  through their strides, so class k's slice of the head's (B, H, W, K*8)
+  tensor is read in place, and writes the candidate table, nv and the
+  zeroed output; ``clip`` (the clip kernel and its clean pass) fills the
+  (B, H, W) output.
+* ``prepare_candidates`` + ``iou_target_plain_blocks`` are the plain
+  version: the prep in torch ops (the XLA prep's), blocked planar copies
+  of the pixels, and the clip as one loop over each block's candidates.
+  The kernels compute the same operations, with one freedom: the prep
+  kernel adds the four terms of a GT's shoelace area and centre in corner
+  order, where ``polygon_area`` and ``mean`` leave the order to torch's
+  reduction. On the CPU the two agree bit for bit; on the card a
+  candidate row's area can differ from the plain prep's by an ulp.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import List, Tuple
 
 import torch
+from torch.profiler import record_function
 
 from .. import _build
 from .boxes import polygon_area
 
-LAUNCHES = 0  # kernel launches since the last reset
+LAUNCHES = 0       # clip launches (the clip kernel and its clean pass)
+PREP_LAUNCHES = 0  # candidate prep launches
 
 EPS = 1e-8
 TILE = 2048
+THREADS = 256  # threads of a kernel block
+# the clip's schedule: sub-tiles of TILE // SUBS pixels a 2048-pixel block
+# (one pixel a thread) and CHUNK candidates a kernel block
+SUBS = 8
+CHUNK = 8
+# the prep keeps 2 x TILE centres and 13 floats a GT in shared memory
+MAX_GT = 4096
 _REVERSE = [0, 3, 2, 1]
+
+
+def reset_counts() -> None:
+    global LAUNCHES, PREP_LAUNCHES
+    LAUNCHES = PREP_LAUNCHES = 0
+
+
+def local_index(j):
+    """The block-local pixel of the kernels' thread slot j: the transpose of
+    a 64 x 32 grid, a bijection of [0, TILE). At H = 64 a warp's 32 lanes
+    take one row of 32 neighbouring columns."""
+    return (j % 32) * 64 + j // 32
 
 
 def prepare_candidates(deltas: torch.Tensor, pc: torch.Tensor,
@@ -186,54 +221,110 @@ def iou_target_plain_blocks(cand, nv, deltas, pc) -> torch.Tensor:
     return torch.where((best < 0) | (best > 1), torch.zeros_like(best), best)
 
 
-def _launch(cand, nv, deltas, pc) -> torch.Tensor:
-    global LAUNCHES
-    for name, t, dtype in (("cand", cand, torch.float32),
-                           ("nv", nv, torch.int32),
-                           ("deltas", deltas, torch.float32),
-                           ("pc", pc, torch.float32)):
-        if t.dtype != dtype or not t.is_contiguous():
-            raise TypeError(f"{name} must be contiguous {dtype}")
-        if t.device != deltas.device:
-            raise ValueError(f"{name} on {t.device}, deltas on "
-                             f"{deltas.device}")
-    blocks, Gk = cand.shape[0], cand.shape[1]
-    lib = _build.load()
-    out = torch.empty((blocks, TILE), dtype=torch.float32,
-                      device=deltas.device)
-    with torch.cuda.device(deltas.device):
-        err = lib.iou_target_run(
-            cand.data_ptr(), nv.data_ptr(), deltas.data_ptr(), pc.data_ptr(),
-            out.data_ptr(), blocks, Gk,
-            torch.cuda.current_stream(deltas.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"iou_target_run launch failed: cudaError {err}")
-    LAUNCHES += 1
-    return out
-
-
-def iou_target_blocks(cand, nv, deltas, pc) -> torch.Tensor:
-    """Kernel on a CUDA tensor, plain version on a CPU tensor."""
-    if deltas.device.type == "cpu":
-        return iou_target_plain_blocks(cand, nv, deltas, pc)
-    if deltas.device.type != "cuda":
-        raise ValueError(f"no IoU-target kernel for device {deltas.device}")
-    return _launch(cand, nv, deltas, pc)
-
-
 def _unblock(out: torch.Tensor, shape: Tuple[int, int, int]) -> torch.Tensor:
     B, H, W = shape
     return out.reshape(B, -1)[:, :H * W].reshape(B, W, H).transpose(1, 2)
+
+
+def _strides(t: torch.Tensor):
+    return (ctypes.c_longlong * 4)(*t.stride())
+
+
+def _check(deltas, pc, *rest):
+    if deltas.dim() != 4 or deltas.shape[-1] < 6:
+        raise ValueError(f"deltas must be (B, H, W, >= 6), got "
+                         f"{tuple(deltas.shape)}")
+    if pc.dim() != 4 or pc.shape[:3] != deltas.shape[:3] or pc.shape[-1] < 2:
+        raise ValueError(f"pc {tuple(pc.shape)} does not match deltas "
+                         f"{tuple(deltas.shape)}")
+    for name, t in (("deltas", deltas), ("pc", pc), *rest):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.device != deltas.device or t.device.type != "cuda":
+            raise ValueError(f"{name} on {t.device}, deltas on "
+                             f"{deltas.device}: the kernels need one card")
+
+
+def candidates(deltas: torch.Tensor, pc: torch.Tensor,
+               gt_corners: torch.Tensor, topk_gt: int = 32):
+    """The prep kernel on CUDA tensors: deltas (B, H, W, 8) and pc
+    (B, H, W, 3), f32 views of any strides, gt_corners (B, M, 4, 2) ->
+    (cand (B*nb, Gk, 9), nv (B*nb,) int32, out (B, H, W) f32 zeros): the
+    first two are prepare_candidates' but for the order of the per-GT
+    sums (the module's docstring)."""
+    global PREP_LAUNCHES
+    B, H, W, _ = deltas.shape
+    M = gt_corners.shape[1]
+    if M > MAX_GT:
+        raise ValueError(f"{M} GT rows, the prep kernel takes {MAX_GT}")
+    gt = gt_corners.contiguous()
+    _check(deltas, pc, ("gt_corners", gt))
+    if gt.shape != (B, M, 4, 2):
+        raise ValueError(f"gt_corners {tuple(gt.shape)}, expected "
+                         f"({B}, M, 4, 2)")
+    G = min(topk_gt, M) if topk_gt else M
+    Gk = -(-G // 8) * 8
+    nb = -(-H * W // TILE)
+    dev = deltas.device
+    cand = torch.empty((B * nb, Gk, 9), dtype=torch.float32, device=dev)
+    nv = torch.empty((B * nb,), dtype=torch.int32, device=dev)
+    out = torch.empty((B, H, W), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = _build.load().iou_prep(
+            deltas.data_ptr(), _strides(deltas), pc.data_ptr(), _strides(pc),
+            B, H, W, gt.data_ptr(), M, G, Gk, cand.data_ptr(),
+            nv.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"iou_prep launch failed: cudaError {err}")
+    PREP_LAUNCHES += 1
+    return cand, nv, out
+
+
+def clip(cand: torch.Tensor, nv: torch.Tensor, deltas: torch.Tensor,
+         pc: torch.Tensor, out: torch.Tensor, subs: int = SUBS,
+         chunk: int = CHUNK) -> torch.Tensor:
+    """The clip kernel and its clean pass on CUDA tensors, over
+    ``candidates``' cand, nv and zeroed out (filled in place and returned).
+    ``subs`` (dividing TILE // THREADS) and ``chunk`` set the schedule
+    (``tools/profile_iou.py --schedules`` times others); subs=1, chunk=Gk
+    is one kernel block per 2048-pixel block, the first port's grid."""
+    global LAUNCHES
+    B, H, W, _ = deltas.shape
+    Gk = cand.shape[1]
+    _check(deltas, pc, ("cand", cand), ("out", out))
+    if nv.dtype != torch.int32 or nv.device != deltas.device:
+        raise TypeError("nv must be int32 on the deltas' card")
+    if not (cand.is_contiguous() and nv.is_contiguous()
+            and out.is_contiguous() and out.shape == (B, H, W)):
+        raise ValueError("cand, nv and out must be candidates()' outputs")
+    if (TILE // THREADS) % subs or chunk < 1:
+        raise ValueError(f"no clip schedule subs={subs}, chunk={chunk}")
+    dev = deltas.device
+    with torch.cuda.device(dev):
+        err = _build.load().iou_clip(
+            deltas.data_ptr(), _strides(deltas), pc.data_ptr(), _strides(pc),
+            B, H, W, cand.data_ptr(), nv.data_ptr(), Gk, subs, chunk,
+            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"iou_clip launch failed: cudaError {err}")
+    LAUNCHES += 1
+    return out
 
 
 @torch.no_grad()
 def iou_target(deltas: torch.Tensor, pc: torch.Tensor,
                gt_corners: torch.Tensor, topk_gt: int = 32) -> torch.Tensor:
     """deltas (B, H, W, 8), pc (B, H, W, 3), gt_corners (B, M, 4, 2) ->
-    max IoU (B, H, W) f32 under the candidate contract above."""
-    B, H, W, _ = deltas.shape
-    prep = prepare_candidates(deltas, pc, gt_corners, topk_gt)
-    return _unblock(iou_target_blocks(*prep), (B, H, W))
+    max IoU (B, H, W) f32 under the candidate contract above: the kernels
+    on a CUDA tensor, the plain version on a CPU tensor."""
+    if deltas.device.type == "cpu":
+        return iou_target_plain(deltas, pc, gt_corners, topk_gt)
+    if deltas.device.type != "cuda":
+        raise ValueError(f"no IoU-target kernel for device {deltas.device}")
+    with record_function("iou_target"):
+        cand, nv, out = candidates(deltas, pc, gt_corners, topk_gt)
+        return clip(cand, nv, deltas, pc, out)
 
 
 @torch.no_grad()

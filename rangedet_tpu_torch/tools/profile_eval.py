@@ -37,6 +37,36 @@ def _self_device_us(evt) -> float:
         evt, "self_cuda_time_total", 0.0)
 
 
+def range_device_ms(prof, names, iters):
+    """Device ms per step of each named record_function range: the kernels
+    (and copies) launched inside one of its host-side windows, on any
+    thread (autograd launches the backward from its own), each kernel
+    matched to its launch call by CUPTI's correlation id; a nested range's
+    kernels count for the enclosing one as well. torch.profiler's own
+    linking goes through the ops PyTorch launches from, so it credits no
+    range with the port's kernels, which ctypes launches from a library
+    with its own CUDA runtime."""
+    from torch.autograd import DeviceType
+
+    windows = {n: [] for n in names}
+    launch, work = {}, []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CPU:
+            if e.name() in windows:
+                windows[e.name()].append((e.start_ns(), e.end_ns()))
+            elif e.name().startswith("cu"):  # CUDA API calls: the launches
+                launch[e.correlation_id()] = e.start_ns()
+        elif e.name() not in windows and e.duration_ns() > 0:
+            work.append((e.correlation_id(), e.duration_ns()))
+    out = dict.fromkeys(names, 0.0)
+    for corr, ns in work:
+        t = launch.get(corr)
+        for name, wins in windows.items():
+            if t is not None and any(lo <= t < hi for lo, hi in wins):
+                out[name] += ns / 1e6 / iters
+    return out
+
+
 def profile_step(cfg, batch_size):
     """Profile ITERS eval steps after 2 warm-up steps. Returns the wall ms
     per step, the busy device ms per step, the device ms of each range and
@@ -71,11 +101,7 @@ def profile_step(cfg, batch_size):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / ITERS
 
-    # a range's device ms: the kernels its host-side range launched
-    ranges = dict.fromkeys(RANGES, 0.0)
-    for e in prof.events():
-        if e.name in RANGES and str(e.device_type).endswith("CPU"):
-            ranges[e.name] += _device_us(e) / 1e3 / ITERS
+    ranges = range_device_ms(prof, RANGES, ITERS)
     # kernels only: the ranges and the aten ops that launched the kernels
     # carry device time too
     kernels = [e for e in prof.key_averages() if e.key not in RANGES

@@ -6,10 +6,12 @@ of a recipe at B=2, seeded random weights, one synthetic batch, under
         [--out profile_train.txt]
 
 Prints the wall time of the profiled steps, the device time of each stage
-of the step (targets, forward, losses with the IoU target, optimizer, and
-the backward as the busy time no other range holds), the forward's
-Meta-Kernel block (the "meta_block" range, inside the forward), the device
-busy share, and the kernels by total device time; writes the full table to
+of the step (targets, forward, losses with the IoU target, backward,
+optimizer, and the busy time no stage holds), the forward's
+Meta-Kernel block (the "meta_block" range, inside the forward), the IoU
+target inside the losses (the "iou_target" range, and its prep and clip
+kernels by name), the device busy share, the peak device memory of the
+steps, and the kernels by total device time; writes the full table to
 ``--out``. It profiles the recipe as it ships (the fused block in training),
 then the same step with the materialized block, for its stage line. Needs a
 CUDA card.
@@ -23,19 +25,23 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from .profile_eval import _device_us, _self_device_us
+from .profile_eval import _self_device_us, range_device_ms
 
 RECIPE = "rangedet_veh_wo_aug_4_18e"
 ITERS = 5  # profiled steps, after 2 warm-up steps
 SEED = 0
 STAGES = ("targets", "forward", "losses", "backward", "optimizer")
-NESTED = ("meta_block",)  # ranges inside a stage
+NESTED = ("meta_block", "iou_target")  # ranges inside a stage
+# the IoU target's kernels by name: its candidate prep, its clip and clean
+IOU_KERNELS = {"iou_prep": ("iou_prep_kernel",),
+               "iou_clip": ("iou_clip_kernel", "iou_clean_kernel")}
 
 
 def profile_step(cfg, batch_size):
     """Profile ITERS steps after 2 warm-up steps. Returns the wall ms per
-    step, the busy device ms per step, the device ms of each range and the
-    kernel events."""
+    step, the busy device ms per step, the device ms of each range and of
+    the IoU target's kernels, the peak device memory of the steps (GiB)
+    and the kernel events."""
     from rangedet_tpu_torch.data.synthetic import make_batch
     from rangedet_tpu_torch.models import RangeDet
     from rangedet_tpu_torch.train.state import create_train_state
@@ -55,6 +61,7 @@ def profile_step(cfg, batch_size):
     for _ in range(2):
         step(batch)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -62,25 +69,20 @@ def profile_step(cfg, batch_size):
             step(batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / ITERS
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
-    # a stage's device ms: the kernels its host-side range launched (the
-    # device time of the range's CPU event sums its descendants' kernels;
-    # the device-side annotation of the same name would add its span)
     names = STAGES + NESTED
-    ranges = dict.fromkeys(names, 0.0)
-    for e in prof.events():
-        if e.name in names and str(e.device_type).endswith("CPU"):
-            ranges[e.name] += _device_us(e) / 1e3 / ITERS
+    ranges = range_device_ms(prof, names, ITERS)
     events = prof.key_averages()
     kernels = [e for e in events if e.key not in names
                and str(e.device_type).endswith("CUDA")
                and _self_device_us(e) > 0]
     busy_ms = sum(_self_device_us(e) for e in kernels) / 1e3 / ITERS
-    # autograd runs the backward on its own thread, outside the range the
-    # main thread opened: its kernels are the busy time no range holds
-    ranges["backward"] = busy_ms - sum(ranges[k] for k in STAGES
-                                       if k != "backward")
-    return wall_ms, busy_ms, ranges, kernels
+    for part, frags in IOU_KERNELS.items():
+        ranges[part] = sum(_self_device_us(e) for e in kernels
+                           if any(f in e.key for f in frags)) / 1e3 / ITERS
+    ranges["unattributed"] = busy_ms - sum(ranges[k] for k in STAGES)
+    return wall_ms, busy_ms, ranges, peak_gib, kernels
 
 
 def main(argv=None) -> None:
@@ -98,14 +100,18 @@ def main(argv=None) -> None:
     forms = [("fused", cfg)] if cfg.use_pallas_meta else []
     forms.append(("materialized", cfg.replace(use_pallas_meta=False)))
     for i, (form, c) in enumerate(forms):
-        wall_ms, busy_ms, ranges, kernels = profile_step(c, args.batch)
+        wall_ms, busy_ms, ranges, peak_gib, kernels = profile_step(
+            c, args.batch)
         print(f"profile_train: {RECIPE} B={args.batch}, {form} Meta-Kernel "
               f"block, on {torch.cuda.get_device_name(0)}: wall "
               f"{wall_ms:.2f} ms/step, device busy {busy_ms:.2f} ms/step "
               f"({100 * busy_ms / wall_ms:.1f}%); device ms by stage: "
               + ", ".join(f"{k} {ranges[k]:.2f}" for k in STAGES)
-              + f" (backward: busy minus the rest); meta_block "
-              f"{ranges['meta_block']:.2f} (of the forward)")
+              + f", no stage {ranges['unattributed']:.2f}; meta_block "
+              f"{ranges['meta_block']:.2f} (of the forward); iou_target "
+              f"{ranges['iou_target']:.3f} (of the losses; kernels: prep "
+              f"{ranges['iou_prep']:.3f}, clip {ranges['iou_clip']:.3f}); "
+              f"peak memory {peak_gib:.2f} GiB")
         if i:  # the kernel table of the recipe's own step only
             continue
         kernels.sort(key=_self_device_us, reverse=True)

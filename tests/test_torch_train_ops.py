@@ -500,3 +500,23 @@ def test_train_kernels_match_plain_on_cuda():
     want = iou.iou_target_plain(_t(deltas).to(dev), _t(pc).to(dev),
                                 _t(gt).to(dev))
     assert (got - want).abs().max() <= 1e-5
+    # class k's slice of a K = 3 head tensor in the head's layout (the
+    # width innermost, channels at stride W), read by stride in place
+    raw = torch.cat([_t(deltas).permute(0, 1, 3, 2) * s
+                     for s in (0.5, 1.0, 1.5)], dim=2).to(dev)
+    head = raw.permute(0, 1, 3, 2)  # (B, H, W, 24)
+    for k in range(3):
+        d = head[..., 8 * k:8 * (k + 1)]
+        got = iou.iou_target(d, _t(pc).to(dev), _t(gt).to(dev))
+        want = iou.iou_target_plain(d, _t(pc).to(dev), _t(gt).to(dev))
+        assert (got - want).abs().max() <= 1e-5, k
+        # the prep kernel's nv and candidate order are the plain prep's;
+        # a row's area may differ by an ulp (the shoelace terms added in
+        # another order than torch's reduction)
+        cand, nv, _ = iou.candidates(d, _t(pc).to(dev), _t(gt).to(dev))
+        pcand, pnv, _, _ = iou.prepare_candidates(d, _t(pc).to(dev),
+                                                  _t(gt).to(dev), 32)
+        assert torch.equal(nv, pnv), k
+        assert torch.equal(cand[..., :8], pcand[..., :8]), k
+        torch.testing.assert_close(cand[..., 8], pcand[..., 8], rtol=1e-6,
+                                   atol=0)
