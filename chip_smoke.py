@@ -61,9 +61,17 @@ Phases, one line of output each (or a table), failing on the first error:
    tensor-core bound, the kernels line's bound_ms, printed beside), its
    gradient
    against the plain version's, the eval step with and without it (outputs
-   within the model gate, step ms, peak memory); then 8 full-size frames
-   written as roidb + npz files, ``tools.train`` for 2 steps into a
-   checkpoint, ``tools.test`` from the files at that epoch (every frame in
+   within the model gate, step ms, peak memory); then training and
+   serving from files: 8 full-size frames written as a training split and
+   2 as a validation split (roidb + npz), ``tools.train --data-root`` for
+   one epoch of 2 steps at B=2 (2 loader workers) into checkpoint 0, then
+   ``--epochs 2 --resume --eval-every 1``: the resume marker, step count 4,
+   checkpoints 0 and 1, the momentum buffers on the card, a finite
+   validation, the launches of each run's 2 steps equal to twice phase
+   6's per step (meta_stats 2 a Meta-Kernel block, no taps) and the
+   validation's a B=1 eval forward a frame (the taps only there), the
+   loader's wait and the step ms of each step, and no thread left behind;
+   ``tools.test`` from the validation files at epoch 1 (every frame in
    the pickle, the launches of its steps), ``tools.evaluate_pred`` on the
    pickle, the restored model's eval outputs bit-equal to the trained
    model's, and ``tools.eval_checkpoint`` (finite lines).
@@ -80,6 +88,7 @@ gates read beside it as f32_bound_ms. Without CUDA it exits non-zero.
 """
 import contextlib
 import copy
+import io
 import json
 import math
 import os
@@ -145,7 +154,10 @@ DGRAD_CUDNN_MAX = 1.5
 # bf16 form's own rounding (h and w to bf16, then the product) puts it
 # outside, the kernel must be the nearer of the two to the f32 reference
 TAPS_TOL = 4e-2
-FILE_FRAMES = 8  # full-size frames of the dataset path, 64 x 2650
+# full-size frames of the dataset path, 64 x 2650: the training split,
+# the validation split, and the batch of tools.test
+FILE_FRAMES = 8
+VAL_FRAMES = 2
 FILE_BATCH = 4
 # the H100 SXM's published peaks (NVIDIA data sheet) for bound_ms
 PEAK_BF16 = 989e12
@@ -251,6 +263,23 @@ def meta_units(cfg):
 
     return len(DEFAULT_META_UNITS if cfg.meta_units is None
                else cfg.meta_units)
+
+
+def reset_counts(m):
+    """Every kernel wrapper's launch count to 0."""
+    for k in ("conv3x3", "iou", "meta", "taps"):
+        m[k].reset_counts()
+
+
+def read_counts(m):
+    """The launch counts of every kernel wrapper, by kernel."""
+    conv3x3, iou_mod, meta, taps = m["conv3x3"], m["iou"], m["meta"], m["taps"]
+    return {"fwd": conv3x3.LAUNCHES, "dgrad": conv3x3.DGRAD_LAUNCHES,
+            "wgrad": conv3x3.WGRAD_LAUNCHES, "iou": iou_mod.LAUNCHES,
+            "iou_prep": iou_mod.PREP_LAUNCHES,
+            "meta_stats": meta.STATS_LAUNCHES, "meta_agg": meta.AGG_LAUNCHES,
+            "meta_block_bwd": meta.BWD_LAUNCHES,
+            "meta_kernel_taps": taps.LAUNCHES}
 
 
 def ptxas_report(log, kernel):
@@ -874,7 +903,7 @@ def phase5(torch, conv3x3, iou_mod, layers, meta, taps, recorded, H, dev):
 
 # ---------------------------------------------------------------- phase 6
 def phase6(torch, m, cfg, dev):
-    conv3x3, iou_mod, meta, taps = m["conv3x3"], m["iou"], m["meta"], m["taps"]
+    conv3x3, iou_mod, meta = m["conv3x3"], m["iou"], m["meta"]
 
     def fail(msg):
         raise SystemExit(f"[6] {msg}")
@@ -997,19 +1026,10 @@ def phase6(torch, m, cfg, dev):
     losses, launches = [], None
     for i in range(5):
         torch.cuda.synchronize()
-        conv3x3.reset_counts()
-        iou_mod.reset_counts()
-        meta.reset_counts()
-        taps.reset_counts()
+        reset_counts(m)
         metrics = step(batch)
         torch.cuda.synchronize()
-        launches = {"fwd": conv3x3.LAUNCHES, "dgrad": conv3x3.DGRAD_LAUNCHES,
-                    "wgrad": conv3x3.WGRAD_LAUNCHES, "iou": iou_mod.LAUNCHES,
-                    "iou_prep": iou_mod.PREP_LAUNCHES,
-                    "meta_stats": meta.STATS_LAUNCHES,
-                    "meta_agg": meta.AGG_LAUNCHES,
-                    "meta_block_bwd": meta.BWD_LAUNCHES,
-                    "meta_kernel_taps": taps.LAUNCHES}
+        launches = read_counts(m)
         if launches != expected:
             fail(f"step {i}: launches {launches}, expected {expected}")
         losses.append(float(metrics["total_loss"]))
@@ -1174,59 +1194,146 @@ def phase7(torch, m, cfg, dev):
     return totals
 
 
-def phase7_files(torch, m, cfg, dev):
-    """The serving path as users drive it, from dataset files: write, train
-    a checkpoint, test at its epoch, score, restore, eval_checkpoint."""
+def phase7_files(torch, m, cfg, dev, per_step):
+    """Training and serving as users drive them, from dataset files: write
+    a training and a validation split, train an epoch from the files,
+    resume to a second one with validation, test at its epoch, score,
+    restore, eval_checkpoint. ``per_step``: phase 6's launches of one train
+    step, by kernel."""
+    import threading
+
     import numpy as np
 
-    conv3x3, taps, meta = m["conv3x3"], m["taps"], m["meta"]
+    train_cli = m["train_cli"]
 
     def fail(msg):
         raise SystemExit(f"[7] {msg}")
 
     n_meta = meta_units(cfg)
+    n_fwd = conv_launches(cfg)[0]
+    # one validation frame is a B=1 eval forward: the forward kernel and
+    # the Meta-Kernel taps
+    per_frame = dict.fromkeys(per_step, 0)
+    per_frame.update(fwd=n_fwd, meta_kernel_taps=n_meta)
+    threads0 = threading.active_count()
+    t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         data, exp = os.path.join(tmp, "data"), os.path.join(tmp, "exp")
         H, W = cfg.feat_size
-        recs = m["write_waymo_files"](data, FILE_FRAMES, H=H, W=W, seed=SEED,
+        m["write_waymo_files"](data, FILE_FRAMES, H=H, W=W, seed=SEED,
+                               image_set="training", num_boxes=20,
+                               class_choices=(1, 2))
+        recs = m["write_waymo_files"](data, VAL_FRAMES, H=H, W=W,
+                                      seed=SEED + 1, image_set="validation",
                                       num_boxes=20, class_choices=(1, 2))
-        print(f"[7] wrote {FILE_FRAMES} frames of {H}x{W} as .npz files and "
-              f"one validation roidb (holes, a no-label-zone strip, "
-              f"vehicles and pedestrians)")
+        print(f"[7] wrote {FILE_FRAMES} training and {VAL_FRAMES} validation "
+              f"frames of {H}x{W} as .npz files and a roidb each (holes, a "
+              f"no-label-zone strip, vehicles and pedestrians)")
 
-        meta.reset_counts()
-        taps.reset_counts()
-        hist, state = m["train_cli"].main([
-            "--config", RECIPE, "--synthetic", "--steps", "2",
-            "--experiment-dir", exp, "--device", dev.type])
-        torch.cuda.synchronize()
-        if len(hist) != 2 or not all(math.isfinite(h["total_loss"])
-                                     for h in hist):
-            fail(f"tools.train: bad losses {hist}")
-        if (meta.STATS_LAUNCHES, taps.LAUNCHES) != (2 * n_meta, 0):
-            fail(f"tools.train: {meta.STATS_LAUNCHES} meta_stats and "
-                 f"{taps.LAUNCHES} taps launches in 2 steps")
+        def train(*extra):
+            """tools.train from the files -> (history, state, validations,
+            stdout, launches outside and inside the validations, number
+            of validations)."""
+            inside = []
+            real = train_cli.build_validation
+
+            def counted_validation(*a, **kw):
+                run = real(*a, **kw)
+
+                def counted():
+                    torch.cuda.synchronize()
+                    before = read_counts(m)
+                    out = run()
+                    torch.cuda.synchronize()
+                    inside.append({k: v - before[k]
+                                   for k, v in read_counts(m).items()})
+                    return out
+                return counted
+
+            out = io.StringIO()
+            torch.cuda.synchronize()
+            reset_counts(m)
+            with mock.patch.object(train_cli, "build_validation",
+                                   counted_validation), \
+                    contextlib.redirect_stdout(out):
+                hist, state, val = train_cli.main([
+                    "--config", RECIPE, "--data-root", data,
+                    "--sampling-rate", "1", "--batch", "2",
+                    "--steps-per-epoch", "2", "--num-workers", "2",
+                    "--experiment-dir", exp, "--device", dev.type, *extra])
+            torch.cuda.synchronize()
+            total = read_counts(m)
+            for line in out.getvalue().splitlines():
+                print(f"[7]   {line}")
+            ev = {k: sum(d[k] for d in inside) for k in total}
+            return (hist, state, val, out.getvalue(),
+                    {k: v - ev[k] for k, v in total.items()}, ev,
+                    len(inside))
+
+        def gate_steps(tag, hist, tr):
+            want = {k: 2 * v for k, v in per_step.items()}
+            if len(hist) != 2 or not all(math.isfinite(h["total_loss"])
+                                         for h in hist):
+                fail(f"{tag}: bad losses {hist}")
+            if tr != want:
+                fail(f"{tag}: launches in its 2 steps {tr}, expected {want}")
+
+        hist0, _, val, _, tr, _, n_val = train("--epochs", "1")
+        gate_steps("tools.train --epochs 1", hist0, tr)
         ecfg = cfg.replace(experiment_dir=exp)
-        epoch = m["latest_epoch"](ecfg)
-        if epoch != 0:
-            fail(f"tools.train left checkpoint epoch {epoch}, expected 0")
-        print("[7] tools.train: 2 steps, total_loss "
-              + " ".join(f"{h['total_loss']:.5f}" for h in hist)
-              + f"; checkpoint epoch {epoch}")
+        if m["latest_epoch"](ecfg) != 0 or n_val or val:
+            fail(f"tools.train --epochs 1 left checkpoint epoch "
+                 f"{m['latest_epoch'](ecfg)}, {n_val} validations")
 
-        conv3x3.reset_counts()
-        taps.reset_counts()
+        hist1, state, val, text, tr, ev, n_val = train(
+            "--epochs", "2", "--resume", "--eval-every", "1",
+            "--eval-frames", str(VAL_FRAMES))
+        gate_steps("tools.train --resume", hist1, tr)
+        if "resumed from epoch 0" not in text or state.step != 4:
+            fail(f"tools.train --resume: no resume marker, or step count "
+                 f"{state.step} != 4")
+        ckpts = [e for e in (0, 1) if os.path.exists(
+            m["checkpoint_path"](ecfg, e))]
+        if ckpts != [0, 1] or m["latest_epoch"](ecfg) != 1:
+            fail(f"checkpoints of epochs {ckpts} after the resume")
+        bufs = [s["momentum_buffer"] for s in state.optimizer.state.values()]
+        if not bufs or not all(b.device.type == dev.type for b in bufs):
+            fail("momentum buffers off the card after the resume")
+        want = {k: VAL_FRAMES * v for k, v in per_frame.items()}
+        vals = [v for mt in val.get(1, {}).values() for v in mt.values()]
+        if (list(val) != [1] or f"epoch 1 validation: {val[1]}" not in text
+                or not vals or not all(math.isfinite(v) for v in vals)):
+            fail(f"validation: {val}")
+        if n_val != 1 or ev != want:
+            fail(f"{n_val} validations launched {ev}, expected {want}")
+        hist = hist0 + hist1
+        print(f"[7] tools.train from the files: epoch 0 (2 steps, checkpoint "
+              f"0), then --resume: resumed from epoch 0 at step "
+              f"{hist1[0]['step']}, epoch 1 (2 steps, checkpoint 1, "
+              f"{len(bufs)} momentum buffers on the card), validation on "
+              f"{VAL_FRAMES} frames {json.dumps(val[1])}; launches per 2 "
+              f"steps as phase 6's per step, the validation's "
+              f"{VAL_FRAMES} x ({n_fwd} conv3x3 forward, {n_meta} taps), "
+              f"no taps launch in training; total_loss "
+              + " ".join(f"{h['total_loss']:.5f}" for h in hist))
+        print("[7] tools.train per step at 64x2650, B=2, 2 loader workers "
+              "(epoch 0, then the resumed epoch 1): loader wait ms "
+              + " ".join(f"{h['data_ms']:.2f}" for h in hist)
+              + "; step ms " + " ".join(f"{h['step_ms']:.2f}" for h in hist))
+
+        reset_counts(m)
         path = m["test_cli"].main([
             "--config", RECIPE, "--data-root", data, "--image-set",
             "validation", "--batch", str(FILE_BATCH), "--experiment-dir",
-            exp, "--epoch", str(epoch), "--device", dev.type, "--output",
+            exp, "--epoch", "1", "--device", dev.type, "--output",
             os.path.join(tmp, "pred.pkl")])
         torch.cuda.synchronize()
-        n_steps = -(-FILE_FRAMES // FILE_BATCH)
-        want = (n_steps * conv_launches(cfg)[0], n_steps * n_meta)
-        if (conv3x3.LAUNCHES, taps.LAUNCHES) != want:
-            fail(f"tools.test: {conv3x3.LAUNCHES} conv3x3 and "
-                 f"{taps.LAUNCHES} taps launches, expected {want}")
+        n_steps = -(-VAL_FRAMES // FILE_BATCH)
+        got = read_counts(m)
+        want = (n_steps * n_fwd, n_steps * n_meta)
+        if (got["fwd"], got["meta_kernel_taps"]) != want:
+            fail(f"tools.test: {got['fwd']} conv3x3 and "
+                 f"{got['meta_kernel_taps']} taps launches, expected {want}")
         with open(path, "rb") as f:
             anno, outputs = pickle.load(f), pickle.load(f)
         if sorted(outputs) != sorted(r["rec_id"] for r in recs) or \
@@ -1242,19 +1349,20 @@ def phase7_files(torch, m, cfg, dev):
         records = m["evaluate_pred"].main(["--config", RECIPE, "--pred",
                                            path, "--buckets"])
         veh = [r for r in records if r["class"] == "veh"]
-        if len(veh) != 1 or veh[0]["frames"] != FILE_FRAMES:
+        if len(veh) != 1 or veh[0]["frames"] != VAL_FRAMES:
             fail(f"evaluate_pred: {records}")
-        print(f"[7] tools.test from the files at epoch {epoch}: "
-              f"{len(outputs)} frames in {n_steps} steps of B={FILE_BATCH} "
-              f"({want[0]} conv3x3 and {want[1]} taps launches), {n_det} "
-              f"detections; tools.evaluate_pred: {json.dumps(veh[0])}")
+        print(f"[7] tools.test from the validation files at epoch 1: "
+              f"{len(outputs)} frames in {n_steps} step(s) of "
+              f"B={FILE_BATCH} ({want[0]} conv3x3 and {want[1]} taps "
+              f"launches), {n_det} detections; tools.evaluate_pred: "
+              f"{json.dumps(veh[0])}")
 
         rcfg = m["load_config"](RECIPE, is_train=False).replace(
             experiment_dir=exp)
         restored = m["RangeDet"](**rcfg.model_kwargs()).to(dev)
-        _, rep = m["restore_checkpoint"](restored, rcfg, epoch)
+        _, rep = m["restore_checkpoint"](restored, rcfg, 1)
         stacked = [m["record_to_inputs"](r, rcfg.pad_field, rcfg.max_gt_boxes)
-                   for r in recs[:FILE_BATCH]]
+                   for r in recs]
         inputs = m["build_eval_inputs"](
             {k: np.stack([b[k] for b in stacked]) for k in stacked[0]},
             rcfg, dev)
@@ -1262,7 +1370,7 @@ def phase7_files(torch, m, cfg, dev):
                 for x in (state.model, restored))
         same = all(torch.equal(a[c][k], b[c][k]) for c in a for k in a[c])
         print(f"[7] checkpoint epoch {rep} restored: eval outputs on one "
-              f"B={FILE_BATCH} batch bit-equal to the trained model's: "
+              f"B={VAL_FRAMES} batch bit-equal to the trained model's: "
               f"{same}")
         if not same:
             fail("the restored model's eval outputs differ")
@@ -1270,13 +1378,18 @@ def phase7_files(torch, m, cfg, dev):
 
         lines = m["eval_checkpoint"].main([
             "--config", RECIPE, "--experiment-dir", exp, "--data-root", data,
-            "--n-frames", str(FILE_FRAMES), "--min-scores", "0.5,0.1",
+            "--n-frames", str(VAL_FRAMES), "--min-scores", "0.5,0.1",
             "--device", dev.type])
         vals = [v for line in lines for mt in line["metrics"].values()
                 for v in mt.values()]
         if len(lines) != 2 or not all(math.isfinite(v) for v in vals):
             fail(f"eval_checkpoint: {lines}")
         print(f"[7] tools.eval_checkpoint: {len(lines)} lines, all finite")
+    if threading.active_count() != threads0:
+        fail(f"{threading.active_count()} threads after the file path, "
+             f"{threads0} before it")
+    print(f"[7] the file path in {time.perf_counter() - t_phase:.1f} s; "
+          f"{threads0} threads before it and after it")
 
 
 def main():
@@ -1307,6 +1420,7 @@ def main():
     from rangedet_tpu_torch.tools import test as test_cli
     from rangedet_tpu_torch.tools import train as train_cli
     from rangedet_tpu_torch.train.checkpoint import (
+        checkpoint_path,
         latest_epoch,
         restore_checkpoint,
     )
@@ -1546,12 +1660,12 @@ def main():
                 build_eval_inputs=build_eval_inputs,
                 write_waymo_files=write_waymo_files,
                 record_to_inputs=record_to_inputs, load_config=load_config,
-                latest_epoch=latest_epoch,
+                latest_epoch=latest_epoch, checkpoint_path=checkpoint_path,
                 restore_checkpoint=restore_checkpoint, train_cli=train_cli,
                 test_cli=test_cli, evaluate_pred=evaluate_pred,
                 eval_checkpoint=eval_checkpoint)
     taps_totals = phase7(torch, mods, cfg, dev)
-    phase7_files(torch, mods, cfg, dev)
+    phase7_files(torch, mods, cfg, dev, launches)
 
     # one entry per kernel and path: the serving forward (launches of the
     # B=1 eval step of phase 3, times of one B=1 forward in phases 2 and

@@ -358,7 +358,8 @@ def write_waymo_files(root: str, n_frames: int, H: int = 64, W: int = 2650,
                       class_choices: Sequence[int] = (1,)) -> List[dict]:
     """Write ``n_frames`` seeded make_frame_vehicles frames in the offline
     builder's on-disk format (``data/waymo.py`` reads it): one ``.npz`` per
-    frame under ``root`` (pc_vehicle_frame (H, W, 3); range_image (H, W, 4)
+    frame under ``root/<image_set>/``, so splits written under one root keep
+    apart (pc_vehicle_frame (H, W, 3); range_image (H, W, 4)
     with range -1 at holes (rays without a return and ~2% dropped pixels)
     and channel 3 the no-label-zone flag, 1 on one strip of rows and
     columns and -1 elsewhere; inclination (H,); azimuth (W,)) and one
@@ -377,7 +378,8 @@ def write_waymo_files(root: str, n_frames: int, H: int = 64, W: int = 2650,
         range_image = np.stack(
             [np.where(holes, -1.0, f["range_value"]), f["intensity"],
              f["elongation"], nlz], -1).astype(np.float32)
-        path = os.path.abspath(os.path.join(root, f"frame_{i:04d}.npz"))
+        path = os.path.abspath(os.path.join(root, image_set,
+                                            f"frame_{i:04d}.npz"))
         np.savez(path, pc_vehicle_frame=f["pc"].astype(np.float32),
                  range_image=range_image,
                  inclination=f["inclination"][:, 0].astype(np.float32),

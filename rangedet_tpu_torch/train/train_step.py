@@ -1,6 +1,9 @@
 """The train step, counterpart of ``make_train_step`` in
-``rangedet_tpu/train/train_step.py`` run with the base config's
-``use_pallas_meta=False`` (the materialized Meta-Kernel).
+``rangedet_tpu/train/train_step.py``. The Meta-Kernel block is the one the
+config selects: the recipes set ``use_pallas_meta=True``, the fused block
+(the meta_stats, meta_agg and block-backward kernels, the 9C taps never
+materialized); the base config's ``use_pallas_meta=False`` selects the
+materialized block.
 
 One step: on-device targets -> forward in train mode (BatchNorm on batch
 statistics, running statistics updated) -> IoU-aware VFL + normalized

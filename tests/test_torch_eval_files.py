@@ -129,14 +129,16 @@ def test_ap_matches_jax(mode):
 # ---------------------------------------------------------------- (g)
 @pytest.fixture(scope="module")
 def chain(files):
-    """train 2 steps -> checkpoint epoch 0; test from the roidb at that
-    epoch -> pickle. Returns (train state, pickle path, test's stdout)."""
+    """train one epoch of 2 steps -> checkpoint epoch 0; test from the
+    roidb at that epoch -> pickle. Returns (train state, pickle path,
+    test's stdout)."""
     from rangedet_tpu_torch.tools import test as test_cli
     from rangedet_tpu_torch.tools import train as train_cli
 
     with contextlib.redirect_stdout(io.StringIO()):
-        _, state = train_cli.main([
-            "--config", files["recipe"], "--synthetic", "--steps", "2",
+        _, state, _ = train_cli.main([
+            "--config", files["recipe"], "--synthetic", "--epochs", "1",
+            "--steps-per-epoch", "2",
             "--experiment-dir", files["exp"], "--device", "cpu"])
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
