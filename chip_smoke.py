@@ -74,11 +74,32 @@ Phases, one line of output each (or a table), failing on the first error:
    ``tools.test`` from the validation files at epoch 1 (every frame in
    the pickle, the launches of its steps), ``tools.evaluate_pred`` on the
    pickle, the restored model's eval outputs bit-equal to the trained
-   model's, and ``tools.eval_checkpoint`` (finite lines).
+   model's, and ``tools.eval_checkpoint`` (finite lines);
+8. the three-class recipe ``rangedet_multiclass_all_36e`` at full width and
+   depth (64x2656, seeded random weights, raytraced frames of classes 1, 2
+   and 4): one B=2 train step with the launches the config implies (9
+   IoU-target calls, 3 levels x 3 classes, one prep and one clip each),
+   each IoU call on the inputs the step gave it (class k's view of the
+   head's (B, H, Ws, 24) deltas) within IOU_TOL of the plain version on
+   the same view, a bit-equal repeat and the same bits as on a contiguous
+   copy, timed; 5 steps with finite, falling loss, the median step time
+   and peak memory; the eval step at B=4 and B=1 (launches, each class's
+   boxes finite and its valid count printed, logits and deltas against the
+   plain path, the median, the WNMS share over the three classes, peak
+   memory); then from 8 training and 2 validation frames of three classes,
+   ``tools.train`` for one epoch of 2 steps with the recipe's augmentation
+   (every training frame the loader maps goes through
+   ``data/augment.py:apply_augmentations`` with both names, counted by a
+   wrapper around it), checkpoint 0, a finite validation of three classes,
+   no thread left behind; ``tools.test`` at epoch 0 (every frame, three
+   class keys), ``tools.evaluate_pred`` (one line per class at the recipe's
+   IoU) and ``tools.create_prediction_bin_3d`` (rows of Waymo types 2 and 4).
 
 It prints a JSON line of the kernels, one entry per kernel and path (the
-serving forward of phases 2-3 and 7, the train step of phases 5-6), then as
-its last line ``{"ok": true, "device": {...}}``. Every kernel, plain and
+serving forward of phases 2-3 and 7, the train step of phases 5-6, the IoU
+target on the multiclass step of phase 8 as ``"train_multiclass"``), with
+the card's name and power limit on the line before it, then as its last
+line ``{"ok": true, "device": {...}}``. Every kernel, plain and
 cuDNN time in it is the median of 5 timings of 10 calls by CUDA events
 (plain Meta-Kernel versions: of 3 calls). bound_ms is the least time of
 the work as the kernel does it: for the Meta-Kernel kernels, which run
@@ -101,6 +122,8 @@ import time
 from unittest import mock
 
 RECIPE = "rangedet_veh_wo_aug_4_18e"
+# phase 8: the three-class recipe, trained with host augmentation
+MULTICLASS = "rangedet_multiclass_all_36e"
 SEED = 0
 # |y - ref| <= REL_TOL * |ref| + MAX_TOL * max|ref|, ref in f32 from the same
 # bf16 operands: the kernel accumulates in f32 and rounds once to bf16
@@ -265,6 +288,27 @@ def meta_units(cfg):
                else cfg.meta_units)
 
 
+def train_launches(cfg, tag):
+    """The launches of one train step that the config implies, by kernel;
+    prints how they add up."""
+    n_levels = len(cfg.fpn_strides)
+    n_fwd = conv_launches(cfg)[0]
+    n_meta = meta_units(cfg) if cfg.use_pallas_meta else 0
+    expected = {"fwd": n_fwd, "dgrad": n_fwd - 1, "wgrad": n_fwd,
+                "iou": n_levels * cfg.num_classes,
+                "iou_prep": n_levels * cfg.num_classes, "meta_stats": n_meta,
+                "meta_agg": n_meta, "meta_block_bwd": 2 * n_meta,
+                "meta_kernel_taps": 0}
+    print(f"[{tag}] expected launches per step: forward {n_fwd} (as the "
+          f"eval forward), dgrad {n_fwd - 1} (all but res1_unit1.conv1, "
+          f"whose input is the data), wgrad {n_fwd}, IoU target {n_levels} "
+          f"levels x {cfg.num_classes} classes = {expected['iou']} (one prep "
+          f"and one clip launch each); per fused "
+          f"Meta-Kernel block ({n_meta}) one meta_stats, one meta_agg, two "
+          f"meta_block_bwd (one per mode); no taps kernel (eval only)")
+    return expected
+
+
 def reset_counts(m):
     """Every kernel wrapper's launch count to 0."""
     for k in ("conv3x3", "iou", "meta", "taps"):
@@ -383,6 +427,15 @@ class KernelTotals:
 
 
 # ---------------------------------------------------------------- phase 5
+def clone_view(t):
+    """A copy of t's whole storage, viewed as t views it: the same shape,
+    strides and storage offset. (clone() makes a view that is not dense,
+    such as class k's channels of the head's deltas at K > 1, contiguous.)"""
+    n = t.untyped_storage().nbytes() // t.element_size()
+    return t.as_strided((n,), (1,), 0).clone().as_strided(
+        t.shape, t.stride(), t.storage_offset())
+
+
 def record_train_step(step, batch, conv3x3, iou_mod, layers, meta):
     """Run step(batch) once, counting every distinct kernel call shape, and
     keeping the real inputs of the IoU target and of the Meta-Kernel block's
@@ -413,8 +466,8 @@ def record_train_step(step, batch, conv3x3, iou_mod, layers, meta):
         return real_w(x, gy, scale, bias, cot)
 
     def rec_i(d, p, gt, topk_gt=32):
-        # clone keeps the head's layout: the kernels read the view's strides
-        iou.append((d.clone(), p.clone(), gt.clone(), topk_gt))
+        # copies with the head's layout: the kernels read the views' strides
+        iou.append((clone_view(d), clone_view(p), gt.clone(), topk_gt))
         return real_i(d, p, gt, topk_gt)
 
     def rec_dc(x, weight, stride_w):
@@ -496,39 +549,66 @@ def one_tap_product(torch, meta, taps, args, fail):
         fail(f"meta_stats' sums are not kernel 7's a: {e1:.3g}, {e2:.3g}")
 
 
+def iou_call(torch, iou_mod, call, **plain_timing):
+    """One IoU-target call on the inputs a step gave it: its gates
+    (profile_iou.check: error against the plain version, finite, the prep's
+    rows off the plain prep's, a bit-equal repeat), its output, pairs, and
+    bounds (profile_iou.iou_work), and the ms of the kernels, the prep, the
+    clip and the plain version (timed with ``plain_timing``)."""
+    from rangedet_tpu_torch.tools.profile_iou import bound_ms, check, iou_work
+
+    d, p, gt, topk = call
+    err, finite, off, same, cand, nv = check(call)
+    out = iou_mod.iou_target(d, p, gt, topk)
+    work, pairs, live_pairs = iou_work(d, gt, nv, cand.shape[1])
+    scratch = torch.zeros_like(out)
+    return dict(
+        err=err, finite=finite, off=off, same=same, cand=cand, nv=nv,
+        out=out, pairs=pairs, live_pairs=live_pairs,
+        bound=bound_ms(*work["all"]), clip_bound=bound_ms(*work["clip"])[0],
+        live_bound=bound_ms(*work["clip_live"])[0],
+        ms=_time_ms(lambda: iou_mod.iou_target(d, p, gt, topk)),
+        prep_ms=_time_ms(lambda: iou_mod.candidates(d, p, gt, topk)),
+        clip_ms=_time_ms(lambda: iou_mod.clip(cand, nv, d, p, scratch)),
+        plain_ms=_time_ms(lambda: iou_mod.iou_target_plain(d, p, gt, topk),
+                          **plain_timing))
+
+
+def add_iou(t, r):
+    """Add one iou_call result into the KernelTotals ``t`` and its extra
+    keys: the prep and clip ms, the clip's bounds over the contract's
+    padded pairs and over live pairs."""
+    t.add(1, r["ms"], r["plain_ms"], r["bound"], None, r["err"])
+    for key, v in (("prep_ms", r["prep_ms"]), ("clip_ms", r["clip_ms"]),
+                   ("clip_bound_ms", r["clip_bound"]),
+                   ("clip_live_bound_ms", r["live_bound"])):
+        t.extra[key] = t.extra.get(key, 0.0) + v
+
+
 def phase5_iou(torch, iou_mod, iou, t):
     """The IoU target's gates and times on the calls the step made, one per
     level and class, summed into the KernelTotals ``t``."""
     from rangedet_tpu_torch import _build
-    from rangedet_tpu_torch.tools.profile_iou import bound_ms as iou_bound_ms
-    from rangedet_tpu_torch.tools.profile_iou import check as iou_check
-    from rangedet_tpu_torch.tools.profile_iou import iou_work
 
     def fail(msg):
         raise SystemExit(f"[5] {msg}")
 
-    iou_bound = iou_live = iou_t = 0.0
-    iou_ms = dict(prep_ms=0.0, clip_ms=0.0, before_ms=0.0)
+    t.extra["before_ms"] = 0.0
     for lvl, call in enumerate(iou):
         d, p, gt, topk = call
-        err, finite, off, same, cand, nv = iou_check(call)
-        Gk = cand.shape[1]
-        out = iou_mod.iou_target(d, p, gt, topk)
+        r = iou_call(torch, iou_mod, call, iters=3)
         print(f"[5] IoU target level {lvl}: deltas {tuple(d.shape)} strides "
-              f"{d.stride()}, {nv.numel()} blocks, G={Gk}, nv sum "
-              f"{int(nv.sum())}, max abs err {err:.3g} (limit {IOU_TOL}); "
+              f"{d.stride()}, {r['nv'].numel()} blocks, G="
+              f"{r['cand'].shape[1]}, nv sum {int(r['nv'].sum())}, max abs "
+              f"err {r['err']:.3g} (limit {IOU_TOL}); "
               f"blocks whose prep output differs from the plain prep's: "
-              f"in nv {off[0]}, in a live row's corners {off[1]}, in a live "
-              f"row's area bits alone {off[2]}; bit-equal repeat {same}")
-        if not (err <= IOU_TOL and finite):
-            fail(f"IoU target disagrees at level {lvl}: max err {err}")
-        if not same:
+              f"in nv {r['off'][0]}, in a live row's corners {r['off'][1]}, "
+              f"in a live row's area bits alone {r['off'][2]}; bit-equal "
+              f"repeat {r['same']}")
+        if not (r["err"] <= IOU_TOL and r["finite"]):
+            fail(f"IoU target disagrees at level {lvl}: max err {r['err']}")
+        if not r["same"]:
             fail(f"IoU target not reproducible at level {lvl}")
-        work, pairs, live_pairs = iou_work(d, gt, nv, Gk)
-        k_ms = _time_ms(lambda: iou_mod.iou_target(d, p, gt, topk))
-        prep_ms = _time_ms(lambda: iou_mod.candidates(d, p, gt, topk))
-        scratch = torch.zeros_like(out)
-        clip_ms = _time_ms(lambda: iou_mod.clip(cand, nv, d, p, scratch))
 
         def before():
             # the old path's prep (the plain prep in torch ops, as the
@@ -536,40 +616,31 @@ def phase5_iou(torch, iou_mod, iou, t):
             # port's clip kernel is no longer in the tree
             # (tools/profile_iou.py --against times the whole old path)
             c, n, _, _ = iou_mod.prepare_candidates(d, p, gt, topk)
-            return iou_mod.clip(c, n, d, p, torch.zeros_like(out))
+            return iou_mod.clip(c, n, d, p, torch.zeros_like(r["out"]))
 
         before_ms = _time_ms(before)
-        p_ms = _time_ms(lambda: iou_mod.iou_target_plain(d, p, gt, topk),
-                        iters=3)
-        bound = iou_bound_ms(*work["all"])
-        clip_bound = iou_bound_ms(*work["clip"])[0]
-        iou_live += iou_bound_ms(*work["clip_live"])[0]
-        t.add(1, k_ms, p_ms, bound, None, err)
-        iou_bound += clip_bound
-        iou_t += clip_ms
-        for k, v in (("prep_ms", prep_ms), ("clip_ms", clip_ms),
-                     ("before_ms", before_ms)):
-            iou_ms[k] += v
-        print(f"[5] IoU target level {lvl}: {pairs} (pixel, candidate) "
-              f"pairs ({live_pairs} live), {int((out > 0).sum())} pixels "
-              f"with IoU > 0; kernels {k_ms:.4f} ms (prep {prep_ms:.4f}, "
-              f"clip {clip_ms:.4f}), the old prep with this clip "
-              f"{before_ms:.4f} ms, plain {p_ms:.4f} ms; bound "
-              f"{bound[0]:.4f} ms ({bound[1]}), the clip's "
-              f"{clip_bound:.4f} ms")
-    t.extra = dict(iou_ms, clip_bound_ms=iou_bound,
-                   clip_live_bound_ms=iou_live)
-    print(f"[5] IoU target over the step: prep {iou_ms['prep_ms']:.4f} ms + "
-          f"clip {iou_ms['clip_ms']:.4f} ms; the old prep with this clip "
-          f"{iou_ms['before_ms']:.4f} ms; the clip at "
-          f"{iou_t / iou_bound:.2f}x its bound {iou_bound:.4f} ms (limit "
-          f"{IOU_CLIP_BOUND_MAX}), {iou_t / iou_live:.2f}x its bound over "
-          f"live pairs {iou_live:.4f} ms; clip kernel (ptxas) "
+        add_iou(t, r)
+        t.extra["before_ms"] += before_ms
+        print(f"[5] IoU target level {lvl}: {r['pairs']} (pixel, candidate) "
+              f"pairs ({r['live_pairs']} live), {int((r['out'] > 0).sum())} "
+              f"pixels with IoU > 0; kernels {r['ms']:.4f} ms (prep "
+              f"{r['prep_ms']:.4f}, clip {r['clip_ms']:.4f}), the old prep "
+              f"with this clip {before_ms:.4f} ms, plain {r['plain_ms']:.4f} "
+              f"ms; bound {r['bound'][0]:.4f} ms ({r['bound'][1]}), the "
+              f"clip's {r['clip_bound']:.4f} ms")
+    x = t.extra
+    clip_x = x["clip_ms"] / x["clip_bound_ms"]
+    print(f"[5] IoU target over the step: prep {x['prep_ms']:.4f} ms + "
+          f"clip {x['clip_ms']:.4f} ms; the old prep with this clip "
+          f"{x['before_ms']:.4f} ms; the clip at {clip_x:.2f}x its bound "
+          f"{x['clip_bound_ms']:.4f} ms (limit {IOU_CLIP_BOUND_MAX}), "
+          f"{x['clip_ms'] / x['clip_live_bound_ms']:.2f}x its bound over "
+          f"live pairs {x['clip_live_bound_ms']:.4f} ms; clip kernel (ptxas) "
           f"{ptxas_report(_build.build_log, 'iou_clip_kernel')}; prep kernel "
           f"(ptxas) {ptxas_report(_build.build_log, 'iou_prep_kernel')}")
-    if not iou_t <= IOU_CLIP_BOUND_MAX * iou_bound:
-        fail(f"the IoU clip takes {iou_t / iou_bound:.2f}x its bound, more "
-             f"than {IOU_CLIP_BOUND_MAX}x")
+    if not clip_x <= IOU_CLIP_BOUND_MAX:
+        fail(f"the IoU clip takes {clip_x:.2f}x its bound, more than "
+             f"{IOU_CLIP_BOUND_MAX}x")
 
 
 def phase5(torch, conv3x3, iou_mod, layers, meta, taps, recorded, H, dev):
@@ -1008,21 +1079,7 @@ def phase6(torch, m, cfg, dev):
     model = model.to(dev)
     state = m["create_train_state"](model, cfg, STEPS_PER_EPOCH, seed=None)
     step = m["make_train_step"](state, cfg)
-    n_levels = len(cfg.fpn_strides)
-    n_fwd = conv_launches(cfg)[0]
-    n_meta = meta_units(cfg) if cfg.use_pallas_meta else 0
-    expected = {"fwd": n_fwd, "dgrad": n_fwd - 1, "wgrad": n_fwd,
-                "iou": n_levels * cfg.num_classes,
-                "iou_prep": n_levels * cfg.num_classes, "meta_stats": n_meta,
-                "meta_agg": n_meta, "meta_block_bwd": 2 * n_meta,
-                "meta_kernel_taps": 0}
-    print(f"[6] expected launches per step: forward {n_fwd} (as the eval "
-          f"forward), dgrad {n_fwd - 1} (all but res1_unit1.conv1, whose "
-          f"input is the data), wgrad {n_fwd}, IoU target {n_levels} levels "
-          f"x {cfg.num_classes} classes = {expected['iou']} (one prep and "
-          f"one clip launch each); per fused "
-          f"Meta-Kernel block ({n_meta}) one meta_stats, one meta_agg, two "
-          f"meta_block_bwd (one per mode); no taps kernel (eval only)")
+    expected = train_launches(cfg, "6")
     losses, launches = [], None
     for i in range(5):
         torch.cuda.synchronize()
@@ -1392,6 +1449,332 @@ def phase7_files(torch, m, cfg, dev, per_step):
           f"{threads0} threads before it and after it")
 
 
+# ---------------------------------------------------------------- phase 8
+def phase8_iou(torch, m, cfg, iou):
+    """Row 6 on the multiclass step's calls: each within IOU_TOL of the plain
+    version on its own view, a bit-equal repeat, the same bits as on a
+    contiguous copy of the view; timed. Returns its KernelTotals."""
+    iou_mod, K = m["iou"], cfg.num_classes
+
+    def fail(msg):
+        raise SystemExit(f"[8] {msg}")
+
+    t = KernelTotals()
+    for i, call in enumerate(iou):
+        d, p, gt, topk = call
+        lvl, k = divmod(i, K)
+        name = cfg.class_names[k]
+        # class k's 8 channels of the level's (B, H, Ws, 8K) deltas, in place
+        if d.is_contiguous() or (k and not d.storage_offset()):
+            fail(f"level {lvl} {name}: deltas {tuple(d.shape)} strides "
+                 f"{d.stride()} offset {d.storage_offset()} are no view of "
+                 f"the head's {8 * K} channels")
+        r = iou_call(torch, iou_mod, call, iters=1, warmup=1, reps=3)
+        dense = torch.equal(r["out"], iou_mod.iou_target(d.contiguous(), p,
+                                                         gt, topk))
+        if not (r["err"] <= IOU_TOL and r["finite"]):
+            fail(f"IoU target disagrees at level {lvl} {name}: max err "
+                 f"{r['err']}")
+        if not (r["same"] and dense):
+            fail(f"IoU target at level {lvl} {name}: repeat bit-equal "
+                 f"{r['same']}, equal to the contiguous copy's {dense}")
+        add_iou(t, r)
+        print(f"[8] IoU target level {lvl} class {name}: deltas "
+              f"{tuple(d.shape)} strides {d.stride()} offset "
+              f"{d.storage_offset()}, {int((gt.abs().sum((2, 3)) > 0).sum())} "
+              f"GT rows of the class, nv sum {int(r['nv'].sum())}, "
+              f"{r['pairs']} pairs ({r['live_pairs']} live); max abs err "
+              f"{r['err']:.3g} (limit {IOU_TOL}), blocks off the plain "
+              f"prep's (nv, corners, area bits) {r['off']}, repeat "
+              f"bit-equal, equal to the contiguous copy's; kernels "
+              f"{r['ms']:.4f} ms (prep {r['prep_ms']:.4f}, clip "
+              f"{r['clip_ms']:.4f}), plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound'][0]:.4f} ms ({r['bound'][1]})")
+    x = t.extra
+    print(f"[8] IoU target over the multiclass step ({t.n} calls): kernels "
+          f"{t.ms:.4f} ms = prep {x['prep_ms']:.4f} + clip "
+          f"{x['clip_ms']:.4f} ms; the clip at "
+          f"{x['clip_ms'] / x['clip_bound_ms']:.2f}x its bound "
+          f"{x['clip_bound_ms']:.4f} ms over the contract's padded pairs, "
+          f"{x['clip_ms'] / x['clip_live_bound_ms']:.2f}x over live pairs; "
+          f"plain {t.plain_ms:.2f} ms")
+    return t
+
+
+def phase8_eval(torch, m, dev):
+    """The multiclass eval step at B=4 and B=1: launches, per-class finite
+    boxes and valid counts, kernel path against the plain path, median ms,
+    the WNMS share over the three classes, peak memory."""
+    nms = m["nms"]
+    cfg = m["load_config"](MULTICLASS, is_train=False)
+
+    def fail(msg):
+        raise SystemExit(f"[8] {msg}")
+
+    model = m["RangeDet"](**cfg.model_kwargs())
+    model.init_from(torch.Generator().manual_seed(SEED))
+    model = model.to(dev).eval()
+    eval_step = m["make_eval_step"](model, cfg)
+    n_fwd, n_taps = conv_launches(cfg)[0], meta_units(cfg)
+    for B in (4, 1):
+        inputs = m["build_eval_inputs"](
+            m["make_batch"](cfg, B, seed=SEED, num_boxes=20,
+                            style="vehicles"), cfg, dev)
+        torch.cuda.synchronize()
+        reset_counts(m)
+        out = eval_step(inputs)
+        torch.cuda.synchronize()
+        got = read_counts(m)
+        if (got["fwd"], got["meta_kernel_taps"]) != (n_fwd, n_taps):
+            fail(f"B={B}: {got['fwd']} conv3x3 and {got['meta_kernel_taps']}"
+                 f" taps launches, expected {n_fwd} and {n_taps}")
+        if sorted(out) != sorted(cfg.class_names):
+            fail(f"B={B}: classes {sorted(out)}")
+        counts = {}
+        for name in cfg.class_names:
+            boxes, valid = out[name]["boxes"], out[name]["valid"]
+            if (tuple(boxes.shape) != (B, cfg.post_nms_top_n[name], 8)
+                    or not torch.isfinite(boxes[valid]).all()):
+                fail(f"B={B}: non-finite or misshapen {name} boxes")
+            counts[name] = valid.sum(1).tolist()
+
+        with torch.inference_mode():
+            got = model(inputs["input_data"], inputs["coord"])
+            with mock.patch.object(m["conv3x3"], "conv3x3_bhcw",
+                                   m["conv3x3"].conv3x3_bhcw_plain), \
+                    mock.patch.object(m["taps"], "meta_kernel_taps",
+                                      m["taps"].meta_kernel_taps_plain):
+                want = model(inputs["input_data"], inputs["coord"])
+        rels = [_rel(a, b) for a, b in zip(got[0] + got[1],
+                                           want[0] + want[1])]
+        if not all(torch.isfinite(a).all() for a in got[0] + got[1]):
+            fail(f"B={B}: non-finite logits/deltas")
+        if not max(rels) <= MODEL_TOL:
+            fail(f"B={B}: kernel path vs plain path {max(rels):.4g} > "
+                 f"{MODEL_TOL}")
+
+        calls, real_wnms = [], nms.weighted_nms
+
+        def grab(*a, **kw):
+            calls.append((a, kw))
+            return real_wnms(*a, **kw)
+
+        with mock.patch.object(nms, "weighted_nms", grab), \
+                torch.inference_mode():
+            m["run_inference"](*got, inputs, cfg)
+        if len(calls) != cfg.num_classes:
+            fail(f"B={B}: {len(calls)} WNMS calls")
+        torch.cuda.reset_peak_memory_stats()
+        step_ms = _median_ms(lambda: eval_step(inputs))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        with torch.inference_mode():
+            wnms = [_median_ms(lambda: real_wnms(*a, **kw))
+                    for a, kw in calls]
+        cands = [int(a[2].sum()) for a, _ in calls]
+        print(f"[8] B={B} multiclass eval step: {n_fwd} conv3x3 and {n_taps} "
+              f"taps launches; kernel vs plain path max|a-b|/max|b| per "
+              f"output " + " ".join(f"{r:.4g}" for r in rels)
+              + f" (bound {MODEL_TOL}); valid boxes per frame "
+              + ", ".join(f"{c} {counts[c]}" for c in cfg.class_names)
+              + f"; valid candidates {cands}; median {step_ms:.2f} ms, WNMS "
+              + " + ".join(f"{w:.2f}" for w in wnms)
+              + f" = {sum(wnms):.2f} ms = {100 * sum(wnms) / step_ms:.1f}%; "
+              f"peak memory {peak:.2f} GiB")
+    del model, eval_step
+
+
+def phase8_files(torch, m, dev):
+    """The multiclass recipe from files with its augmentation on: tools.train
+    (every mapped training frame through apply_augmentations with both
+    names), validation with three classes, tools.test, evaluate_pred and
+    the prediction export."""
+    import threading
+
+    import numpy as np
+
+    augment, waymo, train_cli = m["augment"], m["waymo"], m["train_cli"]
+    cfg = m["load_config"](MULTICLASS, is_train=False)
+
+    def fail(msg):
+        raise SystemExit(f"[8] {msg}")
+
+    threads0 = threading.active_count()
+    mapped, augmented = [], []
+    real_map, real_aug = waymo.record_to_inputs, augment.apply_augmentations
+
+    def counted_map(rec, *a, augment=(), **kw):
+        if augment:
+            mapped.append(tuple(augment))
+        return real_map(rec, *a, augment=augment, **kw)
+
+    def counted_aug(frame, rng, names):
+        augmented.append(tuple(names))
+        return real_aug(frame, rng, names)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data, exp = os.path.join(tmp, "data"), os.path.join(tmp, "exp")
+        H, W = cfg.feat_size
+        m["write_waymo_files"](data, FILE_FRAMES, H=H, W=W, seed=SEED + 8,
+                               image_set="training", num_boxes=20,
+                               class_choices=(1, 2, 4))
+        recs = m["write_waymo_files"](data, VAL_FRAMES, H=H, W=W,
+                                      seed=SEED + 9, image_set="validation",
+                                      num_boxes=20, class_choices=(1, 2, 4))
+        val_classes = sorted({int(c) for r in recs for c in r["gt_class"]})
+        out = io.StringIO()
+        with mock.patch.object(waymo, "record_to_inputs", counted_map), \
+                mock.patch.object(augment, "apply_augmentations",
+                                  counted_aug), \
+                contextlib.redirect_stdout(out):
+            hist, _, val = train_cli.main([
+                "--config", MULTICLASS, "--data-root", data,
+                "--sampling-rate", "1", "--batch", "2", "--epochs", "1",
+                "--steps-per-epoch", "2", "--num-workers", "2",
+                "--eval-every", "1", "--eval-frames", str(VAL_FRAMES),
+                "--experiment-dir", exp, "--device", dev.type])
+        for line in out.getvalue().splitlines():
+            print(f"[8]   {line}")
+        want = tuple(cfg.augment)
+        if (len(mapped) < 4 or set(mapped) != {want}
+                or augmented != [want] * len(mapped)):
+            fail(f"{len(mapped)} training frames mapped with augment "
+                 f"{set(mapped)}, apply_augmentations called "
+                 f"{len(augmented)} times with {set(augmented)}")
+        if len(hist) != 2 or not all(math.isfinite(h["total_loss"])
+                                     for h in hist):
+            fail(f"bad losses {hist}")
+        ecfg = cfg.replace(experiment_dir=exp)
+        if m["latest_epoch"](ecfg) != 0:
+            fail(f"checkpoint epoch {m['latest_epoch'](ecfg)}, expected 0")
+        res = val.get(0, {})
+        vals = [v for mt in res.values() for v in mt.values()]
+        if (sorted(res) != sorted(cfg.class_names) or not vals
+                or not all(math.isfinite(v) for v in vals)):
+            fail(f"validation: {val}")
+        if threading.active_count() != threads0:
+            fail(f"{threading.active_count()} threads after tools.train, "
+                 f"{threads0} before it")
+        print(f"[8] tools.train --config {MULTICLASS} from {FILE_FRAMES} "
+              f"training frames of classes (1, 2, 4): {len(mapped)} frames "
+              f"mapped, each through apply_augmentations {want}; total_loss "
+              + " ".join(f"{h['total_loss']:.5f}" for h in hist)
+              + f"; checkpoint 0; validation on {VAL_FRAMES} frames (GT "
+              f"classes {val_classes}) {json.dumps(res)}; {threads0} threads "
+              f"before and after")
+
+        pred = os.path.join(tmp, "pred.pkl")
+        m["test_cli"].main([
+            "--config", MULTICLASS, "--data-root", data, "--image-set",
+            "validation", "--batch", str(FILE_BATCH), "--experiment-dir",
+            exp, "--epoch", "0", "--device", dev.type, "--output", pred])
+        with open(pred, "rb") as f:
+            anno, outputs = pickle.load(f), pickle.load(f)
+        if sorted(outputs) != sorted(r["rec_id"] for r in recs) or \
+                sorted(anno) != sorted(outputs):
+            fail(f"the pickle holds {sorted(outputs)}")
+        n_det = dict.fromkeys(cfg.class_names, 0)
+        for rec in outputs.values():
+            det = rec["det_xyzlwhyaws"]
+            if sorted(det) != sorted(cfg.class_names):
+                fail(f"the pickle's classes {sorted(det)}")
+            for c, d in det.items():
+                if d.ndim != 2 or d.shape[1] != 8 or \
+                        not np.isfinite(d).all():
+                    fail(f"malformed {c} detections")
+                n_det[c] += len(d)
+        records = m["evaluate_pred"].main(["--config", MULTICLASS, "--pred",
+                                           pred])
+        if ([r["class"] for r in records] != list(cfg.class_names)
+                or any(r["frames"] != VAL_FRAMES
+                       or r["iou"] != cfg.eval_iou_thresh[r["class"]]
+                       for r in records)):
+            fail(f"evaluate_pred: {records}")
+        exported = os.path.join(tmp, "pred.json")
+        with contextlib.redirect_stdout(io.StringIO()):
+            n_rows = m["bin_cli"].main(["--pred", pred, "--out", exported])
+        with open(exported) as f:
+            rows = json.load(f)
+        by_type = {}
+        for r in rows:
+            by_type[r["type"]] = by_type.get(r["type"], 0) + 1
+        want_types = {t: n_det[c] for c, t in
+                      zip(cfg.class_names, cfg.label_set) if n_det[c]}
+        if (n_rows != len(rows) or by_type != want_types
+                or not (by_type.get(2) and by_type.get(4))):
+            fail(f"the export's rows by type {by_type}, the pickle's "
+                 f"detections {n_det}")
+        print(f"[8] tools.test at epoch 0: {len(outputs)} frames, "
+              f"detections {n_det}; tools.evaluate_pred: "
+              + "; ".join(json.dumps(r) for r in records)
+              + f"; tools.create_prediction_bin_3d: {n_rows} rows by Waymo "
+              f"type {by_type}")
+
+
+def phase8(torch, m, dev):
+    """The multiclass recipe at full width and depth: one recorded B=2
+    train step (launches, row 6's calls gated and timed on their views),
+    5 falling losses, the median step and peak memory; the eval step; the
+    file path with the recipe's augmentation. Returns (row 6's
+    KernelTotals, launches per step)."""
+    t_phase = time.perf_counter()
+
+    def fail(msg):
+        raise SystemExit(f"[8] {msg}")
+
+    cfg = m["load_config"](MULTICLASS, is_train=True).replace(
+        base_lr=0.01, warmup_epochs=0)
+    model = m["RangeDet"](**cfg.model_kwargs())
+    model.init_from(torch.Generator().manual_seed(SEED))
+    state = m["create_train_state"](model.to(dev), cfg, STEPS_PER_EPOCH,
+                                    seed=None)
+    step = m["make_train_step"](state, cfg)
+    host = m["make_batch"](cfg, 2, seed=SEED, num_boxes=20, style="vehicles")
+    classes = sorted({int(c) for c in host["gt_class"][host["gt_valid"] > 0]})
+    if classes != sorted(cfg.label_set):
+        fail(f"the batch's GT classes {classes}")
+    batch = m["batch_to_device"](host, dev)
+    expected = train_launches(cfg, "8")
+    torch.cuda.synchronize()
+    reset_counts(m)
+    recorded = record_train_step(step, batch, m["conv3x3"], m["iou"],
+                                 m["layers"], m["meta"])
+    torch.cuda.synchronize()
+    launches = read_counts(m)
+    iou = recorded[4]
+    del recorded
+    if launches != expected or len(iou) != expected["iou"]:
+        fail(f"launches {launches} ({len(iou)} IoU calls), expected "
+             f"{expected}")
+    print(f"[8] {MULTICLASS}, B=2 train step at {cfg.pad_field[0]}x"
+          f"{cfg.pad_field[1]} (GT classes {classes}): launches {launches}")
+    totals = phase8_iou(torch, m, cfg, iou)
+    del iou
+
+    losses = []
+    for i in range(5):
+        torch.cuda.synchronize()
+        reset_counts(m)
+        metrics = step(batch)
+        torch.cuda.synchronize()
+        if read_counts(m) != expected:
+            fail(f"step {i}: launches {read_counts(m)}")
+        losses.append(float(metrics["total_loss"]))
+    if not all(math.isfinite(v) for v in losses) or losses[-1] >= losses[0]:
+        fail(f"loss not finite or not falling: {losses}")
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = _median_ms(lambda: step(batch))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[8] 5 steps, total_loss " + " ".join(f"{v:.6f}" for v in losses)
+          + f"; B=2 train step median {step_ms:.2f} ms over 10 steps; peak "
+          f"memory {peak:.2f} GiB")
+    del model, state, step, batch
+
+    phase8_eval(torch, m, dev)
+    phase8_files(torch, m, dev)
+    print(f"[8] phase 8 in {time.perf_counter() - t_phase:.1f} s")
+    return totals, launches
+
+
 def main():
     import numpy as np
     import torch
@@ -1413,9 +1796,11 @@ def main():
     from rangedet_tpu_torch.ops import conv3x3, nms
     from rangedet_tpu_torch.ops import iou_target as iou_mod
     from rangedet_tpu_torch.data.synthetic import write_waymo_files
+    from rangedet_tpu_torch.data import augment, waymo
     from rangedet_tpu_torch.data.waymo import record_to_inputs
     from rangedet_tpu_torch.ops import meta_block
     from rangedet_tpu_torch.ops import meta_kernel as taps
+    from rangedet_tpu_torch.tools import create_prediction_bin_3d as bin_cli
     from rangedet_tpu_torch.tools import eval_checkpoint, evaluate_pred
     from rangedet_tpu_torch.tools import test as test_cli
     from rangedet_tpu_torch.tools import train as train_cli
@@ -1667,6 +2052,11 @@ def main():
     taps_totals = phase7(torch, mods, cfg, dev)
     phase7_files(torch, mods, cfg, dev, launches)
 
+    # ------------------------------------------------------------ phase 8
+    mods.update(layers=layers, nms=nms, run_inference=run_inference,
+                augment=augment, waymo=waymo, bin_cli=bin_cli)
+    mc_iou, mc_launches = phase8(torch, mods, dev)
+
     # one entry per kernel and path: the serving forward (launches of the
     # B=1 eval step of phase 3, times of one B=1 forward in phases 2 and
     # 7), then the B=2 train step (phases 6 and 5)
@@ -1695,6 +2085,9 @@ def main():
         ("train", "meta_block_bwd", totals["meta_block_bwd"],
          launches["meta_block_bwd"], meta_src,
          "rangedet_tpu/ops/meta_block_pallas.py:411"),
+        ("train_multiclass", "iou_target", mc_iou, mc_launches["iou"],
+         "rangedet_tpu_torch/csrc/iou_target.cu",
+         "rangedet_tpu/ops/iou_target_pallas.py:193"),
     ):
         entries.append({
             "name": name, "path": path, "route": "cuda", "source": source,
@@ -1707,7 +2100,10 @@ def main():
         if source == meta_src:
             entries[-1]["f32_bound_ms"] = t.f32_bound_ms
         if name == "iou_target":  # its prep and clip kernels, the old path
-            entries[-1].update(t.extra, prep_launches=launches["iou_prep"])
+            entries[-1].update(t.extra, prep_launches=(
+                mc_launches if path == "train_multiclass"
+                else launches)["iou_prep"])
+    print(_smi())  # the card beside the numbers of the line below
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

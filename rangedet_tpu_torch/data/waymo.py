@@ -1,7 +1,8 @@
 """Waymo npz/roidb reading + host-side preprocessing: the port's own numpy
 copy of ``rangedet_tpu/data/waymo.py`` (the port imports nothing of the JAX
-package). Geometric augmentation is not ported yet: a non-empty ``augment``
-raises.
+package). ``record_to_inputs`` applies cfg.augment's geometric augmentations
+(``data/augment.py``) to the raw frame before normalization, as the
+reference does.
 
 Consumes the same on-disk format the reference's offline builder produces
 (datasets/create_range_image_roidb.py:141-219): per-frame ``.npz`` with
@@ -22,6 +23,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from . import augment as _augment
 from .normalization import CHANNELS, clip_and_norm
 
 WAYMO_TYPE = {
@@ -112,15 +114,12 @@ def record_to_inputs(rec: dict, pad_field, max_gt: int,
                      ) -> Dict[str, np.ndarray]:
     """One roidb record -> padded, normalized device-batch entry.
 
-    ``augment`` names cfg.augment's geometric augmentations; the port has
-    none yet (``rangedet_tpu/data/augment.py`` is ROADMAP Queue 1 #14), so a
-    non-empty ``augment`` raises NotImplementedError. ``aug_rng`` is kept
-    for the same signature.
+    ``augment`` names cfg.augment's geometric augmentations (data/augment.py),
+    applied to the raw frame before normalization — the slot where the
+    reference's transform list would run them (core/input.py transform order).
+    They draw from ``aug_rng``, or from the global ``np.random`` when it is
+    None, as the reference's loop leaves it.
     """
-    if augment:
-        raise NotImplementedError(
-            f"augment={tuple(augment)}: geometric augmentation is not ported "
-            "to rangedet_tpu_torch yet (ROADMAP Queue 1 #14)")
     url = rec["pc_url"]
     if npz_cache is not None and url in npz_cache:
         npkl = npz_cache[url]
@@ -161,6 +160,13 @@ def record_to_inputs(rec: dict, pad_field, max_gt: int,
         "gt_csa": gt_csa,
         "gt_class": gt_class,
     }
+    if augment:
+        frame = _augment.apply_augmentations(
+            frame, aug_rng if aug_rng is not None else np.random, augment
+        )
+        pc, mask, is_in_nlz = frame["pc"], frame["mask"], frame["is_in_nlz"]
+        gt_csa, gt_class = frame["gt_csa"], frame["gt_class"]
+
     raw = {
         "range_value": frame["range_value"],
         "intensity": frame["intensity"],

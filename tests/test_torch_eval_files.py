@@ -77,12 +77,6 @@ def test_roidb_input_matches_jax(files, sampling_rate, filter_class):
     assert holes > 0 and nlz > 0  # the fixture exercises both
 
 
-def test_record_augment_is_not_ported(files):
-    rec = twaymo.load_roidbs(files["data"], "validation")[0]
-    with pytest.raises(NotImplementedError, match="Queue 1 #14"):
-        twaymo.record_to_inputs(rec, (H, W), 32, augment=("flip",))
-
-
 # ---------------------------------------------------------------- (f)
 def _ap_frames(seed, n=6):
     """Seeded detection/GT frames: GTs at 5-70 m with point counts (some

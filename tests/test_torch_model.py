@@ -1,12 +1,15 @@
 """The port's config mirror, weight bridge and forward pass against the JAX
 package: the same weights and the same numpy batch through both, in f32."""
 import dataclasses
+import pathlib
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import rangedet_tpu.configs
+import rangedet_tpu_torch.configs
 from rangedet_tpu.configs import load_config as jax_load_config
 from rangedet_tpu.configs.base import RangeDetConfig as JaxConfig
 from rangedet_tpu.data.synthetic import make_batch
@@ -31,15 +34,31 @@ torch.set_num_threads(1)
 FWD_TOL = dict(atol=2e-4, rtol=1e-3)
 
 
+# every recipe the port ships (all of rangedet_tpu/configs/ but the tpuopt one)
+PORT_RECIPES = sorted(
+    p.stem for p in (pathlib.Path(rangedet_tpu_torch.configs.__file__).parent
+                     ).glob("rangedet_*.py"))
+
+
+def test_port_ships_every_recipe_but_tpuopt():
+    jax_recipes = sorted(
+        p.stem for p in (pathlib.Path(rangedet_tpu.configs.__file__).parent
+                         ).glob("rangedet_*.py"))
+    assert PORT_RECIPES == [r for r in jax_recipes if "tpuopt" not in r]
+    assert len(PORT_RECIPES) == 6
+
+
+@pytest.mark.parametrize("recipe", PORT_RECIPES)
 @pytest.mark.parametrize("is_train", [True, False])
-def test_config_mirror_matches_jax_field_by_field(is_train):
+def test_config_mirror_matches_jax_field_by_field(is_train, recipe):
     jfields = {f.name for f in dataclasses.fields(JaxConfig)}
     tfields = {f.name for f in dataclasses.fields(TorchConfig)}
     assert tfields == jfields - SKIPPED_FIELDS, (
         tfields ^ (jfields - SKIPPED_FIELDS))
     assert SKIPPED_FIELDS <= jfields
-    jc = jax_load_config("rangedet_veh_wo_aug_4_18e", is_train)
-    tc = load_config("rangedet_veh_wo_aug_4_18e", is_train)
+    jc = jax_load_config(recipe, is_train)
+    tc = load_config(recipe, is_train)
+    assert tc.use_pallas_meta
     for name in sorted(tfields):
         want = getattr(jc, name)
         got = getattr(tc, name)

@@ -196,21 +196,6 @@ def test_cuda_without_a_card_exits(files):
         train_cli.main(["--config", files["recipe"], "--synthetic"])
 
 
-def test_augmenting_recipe_raises_from_files(files, tmp_path):
-    # host augmentation is not ported (ROADMAP Queue 1 #14): the loader's
-    # worker raises, and the error reaches the loop, which ends its threads
-    recipe = tmp_path / "augmenting_recipe.py"
-    recipe.write_text(TINY_PORT_CONFIG.replace(
-        "dtype=torch.float32,", "dtype=torch.float32, augment=('flip',),"))
-    before = set(threading.enumerate())
-    with contextlib.redirect_stdout(io.StringIO()), \
-            pytest.raises(NotImplementedError, match="Queue 1 #14"):
-        train_cli.main(["--config", str(recipe), "--data-root",
-                        files["data"], "--experiment-dir", str(tmp_path),
-                        "--device", "cpu"])
-    assert not set(threading.enumerate()) - before
-
-
 def test_resume_is_exact(files, tmp_path):
     exp = str(tmp_path)
     common = ("--synthetic", "--steps-per-epoch", "2", "--experiment-dir",

@@ -107,22 +107,26 @@ TINY_PORT_CONFIG = textwrap.dedent("""
 
 
 def masked_logits(model, tbatch):
+    """(B, N, K) logits of every level, -50 outside the masks."""
     with torch.inference_mode():
         logits, _ = model(tbatch["input_data"], tbatch["coord"])
-    B = logits[0].shape[0]
-    lg = torch.cat([l.reshape(B, -1) for l in logits], 1)
+    B, K = logits[0].shape[0], logits[0].shape[-1]
+    lg = torch.cat([l.reshape(B, -1, K) for l in logits], 1)
     mask = torch.cat([tbatch[f"mask_s{s}"].reshape(B, -1)
                       for s in (1, 2, 4)], 1)
-    return torch.where(mask > 0, lg, torch.full_like(lg, -50.0)).numpy()
+    return torch.where(mask[..., None] > 0, lg,
+                       torch.full_like(lg, -50.0)).numpy()
 
 
-def check_eval_step(jax_layout: str, use_pallas_meta: bool) -> None:
-    """The port's whole eval step (tiny config, f32, two frames) against the
-    JAX one run in ``jax_layout`` ("bhcw", or "nhwc" whose Meta-Kernel
-    runs the Pallas kernel interpreted when ``use_pallas_meta``), on one
-    weight tree: boxes to BOX_ATOL, valid masks and truncation flags
-    exact, with min_score and the candidate cap placed in gaps of the
-    scores, so rounding noise decides neither."""
+def check_eval_step(jax_layout: str, use_pallas_meta: bool,
+                    recipe: str = "rangedet_veh_wo_aug_4_18e") -> None:
+    """The port's whole eval step (tiny config of ``recipe``, f32, two
+    frames) against the JAX one run in ``jax_layout`` ("bhcw", or "nhwc"
+    whose Meta-Kernel runs the Pallas kernel interpreted when
+    ``use_pallas_meta``), on one weight tree: per class, boxes to
+    BOX_ATOL, valid masks and truncation flags exact, with the class's
+    min_score and candidate cap placed in gaps of its scores, so rounding
+    noise decides neither."""
     from rangedet_tpu.data.synthetic import make_batch
     from rangedet_tpu.models.convert import convert_params
     from rangedet_tpu.train.train_step import build_eval_inputs as jax_inputs
@@ -130,8 +134,8 @@ def check_eval_step(jax_layout: str, use_pallas_meta: bool) -> None:
     from rangedet_tpu_torch.infer import build_eval_inputs, make_eval_step
     from tiny import tiny_config
 
-    jcfg = tiny_config(is_train=False, layout="bhcw", dtype=jnp.float32,
-                       use_pallas_meta=use_pallas_meta)
+    jcfg = tiny_config(recipe, is_train=False, layout="bhcw",
+                       dtype=jnp.float32, use_pallas_meta=use_pallas_meta)
     batch = make_batch(jcfg, 2, seed=11, num_boxes=6)
     _, v = init_jax(jcfg, batch)
     params, stats = perturb(v, seed=7)
@@ -139,33 +143,44 @@ def check_eval_step(jax_layout: str, use_pallas_meta: bool) -> None:
     for lvl in range(3):  # spread the logits so scores are well apart
         head[f"cls_logit_lvl_{lvl}_kernel"] *= 100.0
 
-    # place min_score in a gap of both frames' scores, with the frames'
-    # candidate counts apart, so a cap between them truncates one frame
+    # per class, place min_score in a gap of both frames' scores, with the
+    # frames' candidate counts apart, so a cap between them truncates one
+    # frame
     pcfg = port_config(jcfg)
     tb = build_eval_inputs(batch, pcfg, torch.device("cpu"))
     lg = masked_logits(port_model(pcfg, params, stats), tb).astype(np.float64)
-    desc = np.sort(lg[0])[::-1]
-    for i in range(30, 90):
-        shift = -0.5 * (desc[i - 1] + desc[i])
-        scores = 1 / (1 + np.exp(-(lg + shift)))
-        n_valid = (scores > 0.5).sum(axis=1)
-        # the trap: scores near min_score would be decided by rounding noise
-        if (np.abs(scores - 0.5).min() > SCORE_MARGIN
-                and abs(n_valid[1] - n_valid[0]) >= 4):
-            break
-    else:
-        raise AssertionError("no min_score gap clear of both frames' scores")
+    shifts, n_valid = [], {}
+    for k, name in enumerate(jcfg.class_names):
+        ms = jcfg.min_score[name]
+        thr = np.log(ms / (1 - ms))  # the logit of min_score
+        desc = np.sort(lg[0, :, k])[::-1]
+        for i in range(30, 90):
+            shift = thr - 0.5 * (desc[i - 1] + desc[i])
+            scores = 1 / (1 + np.exp(-(lg[..., k] + shift)))
+            nv = (scores > ms).sum(axis=1)
+            # the trap: scores near min_score would be decided by rounding
+            if (np.abs(scores - ms).min() > SCORE_MARGIN
+                    and abs(nv[1] - nv[0]) >= 4):
+                break
+        else:
+            raise AssertionError(f"no {name} min_score gap clear of both "
+                                 "frames' scores")
+        shifts.append(shift)
+        n_valid[name] = nv
     for lvl in range(3):
-        head[f"cls_logit_lvl_{lvl}_bias"] += np.float32(shift)
-    topk = int(min(n_valid) + abs(n_valid[1] - n_valid[0]) // 2)
-    jcfg = jcfg.replace(device_topk={"veh": topk})
+        head[f"cls_logit_lvl_{lvl}_bias"] += np.float32(shifts)
+    topk = {name: int(min(nv) + abs(nv[1] - nv[0]) // 2)
+            for name, nv in n_valid.items()}
+    jcfg = jcfg.replace(device_topk=topk)
     pcfg = port_config(jcfg)
     model = port_model(pcfg, params, stats)
     scores = 1 / (1 + np.exp(-masked_logits(model, tb).astype(np.float64)))
-    assert ((scores > 0.5).sum(axis=1) == n_valid).all()
-    assert np.abs(scores - 0.5).min() > SCORE_MARGIN
-    top = np.sort(scores, axis=1)[:, ::-1][:, : topk + 1]
-    assert np.diff(-top, axis=1).min() > ORDER_GAP
+    for k, name in enumerate(jcfg.class_names):
+        ms, sk = jcfg.min_score[name], scores[..., k]
+        assert ((sk > ms).sum(axis=1) == n_valid[name]).all()
+        assert np.abs(sk - ms).min() > SCORE_MARGIN
+        top = np.sort(sk, axis=1)[:, ::-1][:, : topk[name] + 1]
+        assert np.diff(-top, axis=1).min() > ORDER_GAP
 
     jcfg = jcfg.replace(layout=jax_layout)
     jmodel = JaxRangeDet(**jcfg.model_kwargs())
@@ -178,13 +193,15 @@ def check_eval_step(jax_layout: str, use_pallas_meta: bool) -> None:
                  {k: jnp.asarray(x) for k, x in batch.items()})
     got = make_eval_step(model, pcfg)(build_eval_inputs(batch, pcfg,
                                                         torch.device("cpu")))
-    w, g = want["veh"], got["veh"]
-    np.testing.assert_array_equal(g["truncated"].numpy(),
-                                  np.asarray(w["truncated"]))
-    assert g["truncated"].numpy().tolist() == [
-        bool(n > topk) for n in n_valid]
-    gv = g["valid"].numpy()
-    np.testing.assert_array_equal(gv, np.asarray(w["valid"]))
-    assert gv.sum(axis=1).min() >= 3
-    np.testing.assert_allclose(g["boxes"].numpy()[gv],
-                               np.asarray(w["boxes"])[gv], atol=BOX_ATOL)
+    assert sorted(got) == sorted(want) == sorted(jcfg.class_names)
+    for name in jcfg.class_names:
+        w, g = want[name], got[name]
+        np.testing.assert_array_equal(g["truncated"].numpy(),
+                                      np.asarray(w["truncated"]))
+        assert g["truncated"].numpy().tolist() == [
+            bool(n > topk[name]) for n in n_valid[name]]
+        gv = g["valid"].numpy()
+        np.testing.assert_array_equal(gv, np.asarray(w["valid"]))
+        assert gv.sum(axis=1).min() >= 3
+        np.testing.assert_allclose(g["boxes"].numpy()[gv],
+                                   np.asarray(w["boxes"])[gv], atol=BOX_ATOL)
