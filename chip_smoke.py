@@ -93,11 +93,27 @@ Phases, one line of output each (or a table), failing on the first error:
    wrapper around it), checkpoint 0, a finite validation of three classes,
    no thread left behind; ``tools.test`` at epoch 0 (every frame, three
    class keys), ``tools.evaluate_pred`` (one line per class at the recipe's
-   IoU) and ``tools.create_prediction_bin_3d`` (rows of Waymo types 2 and 4).
+   IoU) and ``tools.create_prediction_bin_3d`` (rows of Waymo types 2 and 4);
+9. the wide-channel recipe ``rangedet_veh_tpuopt_all_36e`` at full width and
+   depth (64x2656, backbone widths up to 256, its Meta-Kernel block at
+   C=128, Cm=32, Co=128): one B=2 train step with the launches the config
+   implies, the Meta-Kernel kernels' C=128 instance on every launch of the
+   step under phase 5's correctness gates (bit-equal repeats, kernel 7 and
+   meta_stats forming one tap product, the zeroed dA rejected; their speed
+   against their bounds printed, not gated), every conv shape of the step
+   that phase 5 did not run held once as forward, dgrad and wgrad under
+   phase 5's gates, 5 steps with finite, falling loss, the median step time
+   and peak memory; the eval step at B=4 and B=1 (launches, finite boxes,
+   the kernel path within MODEL_TOL of the plain path, the median, the WNMS
+   share, peak memory) with kernel 7 at 9C = 1152 channels on its inputs
+   within one bf16 ulp of the f32 plain version and within JAX's bound of
+   the bf16 one.
 
 It prints a JSON line of the kernels, one entry per kernel and path (the
 serving forward of phases 2-3 and 7, the train step of phases 5-6, the IoU
-target on the multiclass step of phase 8 as ``"train_multiclass"``), with
+target on the multiclass step of phase 8 as ``"train_multiclass"``, the
+Meta-Kernel kernels at C=128 of phase 9 as ``"train_tpuopt"`` and
+``"serve_tpuopt"``), with
 the card's name and power limit on the line before it, then as its last
 line ``{"ok": true, "device": {...}}``. Every kernel, plain and
 cuDNN time in it is the median of 5 timings of 10 calls by CUDA events
@@ -124,6 +140,8 @@ from unittest import mock
 RECIPE = "rangedet_veh_wo_aug_4_18e"
 # phase 8: the three-class recipe, trained with host augmentation
 MULTICLASS = "rangedet_multiclass_all_36e"
+# phase 9: the wide-channel recipe, whose Meta-Kernel block is C=128
+TPUOPT = "rangedet_veh_tpuopt_all_36e"
 SEED = 0
 # |y - ref| <= REL_TOL * |ref| + MAX_TOL * max|ref|, ref in f32 from the same
 # bf16 operands: the kernel accumulates in f32 and rounds once to bf16
@@ -515,7 +533,7 @@ def _plain_convs(conv3x3, plain=True, meta=None):
     return stack
 
 
-def one_tap_product(torch, meta, taps, args, fail):
+def one_tap_product(torch, meta, taps, args, fail, tag="5"):
     """Kernel 7 on the arguments of a meta_stats launch against the
     training plain version's a, and meta_stats' sums against float64 sums
     of kernel 7's output."""
@@ -536,7 +554,8 @@ def one_tap_product(torch, meta, taps, args, fail):
     e2 = ((s2.double() - r2).abs() / r2.clamp(min=1e-300)).max().item()
     ok1 = bool(((s1.double() - r1).abs() <= TAP_SUM_TOL * m1).all())
     ok2 = bool(((s2.double() - r2).abs() <= TAP_SUM_TOL * r2).all())
-    print(f"[5] one tap product: kernel 7 on meta_stats' inputs differs from "
+    print(f"[{tag}] one tap product: kernel 7 on meta_stats' inputs differs "
+          f"from "
           f"the training plain version's a at {n_off} of {n} elements "
           f"({n_off / n:.3g}; limit {TAP_OFF_MAX}), by at most {d_max} bf16 "
           f"ulp; meta_stats' sums against float64 sums of kernel 7's output,"
@@ -643,14 +662,242 @@ def phase5_iou(torch, iou_mod, iou, t):
              f"{IOU_CLIP_BOUND_MAX}x")
 
 
-def phase5(torch, conv3x3, iou_mod, layers, meta, taps, recorded, H, dev):
+def _channels_last(t):
+    import torch
+
+    return t.permute(0, 2, 1, 3).contiguous(memory_format=torch.channels_last)
+
+
+def conv_fwd_case(torch, conv3x3, key, H, rn, vecs, fail):
+    """One conv3x3 forward shape (B, Ci, Co, W, stride, ingest, stats) of a
+    step on seeded inputs: the kernel against the plain version (the bf16
+    gate; with stats, its sums against float64 sums of its own y), a
+    bit-equal repeat, the kernel, plain and cuDNN ms and the bound. Returns
+    (max err, kernel ms, plain ms, cuDNN ms, bound, the kernel's call)."""
+    B, Ci, Co, W, s, ingest, stats = key
+    x = rn(B, H, Ci, W).bfloat16()
+    w = (rn(3, 3, Ci, Co) / (3.0 * Ci ** 0.5)).bfloat16()
+    sc, bi = vecs(Ci) if ingest else (None, None)
+    out = conv3x3.conv3x3_bhcw(x, w, sc, bi, s, stats)
+    torch.cuda.synchronize()
+    y = out[0] if stats else out
+    ref = conv3x3.conv3x3_bhcw_plain(x, w, sc, bi, s, out_dtype=torch.float32)
+    ok, err = _bf16_ok(y, ref)
+    if stats:  # the kernel's sums against its own stored y, in f64
+        yd = y.double()
+        ok &= _rel(out[1], yd.sum((0, 1, 3))) <= F32_SUM_TOL
+        ok &= _rel(out[2], (yd * yd).sum((0, 1, 3))) <= F32_SUM_TOL
+    if not ok:
+        fail(f"conv3x3 forward disagrees at {key}: max err {err}")
+    call = lambda: conv3x3.conv3x3_bhcw(x, w, sc, bi, s, stats)  # noqa: E731
+    k_ms = _time_ms(call)
+    p_ms = _time_ms(lambda: conv3x3.conv3x3_bhcw_plain(x, w, sc, bi, s,
+                                                       stats))
+    xn = _channels_last(x)
+    wn = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    c_ms = _time_ms(lambda: torch.nn.functional.conv2d(
+        xn, wn, stride=(1, s), padding=1))
+    Wo = W // s
+    bound = _bound_ms(2 * B * H * Wo * Co * Ci * 9,
+                      2 * (B * H * Ci * W + 9 * Ci * Co + B * H * Co * Wo),
+                      PEAK_BF16)
+    again = call()
+    if not torch.equal(y, again[0] if stats else again):
+        fail(f"conv3x3 forward repeat differs at {key}")
+    return err, k_ms, p_ms, c_ms, bound, call
+
+
+def conv_dgrad_case(torch, conv3x3, key, H, rn, vecs, fail):
+    """One dgrad shape (B, Cgy, Cdx, W, cot, affine) of a step, as
+    conv_fwd_case: the bf16 gate on dx, with the affine backward its f32
+    dscale/dbias, a bit-equal repeat, the times and the bound."""
+    B, Cg, Cx, W, cot, aff = key
+    gy = rn(B, H, Cg, W).bfloat16()
+    w = (rn(3, 3, Cx, Cg) / (3.0 * Cx ** 0.5)).bfloat16()
+    cots = affs = None
+    if cot:
+        cots = (rn(B, H, Cg, W).bfloat16(), rn(Cg, scale=0.1),
+                rn(Cg, scale=0.05))
+    if aff:
+        affs = (rn(B, H, Cx, W).bfloat16(), *vecs(Cx))
+    out = conv3x3.conv3x3_dgrad(gy, w, cots, affs)
+    torch.cuda.synchronize()
+    ref = conv3x3.conv3x3_dgrad_plain(gy, w, cots, affs,
+                                      out_dtype=torch.float32)
+    ok, err = _bf16_ok(out[0] if aff else out, ref[0] if aff else ref)
+    if aff:
+        ok &= _rel(out[1], ref[1]) <= F32_SUM_TOL
+        ok &= _rel(out[2], ref[2]) <= F32_SUM_TOL
+    if not ok:
+        fail(f"dgrad disagrees at {key}: max err {err}")
+    call = lambda: conv3x3.conv3x3_dgrad(gy, w, cots, affs)  # noqa: E731
+    k_ms = _time_ms(call)
+    p_ms = _time_ms(lambda: conv3x3.conv3x3_dgrad_plain(gy, w, cots, affs))
+    gn = _channels_last(gy)
+    wn = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    c_ms = _time_ms(lambda: torch.nn.grad.conv2d_input(
+        (B, Cx, H, W), wn, gn, padding=1))
+    extra = (B * H * Cg * W if cot else 0) + (B * H * Cx * W if aff else 0)
+    bound = _bound_ms(2 * B * H * W * Cg * Cx * 9,
+                      2 * (B * H * (Cg + Cx) * W + 9 * Cg * Cx + extra),
+                      PEAK_BF16)
+    again = call()
+    if not torch.equal(out[0] if aff else out, again[0] if aff else again):
+        fail(f"dgrad repeat differs at {key}")
+    return err, k_ms, p_ms, c_ms, bound, call
+
+
+def conv_wgrad_case(torch, conv3x3, key, H, rn, vecs, fail):
+    """One wgrad shape (B, Ci, Co, W, ingest, cot) of a step, as
+    conv_fwd_case: dw within F32_SUM_TOL of the plain version and finite,
+    the times and the bound; also returns its max|a - b| / max|b|."""
+    B, Ci, Co, W, ingest, cot = key
+    x = rn(B, H, Ci, W).bfloat16()
+    gy = rn(B, H, Co, W).bfloat16()
+    sc, bi = vecs(Ci) if ingest else (None, None)
+    cots = None
+    if cot:
+        cots = (rn(B, H, Co, W).bfloat16(), rn(Co, scale=0.1),
+                rn(Co, scale=0.05))
+    dw = conv3x3.conv3x3_wgrad(x, gy, sc, bi, cots)
+    torch.cuda.synchronize()
+    ref = conv3x3.conv3x3_wgrad_plain(x, gy, sc, bi, cots)
+    rel = _rel(dw, ref)
+    err = (dw - ref).abs().max().item()
+    if not (rel <= F32_SUM_TOL and bool(dw.isfinite().all())):
+        fail(f"wgrad disagrees at {key}: rel err {rel}")
+    call = lambda: conv3x3.conv3x3_wgrad(x, gy, sc, bi, cots)  # noqa: E731
+    k_ms = _time_ms(call)
+    p_ms = _time_ms(lambda: conv3x3.conv3x3_wgrad_plain(x, gy, sc, bi, cots))
+    xn, gn = _channels_last(x), _channels_last(gy)
+    c_ms = _time_ms(lambda: torch.nn.grad.conv2d_weight(
+        xn, (Co, Ci, 3, 3), gn, padding=1))
+    bound = _bound_ms(
+        2 * B * H * W * Ci * Co * 9,
+        2 * B * H * (Ci + Co * (2 if cot else 1)) * W + 4 * 9 * Ci * Co,
+        PEAK_BF16)
+    return err, k_ms, p_ms, c_ms, bound, call, rel
+
+
+def meta_block_checks(torch, meta, taps, metas, tag, limits=None):
+    """The fused Meta-Kernel block's kernels (rows 3-5) on every launch of a
+    recorded step (``metas``: record_train_step's), on the inputs it had
+    there: each against its plain version (F32_SUM_TOL, the bf16 gate),
+    twice with bit-equal outputs, kernel 7 and meta_stats forming one tap
+    product, a zeroed dA planted in the backward's output rejected by its
+    gates, times and bounds. ``limits``: name -> the most the kernel may
+    take, summed over the step, in its f32-FFMA bounds (None: printed, not
+    gated). Returns {name: KernelTotals}."""
     from rangedet_tpu_torch import _build
     from rangedet_tpu_torch.tools.profile_meta import meta_work, tc_bound_ms
+
+    def fail(msg):
+        raise SystemExit(f"[{tag}] {msg}")
+
+    totals = {k: KernelTotals() for k in ("meta_stats", "meta_agg",
+                                          "meta_block_bwd")}
+    # every launch of the step, on the inputs it had there, each run twice
+    # (bit-equal)
+    def bwd_check(out, ref):
+        ok, err = _bf16_ok(out[0], ref[0])
+        rels = [_rel(a, b) for a, b in zip(out[1:], ref[1:])]
+        ok &= max(rels) <= F32_SUM_TOL
+        ok &= all(bool(a.isfinite().all()) for a in out[1:])
+        return ok, err, rels
+
+    fault_rejected = None
+    for kind, calls in metas.items():
+        for args in calls:
+            feat, _, w0 = args[:3]
+            B, Hm, C, W = feat.shape
+            Cm = w0.shape[1]
+            if kind == "stats":
+                out = meta.meta_stats(*args)
+                torch.cuda.synchronize()
+                ref = meta.meta_stats_plain(*args)
+                rels = [_rel(a, b) for a, b in zip(out, ref)]
+                ok = max(rels) <= F32_SUM_TOL
+                err = max((a - b).abs().max().item() for a, b in zip(out, ref))
+                name, work, Co = "meta_stats", "stats", 0
+                detail = f"sum a, sum a^2 max|a-b|/max|b| {rels[0]:.3g}, " \
+                         f"{rels[1]:.3g}"
+                one_tap_product(torch, meta, taps, args, fail, tag)
+            elif kind == "agg":
+                Co = args[8].shape[1]
+                out = meta.meta_agg(*args)
+                torch.cuda.synchronize()
+                ref = meta.meta_agg_plain(*args, out_dtype=torch.float32)
+                ok, err = _bf16_ok(out, ref)
+                name, work = "meta_agg", "agg"
+                detail = f"y max abs err {err:.4g} (max|ref| " \
+                         f"{ref.abs().max().item():.4g})"
+            else:
+                mode = args[7]
+                Co = args[6][2].shape[1] if mode == "agg" else 0
+                out = meta.meta_bwd(*args)
+                torch.cuda.synchronize()
+                ref = meta.meta_bwd_plain(*args, out_dtype=torch.float32)
+                ok, err, rels = bwd_check(out, ref)
+                name, work = "meta_block_bwd", f"bwd_{mode}"
+                detail = (f"mode {mode}: dfeat max abs err {err:.4g}; f32 "
+                          f"outputs max|a-b|/max|b| " + " ".join(
+                              f"{r:.3g}" for r in rels))
+                if mode == "agg":  # the planted fault: dA contracted to 0
+                    bad = list(out)
+                    bad[1] = torch.zeros_like(out[1])
+                    fault_rejected = not bwd_check(bad, ref)[0]
+            if not ok:
+                fail(f"{name} disagrees with its plain version: {detail}")
+            again = getattr(meta, f"meta_{kind}")(*args)
+            outs = out if isinstance(out, tuple) else (out,)
+            agains = again if isinstance(again, tuple) else (again,)
+            if not all(torch.equal(a, b) for a, b in zip(outs, agains)):
+                fail(f"{name} ({work}): a repeat gave other bits")
+            k_ms = _time_ms(lambda: getattr(meta, f"meta_{kind}")(*args))
+            plain = getattr(meta, f"meta_{kind}_plain")
+            p_ms = _time_ms(lambda: plain(*args), iters=3, warmup=1)
+            flops, nbytes = meta_work(work, B, Hm, W, C, Cm, Co)
+            f32 = _bound_ms(flops, nbytes, PEAK_F32)[0]
+            tc = tc_bound_ms(work, B, Hm, W, C, Cm, Co)
+            totals[name].add(1, k_ms, p_ms, tc, None, err)
+            totals[name].f32_bound_ms += f32
+            print(f"[{tag}] {name} (B={B} H={Hm} C={C} W={W} Cm={Cm} Co={Co}): "
+                  f"{detail}; repeat bit-equal; kernel {k_ms:.4f} ms, plain "
+                  f"{p_ms:.4f} ms, bound {tc[0]:.4f} ms tensor cores "
+                  f"({tc[1]}), {f32:.4f} ms f32 FFMA ({flops / 1e9:.2f} "
+                  f"GFLOP)")
+    if fault_rejected is not True:
+        fail("the gates of the block backward pass a zeroed dA contraction"
+             if fault_rejected is False else "no agg-mode backward launch")
+    print(f"[{tag}] meta_block_bwd: the planted fault (dA contracted to "
+          f"zero) is rejected by its gates")
+    C = metas["stats"][0][0].shape[2]
+    for name, kernel in (
+            ("meta_block_bwd", f"meta_bwd_kernelILb1ELi{C}E"),
+            ("meta_agg", f"meta_fwd_kernelILi1ELi{C}E"),
+            ("meta_stats", f"meta_fwd_kernelILi0ELi{C}E")):
+        t = totals[name]
+        limit = (limits or {}).get(name)
+        print(f"[{tag}] {name} over the step: kernel {t.ms:.3f} ms = "
+              f"{t.ms / t.f32_bound_ms:.2f}x its f32-FFMA bound "
+              f"{t.f32_bound_ms:.3f} ms (limit "
+              f"{'none: correctness gates only' if limit is None else limit}"
+              f"), {t.ms / t.bound_ms:.1f}x its tensor-core bound "
+              f"{t.bound_ms:.3f} ms; kernel (ptxas) "
+              f"{ptxas_report(_build.build_log, kernel)}")
+        if limit is not None and not t.ms <= limit * t.f32_bound_ms:
+            fail(f"{name} summed over the step takes "
+                 f"{t.ms / t.f32_bound_ms:.2f}x its f32 bound, more than "
+                 f"{limit}x")
+    return totals
+
+
+def phase5(torch, conv3x3, iou_mod, layers, meta, taps, recorded, H, dev):
+    from rangedet_tpu_torch import _build
     from rangedet_tpu_torch.tools.profile_wgrad import (
         device_ms as wgrad_device_ms,
     )
 
-    F = torch.nn.functional
     fwd, dgrad, wgrad, deconv, iou, metas = recorded
     g = torch.Generator(device=dev).manual_seed(SEED + 5)
 
@@ -659,10 +906,6 @@ def phase5(torch, conv3x3, iou_mod, layers, meta, taps, recorded, H, dev):
 
     def vecs(C):
         return 1.0 + 0.3 * rn(C), 0.2 * rn(C)
-
-    def channels_last(t):
-        return t.permute(0, 2, 1, 3).contiguous(
-            memory_format=torch.channels_last)
 
     def fail(msg):
         raise SystemExit(f"[5] {msg}")
@@ -676,91 +919,29 @@ def phase5(torch, conv3x3, iou_mod, layers, meta, taps, recorded, H, dev):
           f"IoU-target levels")
     print("[5] kernel  B    Ci    Co     W s ingest stats   n  max_abs_err"
           "  kernel_ms   plain_ms  cudnn_ms   bound_ms")
-    for (B, Ci, Co, W, s, ingest, stats), n in sorted(fwd.items()):
-        x = rn(B, H, Ci, W).bfloat16()
-        w = (rn(3, 3, Ci, Co) / (3.0 * Ci ** 0.5)).bfloat16()
-        sc, bi = vecs(Ci) if ingest else (None, None)
-        out = conv3x3.conv3x3_bhcw(x, w, sc, bi, s, stats)
-        torch.cuda.synchronize()
-        y = out[0] if stats else out
-        ref = conv3x3.conv3x3_bhcw_plain(x, w, sc, bi, s,
-                                         out_dtype=torch.float32)
-        ok, err = _bf16_ok(y, ref)
-        if stats:  # the kernel's sums against its own stored y, in f64
-            yd = y.double()
-            ok &= _rel(out[1], yd.sum((0, 1, 3))) <= F32_SUM_TOL
-            ok &= _rel(out[2], (yd * yd).sum((0, 1, 3))) <= F32_SUM_TOL
-        if not ok:
-            fail(f"conv3x3 forward disagrees at "
-                 f"{(B, Ci, Co, W, s, ingest, stats)}: max err {err}")
-        k_ms = _time_ms(lambda: conv3x3.conv3x3_bhcw(x, w, sc, bi, s, stats))
-        p_ms = _time_ms(lambda: conv3x3.conv3x3_bhcw_plain(x, w, sc, bi, s,
-                                                           stats))
-        xn = channels_last(x)
-        wn = w.permute(3, 2, 0, 1).contiguous(
-            memory_format=torch.channels_last)
-        c_ms = _time_ms(lambda: F.conv2d(xn, wn, stride=(1, s), padding=1))
-        Wo = W // s
-        bound = _bound_ms(2 * B * H * Wo * Co * Ci * 9,
-                          2 * (B * H * Ci * W + 9 * Ci * Co + B * H * Co * Wo),
-                          PEAK_BF16)
-        again = conv3x3.conv3x3_bhcw(x, w, sc, bi, s, stats)
-        if not torch.equal(y, again[0] if stats else again):
-            fail(f"conv3x3 forward repeat differs at "
-                 f"{(B, Ci, Co, W, s, ingest, stats)}")
+    for key, n in sorted(fwd.items()):
+        B, Ci, Co, W, s, ingest, stats = key
+        err, k_ms, p_ms, c_ms, bound, call = conv_fwd_case(
+            torch, conv3x3, key, H, rn, vecs, fail)
         totals["fwd"].add(n, k_ms, p_ms, bound, c_ms, err)
         print(f"[5] fwd   {B:2d} {Ci:5d} {Co:5d} {W:5d} {s} {int(ingest):6d} "
               f"{int(stats):5d} {n:3d} {err:12.6g} {k_ms:10.4f} {p_ms:10.4f} "
               f"{c_ms:9.4f} {bound[0]:10.4f}")
         print("[5]   " + conv_device(
-            lambda: conv3x3.conv3x3_bhcw(x, w, sc, bi, s, stats),
-            2 * B * H * Wo * Co * Ci * 9, fwd_split, n))
+            call, 2 * B * H * (W // s) * Co * Ci * 9, fwd_split, n))
 
     print("[5] kernel  B   Cgy   Cdx     W   cot affine   n  max_abs_err"
           "  kernel_ms   plain_ms  cudnn_ms   bound_ms")
-    for (B, Cg, Cx, W, cot, aff), n in sorted(dgrad.items()):
-        gy = rn(B, H, Cg, W).bfloat16()
-        w = (rn(3, 3, Cx, Cg) / (3.0 * Cx ** 0.5)).bfloat16()
-        cots = affs = None
-        if cot:
-            cots = (rn(B, H, Cg, W).bfloat16(), rn(Cg, scale=0.1),
-                    rn(Cg, scale=0.05))
-        if aff:
-            affs = (rn(B, H, Cx, W).bfloat16(), *vecs(Cx))
-        out = conv3x3.conv3x3_dgrad(gy, w, cots, affs)
-        torch.cuda.synchronize()
-        ref = conv3x3.conv3x3_dgrad_plain(gy, w, cots, affs,
-                                          out_dtype=torch.float32)
-        ok, err = _bf16_ok(out[0] if aff else out, ref[0] if aff else ref)
-        if aff:
-            ok &= _rel(out[1], ref[1]) <= F32_SUM_TOL
-            ok &= _rel(out[2], ref[2]) <= F32_SUM_TOL
-        if not ok:
-            fail(f"dgrad disagrees at {(B, Cg, Cx, W, cot, aff)}: max err "
-                 f"{err}")
-        k_ms = _time_ms(lambda: conv3x3.conv3x3_dgrad(gy, w, cots, affs))
-        p_ms = _time_ms(lambda: conv3x3.conv3x3_dgrad_plain(gy, w, cots,
-                                                            affs))
-        gn = channels_last(gy)
-        wn = w.permute(3, 2, 0, 1).contiguous(
-            memory_format=torch.channels_last)
-        c_ms = _time_ms(lambda: torch.nn.grad.conv2d_input(
-            (B, Cx, H, W), wn, gn, padding=1))
-        extra = (B * H * Cg * W if cot else 0) + (B * H * Cx * W if aff else 0)
-        bound = _bound_ms(2 * B * H * W * Cg * Cx * 9,
-                          2 * (B * H * (Cg + Cx) * W + 9 * Cg * Cx + extra),
-                          PEAK_BF16)
-        again = conv3x3.conv3x3_dgrad(gy, w, cots, affs)
-        if not torch.equal(out[0] if aff else out,
-                           again[0] if aff else again):
-            fail(f"dgrad repeat differs at {(B, Cg, Cx, W, cot, aff)}")
+    for key, n in sorted(dgrad.items()):
+        B, Cg, Cx, W, cot, aff = key
+        err, k_ms, p_ms, c_ms, bound, call = conv_dgrad_case(
+            torch, conv3x3, key, H, rn, vecs, fail)
         totals["dgrad"].add(n, k_ms, p_ms, bound, c_ms, err)
         print(f"[5] dgrad {B:2d} {Cg:5d} {Cx:5d} {W:5d} {int(cot):5d} "
               f"{int(aff):6d} {n:3d} {err:12.6g} {k_ms:10.4f} {p_ms:10.4f} "
               f"{c_ms:9.4f} {bound[0]:10.4f}")
         print("[5]   " + conv_device(
-            lambda: conv3x3.conv3x3_dgrad(gy, w, cots, affs),
-            2 * B * H * W * Cg * Cx * 9, dgrad_split, n))
+            call, 2 * B * H * W * Cg * Cx * 9, dgrad_split, n))
     conv_gate(5, "conv3x3 forward over the step", totals["fwd"], fwd_split,
               FWD_CUDNN_MAX)
     conv_gate(5, "dgrad over the step", totals["dgrad"], dgrad_split,
@@ -771,35 +952,12 @@ def phase5(torch, conv3x3, iou_mod, layers, meta, taps, recorded, H, dev):
           "  TFLOP/s of_bound")
     prologue_ms = device_ms = 0.0
     measured = 0  # launches whose device time the profiler read
-    for (B, Ci, Co, W, ingest, cot), n in sorted(wgrad.items()):
-        x = rn(B, H, Ci, W).bfloat16()
-        gy = rn(B, H, Co, W).bfloat16()
-        sc, bi = vecs(Ci) if ingest else (None, None)
-        cots = None
-        if cot:
-            cots = (rn(B, H, Co, W).bfloat16(), rn(Co, scale=0.1),
-                    rn(Co, scale=0.05))
-        dw = conv3x3.conv3x3_wgrad(x, gy, sc, bi, cots)
-        torch.cuda.synchronize()
-        ref = conv3x3.conv3x3_wgrad_plain(x, gy, sc, bi, cots)
-        rel = _rel(dw, ref)
-        err = (dw - ref).abs().max().item()
-        if not (rel <= F32_SUM_TOL and bool(dw.isfinite().all())):
-            fail(f"wgrad disagrees at {(B, Ci, Co, W, ingest, cot)}: rel "
-                 f"err {rel}")
-        k_ms = _time_ms(lambda: conv3x3.conv3x3_wgrad(x, gy, sc, bi, cots))
-        p_ms = _time_ms(lambda: conv3x3.conv3x3_wgrad_plain(x, gy, sc, bi,
-                                                            cots))
-        xn, gn = channels_last(x), channels_last(gy)
-        c_ms = _time_ms(lambda: torch.nn.grad.conv2d_weight(
-            xn, (Co, Ci, 3, 3), gn, padding=1))
-        dev_ms = wgrad_device_ms(
-            lambda: conv3x3.conv3x3_wgrad(x, gy, sc, bi, cots))
+    for key, n in sorted(wgrad.items()):
+        B, Ci, Co, W, ingest, cot = key
+        err, k_ms, p_ms, c_ms, bound, call, rel = conv_wgrad_case(
+            torch, conv3x3, key, H, rn, vecs, fail)
+        dev_ms = wgrad_device_ms(call)
         flops = 2 * B * H * W * Ci * Co * 9
-        bound = _bound_ms(
-            flops,
-            2 * B * H * (Ci + Co * (2 if cot else 1)) * W + 4 * 9 * Ci * Co,
-            PEAK_BF16)
         totals["wgrad"].add(n, k_ms, p_ms, bound, c_ms, err)
         print(f"[5] wgrad {B:2d} {Ci:5d} {Co:5d} {W:5d} {int(ingest):6d} "
               f"{int(cot):3d} {n:3d} {err:12.6g} {rel:12.6g} {k_ms:10.4f} "
@@ -872,96 +1030,9 @@ def phase5(torch, conv3x3, iou_mod, layers, meta, taps, recorded, H, dev):
             fail(f"deconv backward kernel vs plain {max(rels)} > {FN_TOL}")
 
     phase5_iou(torch, iou_mod, iou, totals["iou"])
-    # the fused Meta-Kernel block: every launch of the step, on the inputs
-    # it had there, each run twice (bit-equal)
-    def bwd_check(out, ref):
-        ok, err = _bf16_ok(out[0], ref[0])
-        rels = [_rel(a, b) for a, b in zip(out[1:], ref[1:])]
-        ok &= max(rels) <= F32_SUM_TOL
-        ok &= all(bool(a.isfinite().all()) for a in out[1:])
-        return ok, err, rels
-
-    fault_rejected = None
-    for kind, calls in metas.items():
-        for args in calls:
-            feat, _, w0 = args[:3]
-            B, Hm, C, W = feat.shape
-            Cm = w0.shape[1]
-            if kind == "stats":
-                out = meta.meta_stats(*args)
-                torch.cuda.synchronize()
-                ref = meta.meta_stats_plain(*args)
-                rels = [_rel(a, b) for a, b in zip(out, ref)]
-                ok = max(rels) <= F32_SUM_TOL
-                err = max((a - b).abs().max().item() for a, b in zip(out, ref))
-                name, work, Co = "meta_stats", "stats", 0
-                detail = f"sum a, sum a^2 max|a-b|/max|b| {rels[0]:.3g}, " \
-                         f"{rels[1]:.3g}"
-                one_tap_product(torch, meta, taps, args, fail)
-            elif kind == "agg":
-                Co = args[8].shape[1]
-                out = meta.meta_agg(*args)
-                torch.cuda.synchronize()
-                ref = meta.meta_agg_plain(*args, out_dtype=torch.float32)
-                ok, err = _bf16_ok(out, ref)
-                name, work = "meta_agg", "agg"
-                detail = f"y max abs err {err:.4g} (max|ref| " \
-                         f"{ref.abs().max().item():.4g})"
-            else:
-                mode = args[7]
-                Co = args[6][2].shape[1] if mode == "agg" else 0
-                out = meta.meta_bwd(*args)
-                torch.cuda.synchronize()
-                ref = meta.meta_bwd_plain(*args, out_dtype=torch.float32)
-                ok, err, rels = bwd_check(out, ref)
-                name, work = "meta_block_bwd", f"bwd_{mode}"
-                detail = (f"mode {mode}: dfeat max abs err {err:.4g}; f32 "
-                          f"outputs max|a-b|/max|b| " + " ".join(
-                              f"{r:.3g}" for r in rels))
-                if mode == "agg":  # the planted fault: dA contracted to 0
-                    bad = list(out)
-                    bad[1] = torch.zeros_like(out[1])
-                    fault_rejected = not bwd_check(bad, ref)[0]
-            if not ok:
-                fail(f"{name} disagrees with its plain version: {detail}")
-            again = getattr(meta, f"meta_{kind}")(*args)
-            outs = out if isinstance(out, tuple) else (out,)
-            agains = again if isinstance(again, tuple) else (again,)
-            if not all(torch.equal(a, b) for a, b in zip(outs, agains)):
-                fail(f"{name} ({work}): a repeat gave other bits")
-            k_ms = _time_ms(lambda: getattr(meta, f"meta_{kind}")(*args))
-            plain = getattr(meta, f"meta_{kind}_plain")
-            p_ms = _time_ms(lambda: plain(*args), iters=3, warmup=1)
-            flops, nbytes = meta_work(work, B, Hm, W, C, Cm, Co)
-            f32 = _bound_ms(flops, nbytes, PEAK_F32)[0]
-            tc = tc_bound_ms(work, B, Hm, W, C, Cm, Co)
-            totals[name].add(1, k_ms, p_ms, tc, None, err)
-            totals[name].f32_bound_ms += f32
-            print(f"[5] {name} (B={B} H={Hm} C={C} W={W} Cm={Cm} Co={Co}): "
-                  f"{detail}; repeat bit-equal; kernel {k_ms:.4f} ms, plain "
-                  f"{p_ms:.4f} ms, bound {tc[0]:.4f} ms tensor cores "
-                  f"({tc[1]}), {f32:.4f} ms f32 FFMA ({flops / 1e9:.2f} "
-                  f"GFLOP)")
-    if fault_rejected is not True:
-        fail("the gates of the block backward pass a zeroed dA contraction"
-             if fault_rejected is False else "no agg-mode backward launch")
-    print("[5] meta_block_bwd: the planted fault (dA contracted to zero) is "
-          "rejected by its gates")
-    for name, limit, kernel in (
-            ("meta_block_bwd", META_BWD_BOUND_MAX, "meta_bwd_kernel"),
-            ("meta_agg", META_AGG_BOUND_MAX, "meta_fwd_kernelILi1E"),
-            ("meta_stats", META_STATS_BOUND_MAX, "meta_fwd_kernelILi0E")):
-        t = totals[name]
-        print(f"[5] {name} over the step: kernel {t.ms:.3f} ms = "
-              f"{t.ms / t.f32_bound_ms:.2f}x its f32-FFMA bound "
-              f"{t.f32_bound_ms:.3f} ms (limit {limit}x), "
-              f"{t.ms / t.bound_ms:.1f}x its tensor-core bound "
-              f"{t.bound_ms:.3f} ms; kernel (ptxas) "
-              f"{ptxas_report(_build.build_log, kernel)}")
-        if not t.ms <= limit * t.f32_bound_ms:
-            fail(f"{name} summed over the step takes "
-                 f"{t.ms / t.f32_bound_ms:.2f}x its f32 bound, more than "
-                 f"{limit}x")
+    totals.update(meta_block_checks(torch, meta, taps, metas, "5", {
+        "meta_block_bwd": META_BWD_BOUND_MAX,
+        "meta_agg": META_AGG_BOUND_MAX, "meta_stats": META_STATS_BOUND_MAX}))
     for name, t in totals.items():
         lib = (f"cuDNN {t.library_ms:.3f} ms" if name in ("fwd", "dgrad",
                                                           "wgrad")
@@ -1117,14 +1188,94 @@ def phase6(torch, m, cfg, dev):
     return launches, step_ms
 
 
+def check_taps(torch, taps, args, tag, limit=None, one_ulp=False):
+    """Kernel 7 on the arguments of one launch of an eval forward: within
+    the bf16 gate of the f32 plain version (with ``one_ulp``, within one
+    bf16 ulp of it), within JAX's bound of the bf16 plain version or the
+    nearer of the two to f32, a bit-equal repeat; timed and bounded.
+    ``limit``: the most it may take in its f32-FFMA bounds (None: printed,
+    not gated). Returns its KernelTotals."""
+    from rangedet_tpu_torch import _build
+    from rangedet_tpu_torch.tools.profile_meta import (
+        meta_work,
+        tc_bound_ms,
+        ulps,
+    )
+
+    def fail(msg):
+        raise SystemExit(f"[{tag}] {msg}")
+
+    feat, cb, w0 = args[:3]
+    B, H, C, W = feat.shape
+    Cm = w0.shape[1]
+    y = taps.meta_kernel_taps(*args)
+    torch.cuda.synchronize()
+    # f32 from the same bf16 operands (the coordinates and the MLP
+    # rounded to bf16 as the kernel's wrapper rounds them): the kernel
+    # rounds once, at the product
+    ref = taps.meta_kernel_taps_plain(*(a.to(feat.dtype).float() for a in args))
+    ok, err = _bf16_ok(y, ref)
+    ref_max = ref.abs().max().item()
+    if not ok:
+        fail(f"B={B}: kernel vs f32 plain max abs err {err} (max|ref| "
+             f"{ref_max})")
+    ulp = ""
+    if one_ulp:
+        d = ulps(y, ref.to(feat.dtype))
+        n_off, d_max = int((d > 0).sum()), int(d.max())
+        del d
+        ulp = (f"{n_off} elements one bf16 ulp from the f32 plain version "
+               f"rounded (at most {d_max}); ")
+        if d_max > 1:
+            fail(f"B={B}: kernel 7 {d_max} bf16 ulp from the f32 plain "
+                 f"version")
+    if not torch.equal(y, taps.meta_kernel_taps(*args)):
+        fail(f"B={B}: a repeat of the taps kernel gave other bits")
+    xla = taps.meta_kernel_taps_plain(*args).float()
+    y = y.float()
+    d = (y - xla).abs()
+    outside = d > TAPS_TOL * (1.0 + xla.abs())
+    nearer = (y - ref).abs() <= (xla - ref).abs()
+    n_out, n_bad = int(outside.sum()), int((outside & ~nearer).sum())
+    d_max = d.max().item()
+    del y, ref, xla, d, outside, nearer
+    if n_bad:
+        fail(f"B={B}: {n_bad} elements outside JAX's bound of the bf16 "
+             f"form where the kernel is not the nearer to f32")
+    k_ms = _time_ms(lambda: taps.meta_kernel_taps(*args))
+    p_ms = _time_ms(lambda: taps.meta_kernel_taps_plain(*args), iters=3,
+                    warmup=1)
+    flops, nbytes = meta_work("taps", B, H, W, C, Cm, 0)
+    bound = _bound_ms(flops, nbytes, PEAK_F32)
+    tc = tc_bound_ms("taps", B, H, W, C, Cm, 0)
+    t = KernelTotals()
+    t.add(1, k_ms, p_ms, tc, None, err)
+    t.f32_bound_ms = bound[0]
+    print(f"[{tag}] meta_kernel_taps B={B} (H={H} C={C} W={W} Cm={Cm}): max "
+          f"abs err {err:.4g} vs the f32 plain version (bf16 gate; "
+          f"max|ref| {ref_max:.4g}); {ulp}"
+          f"{d_max:.4g} vs the bf16 plain version (the XLA form), "
+          f"{n_out} of {B * H * 9 * C * W} elements outside JAX's bound "
+          f"{TAPS_TOL}, each nearer the f32 reference; repeat "
+          f"bit-equal; kernel {k_ms:.4f} ms = {k_ms / bound[0]:.2f}x its "
+          f"f32 bound {bound[0]:.4f} ms ({bound[1]}; {flops / 1e9:.2f} "
+          f"GFLOP f32, {nbytes / 1e6:.1f} MB; limit "
+          f"{'none: correctness gates only' if limit is None else limit}"
+          f"), {k_ms / tc[0]:.1f}x its "
+          f"tensor-core bound {tc[0]:.4f} ms ({tc[1]}); kernel (ptxas) "
+          f"{ptxas_report(_build.build_log, f'meta_fwd_kernelILi2ELi{C}E')}; "
+          f"plain {p_ms:.4f} ms")
+    if limit is not None and not k_ms <= limit * bound[0]:
+        fail(f"B={B}: the taps kernel takes {k_ms / bound[0]:.2f}x its "
+             f"f32 bound, more than {limit}x")
+    return t
+
+
 # ---------------------------------------------------------------- phase 7
 def phase7(torch, m, cfg, dev):
     """Kernel 7 against its plain version on the inputs of a B=4 and a B=1
     eval forward, its gradient, and the eval step with and without it.
     Returns {B: KernelTotals} of the kernel."""
-    from rangedet_tpu_torch import _build
-    from rangedet_tpu_torch.tools.profile_meta import meta_work, tc_bound_ms
-
     taps = m["taps"]
 
     def fail(msg):
@@ -1152,60 +1303,8 @@ def phase7(torch, m, cfg, dev):
             model(inputs["input_data"], inputs["coord"])
         if len(seen) != meta_units(cfg):
             fail(f"B={B}: {len(seen)} taps calls in the forward")
-        args = seen[0]
-        feat, cb, w0 = args[:3]
-        _, H, C, W = feat.shape
-        Cm = w0.shape[1]
-        y = taps.meta_kernel_taps(*args)
-        torch.cuda.synchronize()
-        # f32 from the same bf16 operands (the coordinates and the MLP
-        # rounded to bf16 as the kernel's wrapper rounds them): the kernel
-        # rounds once, at the product
-        ref = taps.meta_kernel_taps_plain(
-            *(a.to(feat.dtype).float() for a in args))
-        ok, err = _bf16_ok(y, ref)
-        ref_max = ref.abs().max().item()
-        if not ok:
-            fail(f"B={B}: kernel vs f32 plain max abs err {err} (max|ref| "
-                 f"{ref_max})")
-        if not torch.equal(y, taps.meta_kernel_taps(*args)):
-            fail(f"B={B}: a repeat of the taps kernel gave other bits")
-        xla = taps.meta_kernel_taps_plain(*args).float()
-        y = y.float()
-        d = (y - xla).abs()
-        outside = d > TAPS_TOL * (1.0 + xla.abs())
-        nearer = (y - ref).abs() <= (xla - ref).abs()
-        n_out, n_bad = int(outside.sum()), int((outside & ~nearer).sum())
-        d_max = d.max().item()
-        del y, ref, xla, d, outside, nearer
-        if n_bad:
-            fail(f"B={B}: {n_bad} elements outside JAX's bound of the bf16 "
-                 f"form where the kernel is not the nearer to f32")
-        k_ms = _time_ms(lambda: taps.meta_kernel_taps(*args))
-        p_ms = _time_ms(lambda: taps.meta_kernel_taps_plain(*args), iters=3,
-                        warmup=1)
-        flops, nbytes = meta_work("taps", B, H, W, C, Cm, 0)
-        bound = _bound_ms(flops, nbytes, PEAK_F32)
-        tc = tc_bound_ms("taps", B, H, W, C, Cm, 0)
-        totals[B] = KernelTotals()
-        totals[B].add(1, k_ms, p_ms, tc, None, err)
-        totals[B].f32_bound_ms = bound[0]
-        print(f"[7] meta_kernel_taps B={B} (H={H} C={C} W={W} Cm={Cm}): max "
-              f"abs err {err:.4g} vs the f32 plain version (bf16 gate; "
-              f"max|ref| {ref_max:.4g}); "
-              f"{d_max:.4g} vs the bf16 plain version (the XLA form), "
-              f"{n_out} of {B * H * 9 * C * W} elements outside JAX's bound "
-              f"{TAPS_TOL}, each nearer the f32 reference; repeat "
-              f"bit-equal; kernel {k_ms:.4f} ms = {k_ms / bound[0]:.2f}x its "
-              f"f32 bound {bound[0]:.4f} ms ({bound[1]}; {flops / 1e9:.2f} "
-              f"GFLOP f32, {nbytes / 1e6:.1f} MB; limit "
-              f"{META_TAPS_BOUND_MAX}x), {k_ms / tc[0]:.1f}x its "
-              f"tensor-core bound {tc[0]:.4f} ms ({tc[1]}); kernel (ptxas) "
-              f"{ptxas_report(_build.build_log, 'meta_fwd_kernelILi2E')}; "
-              f"plain {p_ms:.4f} ms")
-        if not k_ms <= META_TAPS_BOUND_MAX * bound[0]:
-            fail(f"B={B}: the taps kernel takes {k_ms / bound[0]:.2f}x its "
-                 f"f32 bound, more than {META_TAPS_BOUND_MAX}x")
+        totals[B] = check_taps(torch, taps, seen[0], "7",
+                               META_TAPS_BOUND_MAX)
 
         with torch.inference_mode():
             outs = {k: v(inputs["input_data"], inputs["coord"])
@@ -1501,28 +1600,39 @@ def phase8_iou(torch, m, cfg, iou):
     return t
 
 
-def phase8_eval(torch, m, dev):
-    """The multiclass eval step at B=4 and B=1: launches, per-class finite
-    boxes and valid counts, kernel path against the plain path, median ms,
-    the WNMS share over the three classes, peak memory."""
-    nms = m["nms"]
-    cfg = m["load_config"](MULTICLASS, is_train=False)
+def eval_checks(torch, m, dev, recipe, tag, taps_check=False):
+    """A recipe's eval step at B=4 and B=1: launches, per-class finite boxes
+    and valid counts, kernel path against the plain path, median ms, the
+    WNMS share over its classes, peak memory. With ``taps_check``, kernel 7
+    on the inputs the step gave it (check_taps, within one bf16 ulp of the
+    f32 plain version, no speed gate); returns {B: its KernelTotals} and
+    the taps launches of the B=1 step."""
+    nms, taps = m["nms"], m["taps"]
+    cfg = m["load_config"](recipe, is_train=False)
 
     def fail(msg):
-        raise SystemExit(f"[8] {msg}")
+        raise SystemExit(f"[{tag}] {msg}")
 
     model = m["RangeDet"](**cfg.model_kwargs())
     model.init_from(torch.Generator().manual_seed(SEED))
     model = model.to(dev).eval()
     eval_step = m["make_eval_step"](model, cfg)
     n_fwd, n_taps = conv_launches(cfg)[0], meta_units(cfg)
+    totals = {}
     for B in (4, 1):
         inputs = m["build_eval_inputs"](
             m["make_batch"](cfg, B, seed=SEED, num_boxes=20,
                             style="vehicles"), cfg, dev)
+        seen, real_taps = [], taps.meta_kernel_taps
+
+        def keep(*args):
+            seen.append(tuple(a.detach().clone() for a in args))
+            return real_taps(*args)
+
         torch.cuda.synchronize()
         reset_counts(m)
-        out = eval_step(inputs)
+        with mock.patch.object(taps, "meta_kernel_taps", keep):
+            out = eval_step(inputs)
         torch.cuda.synchronize()
         got = read_counts(m)
         if (got["fwd"], got["meta_kernel_taps"]) != (n_fwd, n_taps):
@@ -1537,6 +1647,9 @@ def phase8_eval(torch, m, dev):
                     or not torch.isfinite(boxes[valid]).all()):
                 fail(f"B={B}: non-finite or misshapen {name} boxes")
             counts[name] = valid.sum(1).tolist()
+        if taps_check:
+            totals[B] = check_taps(torch, taps, seen[0], tag, one_ulp=True)
+        del seen
 
         with torch.inference_mode():
             got = model(inputs["input_data"], inputs["coord"])
@@ -1571,8 +1684,8 @@ def phase8_eval(torch, m, dev):
             wnms = [_median_ms(lambda: real_wnms(*a, **kw))
                     for a, kw in calls]
         cands = [int(a[2].sum()) for a, _ in calls]
-        print(f"[8] B={B} multiclass eval step: {n_fwd} conv3x3 and {n_taps} "
-              f"taps launches; kernel vs plain path max|a-b|/max|b| per "
+        print(f"[{tag}] B={B} {recipe} eval step: {n_fwd} conv3x3 and "
+              f"{n_taps} taps launches; kernel vs plain path max|a-b|/max|b| per "
               f"output " + " ".join(f"{r:.4g}" for r in rels)
               + f" (bound {MODEL_TOL}); valid boxes per frame "
               + ", ".join(f"{c} {counts[c]}" for c in cfg.class_names)
@@ -1581,6 +1694,7 @@ def phase8_eval(torch, m, dev):
               + f" = {sum(wnms):.2f} ms = {100 * sum(wnms) / step_ms:.1f}%; "
               f"peak memory {peak:.2f} GiB")
     del model, eval_step
+    return totals, n_taps
 
 
 def phase8_files(torch, m, dev):
@@ -1769,10 +1883,117 @@ def phase8(torch, m, dev):
           f"memory {peak:.2f} GiB")
     del model, state, step, batch
 
-    phase8_eval(torch, m, dev)
+    eval_checks(torch, m, dev, MULTICLASS, "8")
     phase8_files(torch, m, dev)
     print(f"[8] phase 8 in {time.perf_counter() - t_phase:.1f} s")
     return totals, launches
+
+
+# ---------------------------------------------------------------- phase 9
+def phase9(torch, m, dev, earlier):
+    """The wide-channel recipe at full width and depth: one recorded B=2
+    train step (launches as the config implies), the Meta-Kernel block's
+    kernels at C=128 on its launches (meta_block_checks: no speed gate),
+    each conv shape of the step that ``earlier`` (phase 5's recorded
+    forward, dgrad and wgrad shapes) lacks once as forward, dgrad and
+    wgrad under phase 5's gates, 5 falling losses, the median of 10 steps
+    and the peak memory; then the eval step at B=4 and B=1 with kernel 7
+    at 9C = 1152 channels held on its inputs (eval_checks). Returns (rows
+    3-5's KernelTotals, the step's launches, row 7's {B: KernelTotals},
+    its launches per B=1 eval step)."""
+    t_phase = time.perf_counter()
+
+    def fail(msg):
+        raise SystemExit(f"[9] {msg}")
+
+    cfg = m["load_config"](TPUOPT, is_train=True).replace(
+        base_lr=0.01, warmup_epochs=0)
+    H = cfg.pad_field[0]
+    model = m["RangeDet"](**cfg.model_kwargs())
+    model.init_from(torch.Generator().manual_seed(SEED))
+    state = m["create_train_state"](model.to(dev), cfg, STEPS_PER_EPOCH,
+                                    seed=None)
+    step = m["make_train_step"](state, cfg)
+    batch = m["batch_to_device"](
+        m["make_batch"](cfg, 2, seed=SEED, num_boxes=20), dev)
+    expected = train_launches(cfg, "9")
+    torch.cuda.synchronize()
+    reset_counts(m)
+    fwd, dgrad, wgrad, _, _, metas = record_train_step(
+        step, batch, m["conv3x3"], m["iou"], m["layers"], m["meta"])
+    torch.cuda.synchronize()
+    launches = read_counts(m)
+    if launches != expected:
+        fail(f"launches {launches}, expected {expected}")
+    widths = {tuple(a[0].shape[2:3]) + (a[2].shape[1],) for a in
+              metas["stats"]}
+    print(f"[9] {TPUOPT}, B=2 train step at {cfg.pad_field[0]}x"
+          f"{cfg.pad_field[1]}: launches {launches}; Meta-Kernel (C, Cm) "
+          f"{sorted(widths)}")
+    if widths != {(128, 32)}:
+        fail(f"the step's Meta-Kernel widths {widths}, expected C=128, Cm=32")
+    totals = meta_block_checks(torch, m["meta"], m["taps"], metas, "9")
+    del metas
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+
+    def rn(*shape, scale=1.0):
+        return scale * torch.randn(*shape, device=dev, generator=g)
+
+    def vecs(C):
+        return 1.0 + 0.3 * rn(C), 0.2 * rn(C)
+
+    conv3x3 = m["conv3x3"]
+    print("[9] conv shapes of the step that phase 5 did not run, once each "
+          "(kernel   B    Ci    Co     W ...  max_abs_err  kernel_ms   "
+          "plain_ms  cudnn_ms   bound_ms)")
+    n_new = 0
+    for name, shapes, case in (("fwd", fwd, conv_fwd_case),
+                               ("dgrad", dgrad, conv_dgrad_case),
+                               ("wgrad", wgrad, conv_wgrad_case)):
+        new = sorted(k for k in shapes if k not in earlier[name])
+        n_new += len(new)
+        t = KernelTotals()  # the new shapes' launches in the step
+        for key in new:
+            err, k_ms, p_ms, c_ms, bound, _, *_ = case(
+                torch, conv3x3, key, H, rn, vecs, fail)
+            t.add(shapes[key], k_ms, p_ms, bound, c_ms, err)
+            print(f"[9] {name:5s} {' '.join(f'{v:5d}' for v in key)} "
+                  f"{err:12.6g} {k_ms:10.4f} {p_ms:10.4f} {c_ms:9.4f} "
+                  f"{bound[0]:10.4f}")
+        print(f"[9] {name} over the {t.n} launches of the step at these "
+              f"shapes: kernel {t.ms:.3f} ms, cuDNN {t.library_ms:.3f} ms "
+              f"({t.ms / max(t.library_ms, 1e-9):.2f}x), bound "
+              f"{t.bound_ms:.3f} ms")
+    wide = [k for d in (fwd, dgrad, wgrad) for k in d if 256 in k[1:3]]
+    print(f"[9] {n_new} new conv shapes held (forward, dgrad and wgrad; "
+          f"{len(wide)} shapes of the step have Ci or Co of 256)")
+    if not wide:
+        fail("no conv shape of 256 channels in the step")
+
+    losses = []
+    for i in range(5):
+        torch.cuda.synchronize()
+        reset_counts(m)
+        metrics = step(batch)
+        torch.cuda.synchronize()
+        if read_counts(m) != expected:
+            fail(f"step {i}: launches {read_counts(m)}")
+        losses.append(float(metrics["total_loss"]))
+    if not all(math.isfinite(v) for v in losses) or losses[-1] >= losses[0]:
+        fail(f"loss not finite or not falling: {losses}")
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = _median_ms(lambda: step(batch))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[9] 5 steps, total_loss " + " ".join(f"{v:.6f}" for v in losses)
+          + f"; B=2 train step median {step_ms:.2f} ms over 10 steps; peak "
+          f"memory {peak:.2f} GiB")
+    del model, state, step, batch
+
+    taps_totals, taps_launches = eval_checks(torch, m, dev, TPUOPT, "9",
+                                             taps_check=True)
+    print(f"[9] phase 9 in {time.perf_counter() - t_phase:.1f} s")
+    return totals, launches, taps_totals, taps_launches
 
 
 def main():
@@ -2029,6 +2250,8 @@ def main():
     del rmodel, rstate
     totals = phase5(torch, conv3x3, iou_mod, layers, meta_block, taps,
                     recorded, H, dev)
+    earlier = dict(zip(("fwd", "dgrad", "wgrad"), map(set, recorded[:3])))
+    del recorded
 
     # ------------------------------------------------------------ phase 6
     mods = dict(conv3x3=conv3x3, iou=iou_mod, meta=meta_block, taps=taps,
@@ -2056,6 +2279,10 @@ def main():
     mods.update(layers=layers, nms=nms, run_inference=run_inference,
                 augment=augment, waymo=waymo, bin_cli=bin_cli)
     mc_iou, mc_launches = phase8(torch, mods, dev)
+
+    # ------------------------------------------------------------ phase 9
+    wide, wide_launches, wide_taps, wide_taps_launches = phase9(
+        torch, mods, dev, earlier)
 
     # one entry per kernel and path: the serving forward (launches of the
     # B=1 eval step of phase 3, times of one B=1 forward in phases 2 and
@@ -2088,6 +2315,18 @@ def main():
         ("train_multiclass", "iou_target", mc_iou, mc_launches["iou"],
          "rangedet_tpu_torch/csrc/iou_target.cu",
          "rangedet_tpu/ops/iou_target_pallas.py:193"),
+        ("train_tpuopt", "meta_stats", wide["meta_stats"],
+         wide_launches["meta_stats"], meta_src,
+         "rangedet_tpu/ops/meta_block_pallas.py:338"),
+        ("train_tpuopt", "meta_agg", wide["meta_agg"],
+         wide_launches["meta_agg"], meta_src,
+         "rangedet_tpu/ops/meta_block_pallas.py:368"),
+        ("train_tpuopt", "meta_block_bwd", wide["meta_block_bwd"],
+         wide_launches["meta_block_bwd"], meta_src,
+         "rangedet_tpu/ops/meta_block_pallas.py:411"),
+        ("serve_tpuopt", "meta_kernel_taps", wide_taps[1],
+         wide_taps_launches, meta_src,
+         "rangedet_tpu/ops/meta_kernel_pallas.py:138"),
     ):
         entries.append({
             "name": name, "path": path, "route": "cuda", "source": source,

@@ -122,14 +122,12 @@ def load_from(csrc: Path) -> ctypes.CDLL:
                      + [vp] * 4),
         "iou_clip": ([vp, strides] * 2 + [i32] * 3 + [vp] * 2 + [i32] * 3
                      + [vp] * 2),
-        "meta_block_widths": [i32],
-        "meta_block_grid": [i32] * 4,
-        "meta_block_part_floats": [i32],
-        "meta_stats_fwd": [vp] * 8 + [i32] * 4 + [vp],
-        "meta_agg_fwd": [vp] * 10 + [i32] * 5 + [vp],
-        "meta_block_bwd": [vp] * 13 + [i32] * 6 + [vp],
-        "meta_kernel_grid": [i32] * 3,
-        "meta_kernel_taps": [vp] * 7 + [i32] * 4 + [vp],
+        "meta_block_grid": [i32] * 5,
+        "meta_block_part_floats": [i32] * 2,
+        "meta_stats_fwd": [vp] * 8 + [i32] * 6 + [vp],
+        "meta_agg_fwd": [vp] * 10 + [i32] * 6 + [vp],
+        "meta_block_bwd": [vp] * 13 + [i32] * 7 + [vp],
+        "meta_kernel_taps": [vp] * 7 + [i32] * 6 + [vp],
     }
     for name, argtypes in entry_points.items():
         if hasattr(lib, name):

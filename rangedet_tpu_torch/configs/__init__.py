@@ -2,10 +2,10 @@
 field by field but for the TPU-only fields (``base.py``):
 rangedet_veh_wo_aug_4_18e, rangedet_veh_wo_aug_all_36e,
 rangedet_ped_wo_aug_4_18e, rangedet_ped_wo_aug_all_36e,
-rangedet_cyc_wo_aug_4_18e and rangedet_multiclass_all_36e (three classes,
-trained with the host augmentation). rangedet_veh_tpuopt_all_36e is not
-ported: its Meta-Kernel widths (C=128) are beyond the port's Meta-Kernel
-kernels, which are built for C=64.
+rangedet_cyc_wo_aug_4_18e, rangedet_multiclass_all_36e (three classes,
+trained with the host augmentation) and rangedet_veh_tpuopt_all_36e (the
+wide-channel recipe, whose Meta-Kernel block runs the kernels' C=128
+instance): all seven of the JAX package's.
 """
 import importlib
 import importlib.util

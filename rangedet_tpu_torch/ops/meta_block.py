@@ -183,6 +183,7 @@ def meta_bwd_plain(feat, cb, w0, b0, w1, b1, extras, mode: str,
 
 # ------------------------------------------- the tensor-core kernels' plan
 TQ = 64             # pixels of a chunk: wgmma's M
+GROUP = 64          # channels of a group: a block's tiles
 HALO = 8            # box columns left of a chunk: 16 bytes of bf16
 BOXW = TQ + 2 * HALO  # width of a box of the shifted rows
 # the kernels recompute wt in the plain version's order where nb * wt lies
@@ -229,12 +230,23 @@ class MetaPlan:
     [begin, end) = (chunks*i // blocks, chunks*(i+1) // blocks), in order,
     taps inside; the agg tile of its n-th tap streams into tile n % 2. The
     backward's partials are added per block in chunk order, then over
-    blocks in order."""
+    blocks in order.
+
+    Channel groups: a block's tiles hold GROUP = 64 of the C channels, so
+    at C = 128 there are two groups, g = 0 (channels 0..63) and 1. meta_agg
+    sums every group into y: a block walks its chunks, and in each chunk
+    the groups in order (its units), taps inside. The other kinds give
+    each block one group: block i takes group i % groups and the chunk
+    range of i // groups among the blocks // groups of that group (block i
+    > 0 of C = 64 is group 0). Their partials hold the group's channels;
+    the reduction adds, for each element, the partials of the blocks of
+    its group in block order (dW0 and db0: every block's)."""
     kind: str
     B: int
     H: int
     W: int
     blocks: int
+    C: int = 64
 
     @property
     def pitch(self) -> int:
@@ -258,9 +270,29 @@ class MetaPlan:
     def chunks(self) -> int:
         return self.B * self.rows * self.nq
 
+    @property
+    def groups(self) -> int:
+        return self.C // GROUP
+
+    @property
+    def grid_groups(self) -> int:
+        """Channel groups split over the blocks (meta_agg: none)."""
+        return 1 if self.kind == "agg" else self.groups
+
+    def block_group(self, i: int) -> int:
+        """The group of block i (meta_agg: 0, the first of its units)."""
+        return i % self.grid_groups
+
     def block_range(self, i: int) -> Tuple[int, int]:
-        return (self.chunks * i // self.blocks,
-                self.chunks * (i + 1) // self.blocks)
+        j, n = i // self.grid_groups, self.blocks // self.grid_groups
+        return self.chunks * j // n, self.chunks * (j + 1) // n
+
+    def units(self, i: int) -> List[Tuple[int, int]]:
+        """Block i's (chunk, group) in its order."""
+        inner = self.groups // self.grid_groups
+        g0 = self.block_group(i) * inner
+        return [(ch, g0 + gi) for ch in range(*self.block_range(i))
+                for gi in range(inner)]
 
     def chunk(self, ch: int) -> Tuple[int, int, int]:
         """(b, row, first column) of chunk ch: (b, h, w0) for the forward,
@@ -281,11 +313,17 @@ class MetaPlan:
                 "gy": (c0 - HALO, h - 1, 3, BOXW)}
 
 
-def plan_meta(kind: str, B: int, H: int, W: int, blocks: int) -> MetaPlan:
+def plan_meta(kind: str, B: int, H: int, W: int, blocks: int,
+              C: int = 64) -> MetaPlan:
     if kind not in (*FORWARD_KINDS, "bwd"):
         raise ValueError(f"kind must be one of {(*FORWARD_KINDS, 'bwd')}, "
                          f"got {kind!r}")
-    return MetaPlan(kind, B, H, W, blocks)
+    if C % GROUP:
+        raise ValueError(f"C must be a multiple of {GROUP}, got {C}")
+    plan = MetaPlan(kind, B, H, W, blocks, C)
+    if blocks % plan.grid_groups:
+        raise ValueError(f"{blocks} blocks for {plan.grid_groups} groups")
+    return plan
 
 
 def _pitched(t, pitch):
@@ -300,25 +338,34 @@ def _pitched(t, pitch):
 
 
 # ---------------------------------------------------------------- kernels
-def _kernel_inputs(feat, cb, w0, b0, w1, b1):
+# the widths (C, Cm, Co) the kernels are built for (csrc/meta_block.cu's
+# instances, chosen there by C; meta_stats and the taps read no Co)
+BUILT_WIDTHS = ((64, 32, 64), (128, 32, 128))
+
+
+def _kernel_inputs(feat, cb, w0, b0, w1, b1, Co=None):
     """Checks for the kernel, and its f32 weights as they are: the kernels
     round them to bf16 as they load them (on the card the casts of
-    ``_weights`` were ten small launches a call)."""
+    ``_weights`` were ten small launches a call). The instance is chosen
+    by the widths of the tensors, (C, Cm) and, for meta_agg and the
+    backward, ``Co``; a width with no instance raises."""
     if feat.dtype != torch.bfloat16:
         raise TypeError(f"the kernels take bf16 features, got {feat.dtype}")
     _need(feat, "feat", feat, torch.bfloat16)
     B, H, C, W = feat.shape
+    Cm = w0.shape[1]
+    if not any((C, Cm) == w[:2] and Co in (None, w[2])
+               for w in BUILT_WIDTHS):
+        raise ValueError(f"no kernel is built for C={C}, Cm={Cm}"
+                         + ("" if Co is None else f", Co={Co}")
+                         + f"; built: (C, Cm, Co) in {BUILT_WIDTHS}")
     lib = _build.load()
-    widths = tuple(lib.meta_block_widths(i) for i in range(3))
-    if (C, w0.shape[1]) != widths[:2]:
-        raise ValueError(f"the kernels are built for C={widths[0]}, "
-                         f"Cm={widths[1]}; got C={C}, Cm={w0.shape[1]}")
     cbb = cb.to(torch.bfloat16, memory_format=torch.contiguous_format)
     _need(feat, "cb", cbb, torch.bfloat16)
     ws = [w.float().contiguous() for w in (w0, b0, w1, b1)]
     for name, t in zip(("w0", "b0", "w1", "b1"), ws):
         _need(feat, name, t, torch.float32)
-    return lib, cbb, ws, widths
+    return lib, cbb, ws
 
 
 def _vec9(feat, name, v, C):
@@ -333,11 +380,19 @@ def _agg_weight(feat, agg, C, Co):
     return a
 
 
-def _grid(lib, kind, B, H, W):
-    n = lib.meta_block_grid(kind, B, H, W)
+def _grid(lib, kind, C, B, H, W):
+    n = lib.meta_block_grid(kind, C, B, H, W)
     if n <= 0:
-        raise RuntimeError(f"meta_block_grid({kind}) failed: {n}")
+        raise RuntimeError(f"meta_block_grid({kind}, C={C}) failed: {n}")
     return n
+
+
+def _bwd_sum_floats(mode: str, C: int, Cm: int, Co: int) -> int:
+    """Floats of the backward's reduced sums: mode "agg" [dA (9C, Co), ds9,
+    db9] then the MLP's [dW0 (3, Cm), db0, dW1 (Cm, C), db1]; "stats" the
+    MLP's."""
+    mlp = 4 * Cm + Cm * C + C
+    return mlp + (9 * C * (Co + 2) if mode == "agg" else 0)
 
 
 def meta_stats(feat, cb, w0, b0, w1, b1):
@@ -347,19 +402,19 @@ def meta_stats(feat, cb, w0, b0, w1, b1):
     _check(feat, cb, w0, b0, w1, b1)
     if not _route(feat, "meta_block"):
         return meta_stats_plain(feat, cb, w0, b0, w1, b1)
-    lib, cbb, ws, _ = _kernel_inputs(feat, cb, w0, b0, w1, b1)
+    lib, cbb, ws = _kernel_inputs(feat, cb, w0, b0, w1, b1)
     B, H, C, W = feat.shape
-    plan = plan_meta("stats", B, H, W, _grid(lib, 0, B, H, W))
+    plan = plan_meta("stats", B, H, W, _grid(lib, 0, C, B, H, W), C)
     fp, cp = _pitched(feat, plan.pitch), _pitched(cbb, plan.pitch)
-    n = lib.meta_block_part_floats(0)
+    n = lib.meta_block_part_floats(0, C)
     dev = feat.device
     part = torch.empty((plan.blocks, n), dtype=torch.float32, device=dev)
     sums = torch.empty((2, 9 * C), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = lib.meta_stats_fwd(
             fp.data_ptr(), cp.data_ptr(), *(w.data_ptr() for w in ws),
-            part.data_ptr(), sums.data_ptr(), B, H, W, plan.blocks,
-            _stream(feat))
+            part.data_ptr(), sums.data_ptr(), C, B, H, W, plan.pitch,
+            plan.blocks, _stream(feat))
     if err != 0:
         raise RuntimeError(f"meta_stats_fwd launch failed: cudaError {err}")
     STATS_LAUNCHES += 1
@@ -373,19 +428,19 @@ def meta_agg(feat, cb, w0, b0, w1, b1, s9, b9, agg):
     _check(feat, cb, w0, b0, w1, b1)
     if not _route(feat, "meta_block"):
         return meta_agg_plain(feat, cb, w0, b0, w1, b1, s9, b9, agg)
-    lib, cbb, ws, widths = _kernel_inputs(feat, cb, w0, b0, w1, b1)
     B, H, C, W = feat.shape
-    Co = widths[2]
+    Co = agg.shape[-1]
+    lib, cbb, ws = _kernel_inputs(feat, cb, w0, b0, w1, b1, Co)
     s9f, b9f = _vec9(feat, "s9", s9, C), _vec9(feat, "b9", b9, C)
     a = _agg_weight(feat, agg, C, Co)
-    plan = plan_meta("agg", B, H, W, _grid(lib, 1, B, H, W))
+    plan = plan_meta("agg", B, H, W, _grid(lib, 1, C, B, H, W), C)
     fp, cp = _pitched(feat, plan.pitch), _pitched(cbb, plan.pitch)
     y = torch.empty((B, H, Co, W), dtype=feat.dtype, device=feat.device)
     with torch.cuda.device(feat.device):
         err = lib.meta_agg_fwd(
             fp.data_ptr(), cp.data_ptr(), *(w.data_ptr() for w in ws),
             s9f.data_ptr(), b9f.data_ptr(), a.data_ptr(), y.data_ptr(),
-            B, H, W, plan.pitch, plan.blocks, _stream(feat))
+            C, B, H, W, plan.pitch, plan.blocks, _stream(feat))
     if err != 0:
         raise RuntimeError(f"meta_agg_fwd launch failed: cudaError {err}")
     AGG_LAUNCHES += 1
@@ -400,9 +455,10 @@ def meta_bwd(feat, cb, w0, b0, w1, b1, extras, mode: str):
         raise ValueError(f"mode must be 'agg' or 'stats', got {mode!r}")
     if not _route(feat, "meta_block"):
         return meta_bwd_plain(feat, cb, w0, b0, w1, b1, extras, mode)
-    lib, cbb, ws, widths = _kernel_inputs(feat, cb, w0, b0, w1, b1)
     B, H, C, W = feat.shape
-    Cm, Co = widths[1], widths[2]
+    Cm = w0.shape[1]
+    Co = extras[2].shape[-1] if mode == "agg" else None
+    lib, cbb, ws = _kernel_inputs(feat, cb, w0, b0, w1, b1, Co)
     a = gy = None
     if mode == "agg":
         s9, b9, agg, gy = extras
@@ -413,20 +469,21 @@ def meta_bwd(feat, cb, w0, b0, w1, b1, extras, mode: str):
     else:
         e0, e1 = (_vec9(feat, n, e, C) for n, e in zip(("c1", "c2"), extras))
     kind = 3 if mode == "agg" else 2
-    plan = plan_meta("bwd", B, H, W, _grid(lib, kind, B, H, W))
+    plan = plan_meta("bwd", B, H, W, _grid(lib, kind, C, B, H, W), C)
     fp, cp = _pitched(feat, plan.pitch), _pitched(cbb, plan.pitch)
     if gy is not None:
         gy = _pitched(gy, plan.pitch)
-    n = lib.meta_block_part_floats(kind)
+    n = lib.meta_block_part_floats(kind, C)
     dev = feat.device
     part = torch.empty((plan.blocks, n), dtype=torch.float32, device=dev)
-    sums = torch.empty((n,), dtype=torch.float32, device=dev)
+    sums = torch.empty((_bwd_sum_floats(mode, C, Cm, Co),),
+                       dtype=torch.float32, device=dev)
     dfeat = torch.empty_like(feat)
     with torch.cuda.device(dev):
         err = lib.meta_block_bwd(
             fp.data_ptr(), cp.data_ptr(), *(w.data_ptr() for w in ws),
             e0.data_ptr(), e1.data_ptr(), _ptr(a), _ptr(gy),
-            dfeat.data_ptr(), part.data_ptr(), sums.data_ptr(), B, H, W,
+            dfeat.data_ptr(), part.data_ptr(), sums.data_ptr(), C, B, H, W,
             plan.pitch, plan.blocks, int(mode == "agg"), _stream(feat))
     if err != 0:
         raise RuntimeError(f"meta_block_bwd launch failed: cudaError {err}")

@@ -13,7 +13,8 @@ feat[p + o_t] * w. Weights are in the JAX package's layout: w0 (3, Cm), b0
   ``rangedet_tpu/models/meta_kernel.py:_bhcw``) in the port's layout: every
   operand cast to feat.dtype, so in bf16 ``h`` and ``w`` round to bf16.
 * ``meta_kernel_taps`` routes: a CPU tensor to the plain version, a CUDA
-  tensor to the kernel (bf16, the recipe's widths C=64, Cm=32) or raises.
+  tensor to the kernel (bf16, at the widths it is built for: C=64 or 128,
+  Cm=32) or raises.
   The kernel is the "taps" mode of ``csrc/meta_block.cu``'s forward kernel,
   whose tap stage meta_stats, meta_agg and the block backward share: rel,
   h and w in f32 from the bf16 operands, rounded once, at the product,
@@ -31,7 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from .conv3x3 import _route, _stream
-from .meta_block import _check, _kernel_inputs, _pitched, plan_meta
+from .meta_block import _check, _grid, _kernel_inputs, _pitched, plan_meta
 
 # kernel launches since the last reset: one per call that launches the
 # kernel
@@ -72,19 +73,17 @@ def meta_kernel_taps(feat, cb, w0, b0, w1, b1):
     _check(feat, cb, w0, b0, w1, b1)
     if not _route(feat, "meta_kernel"):
         return meta_kernel_taps_plain(feat, cb, w0, b0, w1, b1)
-    lib, cbb, ws, _ = _kernel_inputs(feat, cb, w0, b0, w1, b1)
+    lib, cbb, ws = _kernel_inputs(feat, cb, w0, b0, w1, b1)
     B, H, C, W = feat.shape
-    blocks = lib.meta_kernel_grid(B, H, W)
-    if blocks <= 0:
-        raise RuntimeError(f"meta_kernel_grid failed: {blocks}")
-    plan = plan_meta("taps", B, H, W, blocks)
+    plan = plan_meta("taps", B, H, W, _grid(lib, 4, C, B, H, W), C)
     fp, cp = _pitched(feat, plan.pitch), _pitched(cbb, plan.pitch)
     out = torch.empty((B, H, 9 * C, plan.pitch), dtype=feat.dtype,
                       device=feat.device)
     with torch.cuda.device(feat.device):
         err = lib.meta_kernel_taps(
             fp.data_ptr(), cp.data_ptr(), *(w.data_ptr() for w in ws),
-            out.data_ptr(), B, H, W, plan.blocks, _stream(feat))
+            out.data_ptr(), C, B, H, W, plan.pitch, plan.blocks,
+            _stream(feat))
     if err != 0:
         raise RuntimeError(f"meta_kernel_taps launch failed: cudaError {err}")
     LAUNCHES += 1

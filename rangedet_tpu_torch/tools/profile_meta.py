@@ -1,10 +1,15 @@
 """The Meta-Kernel kernels of csrc/meta_block.cu (the forward kernel's
 three modes: meta_stats, meta_agg, the eval taps; the block backward in
 both modes) on the inputs one full-size B=2 train step and one B=4 and B=1
-eval forward of ``rangedet_veh_wo_aug_4_18e`` give them (seeded random
-weights, synthetic frames):
+eval forward of a recipe give them (seeded random weights, synthetic
+frames):
 
-    python -m rangedet_tpu_torch.tools.profile_meta [--against DIR]
+    python -m rangedet_tpu_torch.tools.profile_meta [--recipe NAME]
+        [--against DIR]
+
+The recipe sets the width: ``rangedet_veh_wo_aug_4_18e`` (the default)
+runs the kernels' C=64 instance (Cm=32, Co=64), ``rangedet_veh_tpuopt_all_36e``
+their C=128 instance (Cm=32, Co=128).
 
 For each launch: the error against the plain version inside chip_smoke's
 gates (for meta_agg the count of bf16 outputs that differ from the plain
@@ -21,11 +26,14 @@ another build (e.g. a parent commit's, unpacked under the git-ignored
 build/), every launch of both builds is timed in turns; meta_agg and the
 backward must be bit-equal, and for meta_stats and the taps the count of
 elements that differ is printed (for the taps also each build's count of
-elements other than the training plain version's a). Needs a CUDA card.
+elements other than the training plain version's a). A build from before
+the kernels took their width as an argument (one instance, C=64) is
+called through ``Abi64``. Needs a CUDA card.
 """
 from __future__ import annotations
 
 import argparse
+import ctypes
 import subprocess
 from pathlib import Path
 from unittest import mock
@@ -156,10 +164,10 @@ def _bf16_ok(y, ref):
                 .all() and y.float().isfinite().all())
 
 
-def record_launches(dev):
+def record_launches(dev, recipe=RECIPE):
     """The Meta-Kernel launches of one B=2 train step (forward and
-    backward) and of one B=4 and one B=1 eval forward: [(work kind,
-    label, args)]."""
+    backward) and of one B=4 and one B=1 eval forward of ``recipe``:
+    [(work kind, label, args)]."""
     from ..configs import load_config
     from ..data.synthetic import make_batch
     from ..infer import build_eval_inputs
@@ -184,7 +192,7 @@ def record_launches(dev):
             return real[name](*args)
         return rec
 
-    cfg = load_config(RECIPE, is_train=True)
+    cfg = load_config(recipe, is_train=True)
     model = RangeDet(**cfg.model_kwargs())
     model.init_from(torch.Generator().manual_seed(SEED))
     model = model.to(dev).train()
@@ -193,7 +201,7 @@ def record_launches(dev):
         targets = build_train_targets(batch, cfg)
         cls, reg = model(batch["input_data"], batch["coord"])
         compute_losses(cls, reg, targets, cfg)[0].backward()
-    ecfg = load_config(RECIPE, is_train=False)
+    ecfg = load_config(recipe, is_train=False)
     model = model.eval()
     real_taps = taps.meta_kernel_taps
     for B in (4, 1):
@@ -263,6 +271,9 @@ def case(kind, args):
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--recipe", default=RECIPE,
+                   help="the recipe whose launches to run: its Meta-Kernel "
+                        "width picks the kernels' instance")
     p.add_argument("--against", type=Path, default=None,
                    help="a csrc directory of another build to compare and "
                         "time every launch against")
@@ -274,11 +285,11 @@ def main(argv=None):
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
-    print(f"profile_meta on {smi}", flush=True)
+    print(f"profile_meta on {smi}, recipe {args.recipe}", flush=True)
     dev = torch.device("cuda")
     failed = False
     sums = {}
-    launches = record_launches(dev)
+    launches = record_launches(dev, args.recipe)
     for kind, label, a in launches:
         m = case(kind, a)
         failed |= not (m["ok"] and m["same"])
@@ -315,6 +326,49 @@ def main(argv=None):
         raise SystemExit("profile_meta: a launch failed its gate or repeat")
 
 
+class Abi64:
+    """A build from before the kernels took their width (one instance, C=64,
+    Cm=32, Co=64, named by ``meta_block_widths``; meta_stats_fwd and
+    meta_kernel_taps without the pitch, meta_kernel_grid) behind the entry
+    points the wrappers call now."""
+
+    def __init__(self, lib):
+        vp, i32 = ctypes.c_void_p, ctypes.c_int
+        for name, types in {
+                "meta_block_grid": [i32] * 4,
+                "meta_block_part_floats": [i32],
+                "meta_stats_fwd": [vp] * 8 + [i32] * 4 + [vp],
+                "meta_agg_fwd": [vp] * 10 + [i32] * 5 + [vp],
+                "meta_block_bwd": [vp] * 13 + [i32] * 6 + [vp],
+                "meta_kernel_taps": [vp] * 7 + [i32] * 4 + [vp]}.items():
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = types, i32
+        self.lib = lib
+
+    def meta_block_grid(self, kind, C, B, H, W):
+        return self.lib.meta_block_grid(kind, B, H, W)
+
+    def meta_block_part_floats(self, kind, C):
+        return self.lib.meta_block_part_floats(kind)
+
+    def meta_stats_fwd(self, *a):
+        *ptrs, _, B, H, W, _, blocks, stream = a
+        return self.lib.meta_stats_fwd(*ptrs, B, H, W, blocks, stream)
+
+    def meta_agg_fwd(self, *a):
+        *ptrs, _, B, H, W, pitch, blocks, stream = a
+        return self.lib.meta_agg_fwd(*ptrs, B, H, W, pitch, blocks, stream)
+
+    def meta_kernel_taps(self, *a):
+        *ptrs, _, B, H, W, _, blocks, stream = a
+        return self.lib.meta_kernel_taps(*ptrs, B, H, W, blocks, stream)
+
+    def meta_block_bwd(self, *a):
+        *ptrs, _, B, H, W, pitch, blocks, mode, stream = a
+        return self.lib.meta_block_bwd(*ptrs, B, H, W, pitch, blocks, mode,
+                                       stream)
+
+
 def against(csrc, launches):
     """Every launch on this build and on the build of ``csrc``, on the same
     inputs, timed by events in turns. True when meta_agg and the backward
@@ -326,7 +380,10 @@ def against(csrc, launches):
     fns = {"stats": mb.meta_stats, "agg": mb.meta_agg, "taps":
            taps.meta_kernel_taps, "bwd_agg": mb.meta_bwd,
            "bwd_stats": mb.meta_bwd}
-    libs = {"this build": _build.load(), str(csrc): _build.load_from(csrc)}
+    other = _build.load_from(csrc)
+    if hasattr(other, "meta_block_widths"):
+        other = Abi64(other)
+    libs = {"this build": _build.load(), str(csrc): other}
     kept, all_same = _build._lib, True
 
     def run(lib, fn, a):

@@ -3,7 +3,7 @@ of a recipe at B=2, seeded random weights, one synthetic batch, under
 ``torch.profiler``.
 
     python -m rangedet_tpu_torch.tools.profile_train [--batch 2]
-        [--out profile_train.txt]
+        [--recipe rangedet_veh_wo_aug_4_18e] [--out profile_train.txt]
 
 Prints the wall time of the profiled steps, the device time of each stage
 of the step (targets, forward, losses with the IoU target, backward,
@@ -88,6 +88,7 @@ def profile_step(cfg, batch_size):
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--batch", type=int, default=2)
+    p.add_argument("--recipe", default=RECIPE)
     p.add_argument("--out", default=None)
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
@@ -95,14 +96,15 @@ def main(argv=None) -> None:
 
     from rangedet_tpu_torch.configs import load_config
 
-    cfg = load_config(RECIPE, is_train=True).replace(base_lr=0.01,
-                                                     warmup_epochs=0)
+    cfg = load_config(args.recipe, is_train=True).replace(
+        base_lr=0.01, warmup_epochs=0)
     forms = [("fused", cfg)] if cfg.use_pallas_meta else []
     forms.append(("materialized", cfg.replace(use_pallas_meta=False)))
     for i, (form, c) in enumerate(forms):
         wall_ms, busy_ms, ranges, peak_gib, kernels = profile_step(
             c, args.batch)
-        print(f"profile_train: {RECIPE} B={args.batch}, {form} Meta-Kernel "
+        print(f"profile_train: {args.recipe} B={args.batch}, {form} "
+              f"Meta-Kernel "
               f"block, on {torch.cuda.get_device_name(0)}: wall "
               f"{wall_ms:.2f} ms/step, device busy {busy_ms:.2f} ms/step "
               f"({100 * busy_ms / wall_ms:.1f}%); device ms by stage: "

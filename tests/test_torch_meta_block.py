@@ -313,8 +313,8 @@ def test_meta_kernels_match_plain_on_cuda():
         _check_meta_kernels(dev, g, B, H, W)
 
 
-def _check_meta_kernels(dev, g, B, H, W):
-    C_, Cm, Co = 64, 32, 64
+def _check_meta_kernels(dev, g, B, H, W, C_=64, Co=64):
+    Cm = 32
 
     def rn(*s, scale=1.0):
         return scale * torch.randn(*s, device=dev, generator=g)

@@ -178,8 +178,8 @@ def test_taps_kernel_matches_plain_on_cuda():
     assert mk.LAUNCHES == 4
 
 
-def _check_taps_kernel(dev, g, B, H, W):
-    C_, Cm = 64, 32
+def _check_taps_kernel(dev, g, B, H, W, C_=64):
+    Cm = 32
 
     def rn(*s, scale=1.0):
         return scale * torch.randn(*s, device=dev, generator=g)

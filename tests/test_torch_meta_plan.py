@@ -14,10 +14,13 @@ split terms accumulated in f32 (dW1 from six cross products, db1 from the
 ones row), the forward's plain-order wt near bf16 rounding boundaries, the
 stats' masked columns, the taps' stores clipped at W, the masked sources,
 dfeat added in tap order per output chunk, per-block partials added in
-block order. It must equal the plain versions at the kernels' widths (C =
-64, Cm = 32, Co = 64) and, in one case each, the JAX package's Pallas
-kernels in interpret mode; and the three forward modes form one tap
-product a.
+block order. At C = 128 (Co = 128) the plan's channel groups as well:
+meta_agg's blocks walk each chunk's two groups into one y, the other
+kernels' blocks take one group each, and their partials are added per
+group in block order. It must equal the plain versions at both widths the
+kernels are built for (C = 64, Cm = 32, Co = 64 and C = 128, Cm = 32, Co =
+128) and, in one case each, the JAX package's Pallas kernels in interpret
+mode; and the three forward modes form one tap product a.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -50,7 +53,7 @@ SUM_TOL = 1e-3
 SHAPES = [(1, 1, 70), (2, 3, 130), (1, 4, 257)]
 
 
-def _inputs(seed, B, H, W):
+def _inputs(seed, B, H, W, C=C, CO=CO):
     r = np.random.default_rng(seed)
 
     def n(*shape, scale=1.0):
@@ -130,52 +133,75 @@ def hidden(rel, w0, b0):
     return torch.relu(h + b0)
 
 
+def _by_group(plan, parts, local):
+    """The kernels' reduction of per-block partials: the sum over the
+    blocks of each group, in block order, of the group's channels (the
+    last axis of each ``local`` partial, GROUP wide), laid out at C; and
+    over every block, in block order, of the others."""
+    out = []
+    for i in range(len(parts[0][1])):
+        if i not in local:
+            out.append(sum(p[i] for _, p in parts))
+            continue
+        out.append(torch.cat([
+            sum(p[i] for g, p in parts if g == grp)
+            for grp in range(plan.groups)], dim=-1))
+    return out
+
+
 def emulate_fwd(x, kind, blocks):
     """The forward kernel's loop in mode ``kind``: "agg" -> y (B, H, CO,
     W); "stats" -> (sum a, sum a^2), each (9C,); "taps" -> a (B, H, 9C, W).
-    Also returns the tap products a the mode formed, (B, H, 9C, W)."""
+    Also returns the tap products a the mode formed, (B, H, 9C, W). A
+    block walks its units (chunk, channel group), taps inside; meta_agg's
+    y adds the groups' products of a chunk in unit order."""
     feat, cb = x["feat"], x["cb"]
-    B, H, _, W = feat.shape
+    B, H, C, W = feat.shape
+    Co = x["agg"].shape[1]
     w0, b0, w1, b1 = _mlp(x)
-    A = x["agg"].float().view(9, C, CO)
-    plan = mb.plan_meta(kind, B, H, W, blocks)
+    A = x["agg"].float().view(9, C, Co)
+    plan = mb.plan_meta(kind, B, H, W, blocks, C)
+    G = mb.GROUP
     fp = torch.zeros(B, H, C, plan.pitch, dtype=torch.bfloat16)
     fp[..., :W] = feat
     seen = torch.full((B, H, 9 * C, W), float("nan"))
-    out = torch.full((B, H, CO, W), float("nan")) if kind == "agg" else seen
+    out = torch.full((B, H, Co, W), float("nan")) if kind == "agg" else seen
     parts = []
     m = torch.arange(mb.TQ)
     for blk in range(plan.blocks):
-        part = torch.zeros(2, 9, C)
-        for ch in range(*plan.block_range(blk)):
+        part = torch.zeros(2, 9, G)
+        units = plan.units(blk)
+        for u, (ch, g) in enumerate(units):
             b, h, w0c = plan.chunk(ch)
             boxes = plan.boxes(ch)
-            fs = tma_box(fp, W, b, *boxes["feat"])
+            gs = slice(g * G, (g + 1) * G)
+            fs = tma_box(fp[:, :, gs], W, b, *boxes["feat"])
             cs = tma_box(cb, W, b, *boxes["crd"])
             cen = cs[1][:, mb.HALO + m].T
             ok = w0c + m < W  # the chunk's columns inside the image
-            y = torch.zeros(mb.TQ, CO)
+            if u == 0 or units[u - 1][0] != ch:
+                y = torch.zeros(mb.TQ, Co)
             for t, (dy, dx) in enumerate(mb.TAPS):
                 x0 = mb.HALO + m + dx - 1
                 rel = cs[dy][:, x0].T - cen
-                _, a = exact_wt(hidden(rel, w0, b0), w1, b1, fs[dy][:, x0].T)
-                sl = slice(t * C, (t + 1) * C)
+                _, a = exact_wt(hidden(rel, w0, b0), w1[:, gs], b1[gs],
+                                fs[dy][:, x0].T)
+                sl = slice(t * C + g * G, t * C + (g + 1) * G)
                 if kind == "agg":
                     z = a * x["s9"][sl] + x["b9"][sl]
-                    y = y + split_mm(torch.relu(z), A[t])
+                    y = y + split_mm(torch.relu(z), A[t][gs])
                 elif kind == "stats":
                     part[0, t] += a[ok].sum(0)
                     part[1, t] += (a[ok] * a[ok]).sum(0)
                 # the taps' TMA store writes the columns < W
                 seen[b, h, sl, w0c + m[ok]] = a[ok].T
-            if kind == "agg":
+            if kind == "agg" and (u + 1 == len(units)
+                                  or units[u + 1][0] != ch):
                 out[b, h, :, w0c + m[ok]] = y[ok].T
-        parts.append(part)
+        parts.append((plan.block_group(blk), (part,)))
     assert not seen.isnan().any() and not out.isnan().any()
     if kind == "stats":
-        s = parts[0]
-        for p in parts[1:]:
-            s = s + p
+        s, = _by_group(plan, parts, local={0})
         out = (s[0].reshape(-1), s[1].reshape(-1))
     return out, seen
 
@@ -185,59 +211,68 @@ def emulate_agg(x, blocks):
 
 
 def emulate_bwd(x, mode, blocks):
+    """The block backward: block i takes the channel group i % groups and
+    its output chunks; each partial holds the group's rows of dA, ds9, db9
+    and columns of dW1, db1, and a share of dW0, db0."""
     feat, cb = x["feat"], x["cb"]
-    B, H, _, W = feat.shape
+    B, H, C, W = feat.shape
+    Co = x["agg"].shape[1]
+    G = mb.GROUP
     w0, b0, w1, b1 = _mlp(x)
-    plan = mb.plan_meta("bwd", B, H, W, blocks)
-    A = x["agg"].float().view(9, C, CO)
+    plan = mb.plan_meta("bwd", B, H, W, blocks, C)
+    A = x["agg"].float().view(9, C, Co)
     e0, e1 = ((x["s9"], x["b9"]) if mode == "agg" else (x["c1"], x["c2"]))
     dfeat = torch.full((B, H, C, W), float("nan"))
-    visits = torch.zeros(B, H, W, 9, dtype=torch.int64)
+    visits = torch.zeros(B, H, W, 9, plan.groups, dtype=torch.int64)
     m = torch.arange(mb.TQ)
     parts = []
     for blk in range(plan.blocks):
         begin, end = plan.block_range(blk)
-        dA, ds9, db9 = (torch.zeros(9, C, CO), torch.zeros(9, C),
-                        torch.zeros(9, C))
+        g = plan.block_group(blk)
+        gsl = slice(g * G, (g + 1) * G)
+        w1g, b1g, Ag = w1[:, gsl], b1[gsl], A[:, gsl]
+        dA, ds9, db9 = (torch.zeros(9, Co, G), torch.zeros(9, G),
+                        torch.zeros(9, G))
         dw0, db0 = torch.zeros(3, CM), torch.zeros(CM)
-        dw1, db1 = torch.zeros(CM, C), torch.zeros(C)
+        dw1, db1 = torch.zeros(CM, G), torch.zeros(G)
         for ch in range(begin, end):
             b, hq, q0 = plan.chunk(ch)
             boxes = plan.boxes(ch)
-            nb = tma_box(feat, W, b, *boxes["feat"])[0].T  # (TQ, C)
+            nb = tma_box(feat[:, :, gsl], W, b, *boxes["feat"])[0].T
             cs = tma_box(cb, W, b, *boxes["crd"])
             gs = tma_box(x["gy"], W, b, *boxes["gy"])
             q = q0 + m
             cq = cs[1][:, mb.HALO + m].T
-            dfe = torch.zeros(mb.TQ, C)
+            dfe = torch.zeros(mb.TQ, G)
             for t, (dy, dx) in enumerate(mb.TAPS):
                 hs, srow, xs = hq - dy + 1, 2 - dy, mb.HALO + m + 1 - dx
                 s = q + 1 - dx
                 valid = (s >= 0) & (s < W) & (0 <= hs < H)
                 if 0 <= hs < H:
-                    visits[b, hs, s[valid], t] += 1
+                    visits[b, hs, s[valid], t, g] += 1
                 rel = cq - cs[srow][:, xs].T
                 h1 = hidden(rel, w0, b0)
-                wt = split_mm(h1, w1) + b1
+                wt = split_mm(h1, w1g) + b1g
                 a = (nb * wt).bfloat16().float()
-                sl = slice(t * C, (t + 1) * C)
+                sl = slice(t * C + g * G, t * C + (g + 1) * G)
                 if mode == "agg":
-                    gys = gs[srow][:, xs].T  # (TQ, CO), bf16 values
-                    dr = gys @ A[t].T
+                    gys = gs[srow][:, xs].T  # (TQ, Co), bf16 values
+                    dr = gys @ Ag[t].T
                     z = a * e0[sl] + e1[sl]
                     on = valid[:, None] & (z > 0)
                     dz = torch.where(on, dr, torch.zeros(()))
                     ds9[t] += (dz * a).sum(0)
                     db9[t] += dz.sum(0)
                     dA[t] += split_mm(torch.where(on, z, torch.zeros(())).T
-                                      .contiguous(), gys)
+                                      .contiguous(), gys).T
                     da = dz * e0[sl]
                 else:
                     da = torch.where(valid[:, None], e0[sl] + e1[sl] * a,
                                      torch.zeros(()))
                 dfe = dfe + da * wt
                 dwt = da * nb
-                dh = torch.where(h1 > 0, split_mm(dwt, w1.T), torch.zeros(()))
+                dh = torch.where(h1 > 0, split_mm(dwt, w1g.T),
+                                 torch.zeros(()))
                 db0 += dh.sum(0)
                 for j in range(3):
                     dw0[j] += (dh * rel[:, j:j + 1]).sum(0)
@@ -248,15 +283,17 @@ def emulate_bwd(x, mode, blocks):
                 db1 += sum(d.float() for d in ds).sum(0)
             ok = (q >= 0) & (q < W)
             if 0 <= hq < H:
-                dfeat[b, hq, :, q[ok]] = dfe[ok].T
-        parts.append((dA, ds9, db9, dw0, db0, dw1, db1))
-    # every (source, tap) pair of the image exactly once, every output once
+                dfeat[b, hq, gsl, q[ok]] = dfe[ok].T
+        parts.append((g, (dA, ds9, db9, dw0, db0, dw1, db1)))
+    # every (source, tap) pair of the image exactly once in each group,
+    # every output once
     assert bool((visits == 1).all())
     assert not dfeat.isnan().any()
-    sums = [sum(p[i] for p in parts) for i in range(7)]
-    dA, ds9, db9, dw0, db0, dw1, db1 = sums
+    dA, ds9, db9, dw0, db0, dw1, db1 = _by_group(plan, parts,
+                                                 local={0, 1, 2, 5, 6})
+    dA = dA.view(9, Co, C).transpose(1, 2)
     if mode == "agg":
-        return (dfeat, dA.reshape(9 * C, CO), ds9.reshape(-1),
+        return (dfeat, dA.reshape(9 * C, Co), ds9.reshape(-1),
                 db9.reshape(-1), dw0, db0, dw1, db1)
     return dfeat, dw0, db0, dw1, db1
 
@@ -447,3 +484,68 @@ def test_emulated_taps_match_pallas_nhwc():
     outside = (got - want).abs() > TAPS_TOL * (1 + want.abs())
     nearer = (got - ref).abs() <= (want - ref).abs()
     assert not (outside & ~nearer).any()
+
+
+# ------------------------------------------------- C = 128: channel groups
+def test_plan_channel_groups():
+    # meta_agg: every block walks both groups of each of its chunks; the
+    # others: block i takes group i % 2 and the chunks of i // 2
+    agg = mb.plan_meta("agg", 1, 3, 70, 3, C=128)
+    assert (agg.groups, agg.grid_groups) == (2, 1)
+    assert agg.units(0) == [(0, 0), (0, 1), (1, 0), (1, 1)]
+    assert agg.units(2) == [(4, 0), (4, 1), (5, 0), (5, 1)]
+    for kind in ("stats", "taps", "bwd"):
+        p = mb.plan_meta(kind, 1, 3, 70, 4, C=128)
+        assert (p.groups, p.grid_groups) == (2, 2)
+        assert [p.block_group(i) for i in range(4)] == [0, 1, 0, 1]
+        assert p.block_range(0) == p.block_range(1)
+        assert p.units(1) == [(ch, 1) for ch in range(*p.block_range(1))]
+        # every chunk once in each group
+        seen = sorted(u for i in range(4) for u in p.units(i))
+        assert seen == sorted((ch, g) for ch in range(p.chunks)
+                              for g in range(2))
+        with pytest.raises(ValueError):
+            mb.plan_meta(kind, 1, 3, 70, 3, C=128)
+    # C = 64 is one group: the plan of the kernels before the groups
+    p = mb.plan_meta("bwd", 2, 64, 2656, 132)
+    assert p.groups == 1 and p.units(5) == [(ch, 0) for ch in
+                                            range(*p.block_range(5))]
+
+
+@pytest.mark.parametrize("kind", ["agg", "stats", "taps", "bwd_agg",
+                                  "bwd_stats"])
+def test_emulated_kernels_match_plain_at_c128(kind):
+    x = _inputs(12, 1, 3, 70, C=128, CO=128)
+    mlp = (x["feat"], x["cb"], *_mlp(x))
+    if kind == "agg":
+        got = emulate_agg(x, blocks=3)
+        ref = mb.meta_agg_plain(*mlp, x["s9"], x["b9"], x["agg"],
+                                out_dtype=torch.float32)
+        assert got.shape == (1, 3, 128, 70) and _bf16_ok(got.bfloat16(), ref)
+    elif kind == "stats":
+        got, _ = emulate_fwd(x, "stats", blocks=4)
+        for g, r in zip(got, mb.meta_stats_plain(*mlp)):
+            assert g.shape == (9 * 128,) and _rel(g, r) <= SUM_TOL
+    elif kind == "taps":
+        got, _ = emulate_fwd(x, "taps", blocks=6)
+        ref = mk.meta_kernel_taps_plain(x["feat"].float(), x["cb"].float(),
+                                        *_mlp(x))
+        assert _bf16_ok(got.bfloat16(), ref)
+    else:
+        mode = kind[4:]
+        extras = ((x["s9"], x["b9"], x["agg"], x["gy"]) if mode == "agg"
+                  else (x["c1"], x["c2"]))
+        got = emulate_bwd(x, mode, blocks=4)
+        ref = mb.meta_bwd_plain(*mlp, extras, mode, out_dtype=torch.float32)
+        assert len(got) == len(ref)
+        assert _bf16_ok(got[0].bfloat16(), ref[0])
+        for i, (g, r) in enumerate(zip(got[1:], ref[1:])):
+            assert g.shape == r.shape
+            assert _rel(g, r) <= SUM_TOL, (i, _rel(g, r))
+
+
+def test_emulated_modes_form_one_tap_product_at_c128():
+    x = _inputs(13, 1, 2, 70, C=128, CO=128)
+    taps, _ = emulate_fwd(x, "taps", blocks=2)
+    for kind, blocks in (("agg", 3), ("stats", 4)):
+        assert torch.equal(emulate_fwd(x, kind, blocks)[1], taps), kind

@@ -34,18 +34,18 @@ torch.set_num_threads(1)
 FWD_TOL = dict(atol=2e-4, rtol=1e-3)
 
 
-# every recipe the port ships (all of rangedet_tpu/configs/ but the tpuopt one)
+# every recipe the port ships: all of rangedet_tpu/configs/
 PORT_RECIPES = sorted(
     p.stem for p in (pathlib.Path(rangedet_tpu_torch.configs.__file__).parent
                      ).glob("rangedet_*.py"))
 
 
-def test_port_ships_every_recipe_but_tpuopt():
+def test_port_ships_every_recipe():
     jax_recipes = sorted(
         p.stem for p in (pathlib.Path(rangedet_tpu.configs.__file__).parent
                          ).glob("rangedet_*.py"))
-    assert PORT_RECIPES == [r for r in jax_recipes if "tpuopt" not in r]
-    assert len(PORT_RECIPES) == 6
+    assert PORT_RECIPES == jax_recipes
+    assert len(PORT_RECIPES) == 7
 
 
 @pytest.mark.parametrize("recipe", PORT_RECIPES)

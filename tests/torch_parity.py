@@ -119,14 +119,16 @@ def masked_logits(model, tbatch):
 
 
 def check_eval_step(jax_layout: str, use_pallas_meta: bool,
-                    recipe: str = "rangedet_veh_wo_aug_4_18e") -> None:
+                    recipe: str = "rangedet_veh_wo_aug_4_18e",
+                    **overrides) -> None:
     """The port's whole eval step (tiny config of ``recipe``, f32, two
     frames) against the JAX one run in ``jax_layout`` ("bhcw", or "nhwc"
     whose Meta-Kernel runs the Pallas kernel interpreted when
     ``use_pallas_meta``), on one weight tree: per class, boxes to
     BOX_ATOL, valid masks and truncation flags exact, with the class's
     min_score and candidate cap placed in gaps of its scores, so rounding
-    noise decides neither."""
+    noise decides neither. ``overrides``: fields of the tiny config (such
+    as a recipe's own channel widths)."""
     from rangedet_tpu.data.synthetic import make_batch
     from rangedet_tpu.models.convert import convert_params
     from rangedet_tpu.train.train_step import build_eval_inputs as jax_inputs
@@ -135,7 +137,8 @@ def check_eval_step(jax_layout: str, use_pallas_meta: bool,
     from tiny import tiny_config
 
     jcfg = tiny_config(recipe, is_train=False, layout="bhcw",
-                       dtype=jnp.float32, use_pallas_meta=use_pallas_meta)
+                       dtype=jnp.float32, use_pallas_meta=use_pallas_meta,
+                       **overrides)
     batch = make_batch(jcfg, 2, seed=11, num_boxes=6)
     _, v = init_jax(jcfg, batch)
     params, stats = perturb(v, seed=7)
