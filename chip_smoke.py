@@ -107,7 +107,26 @@ Phases, one line of output each (or a table), failing on the first error:
    the kernel path within MODEL_TOL of the plain path, the median, the WNMS
    share, peak memory) with kernel 7 at 9C = 1152 channels on its inputs
    within one bf16 ulp of the f32 plain version and within JAX's bound of
-   the bf16 one.
+   the bf16 one;
+10. ``remat`` and the train CLI's options on ``rangedet_veh_wo_aug_4_18e``
+   at 64x2656, B=2: (a) a step with ``remat`` (every backbone stage
+   recomputed in the backward, the fused block with it) and (b) one with
+   ``remat_meta`` on the materialized block, each against the plain step
+   from the same init and batch: losses, parameters and running statistics
+   bit-equal; launches (remat: + the stages' 49 convs and one meta_stats
+   and meta_agg; remat_meta: unchanged); median step ms and peak memory of
+   both; (c) ``tools.train`` from 16 full-size files with a recipe of
+   adamws, onecycle, the global-norm clip, remat and log_frequency 4,
+   ``--tensorboard --profile-steps 2``, 2 epochs: finite losses, launches
+   16 x (a)'s, a speedometer line every 4 steps in log.txt with the
+   schedule's lr, LR and momentum of every step as the schedules give
+   them, after every step the kernels AdamWS standardizes at mean 0 and
+   std 1 a filter within STD_TOL and no other weight, TensorBoard events
+   (or its one warning where tensorboard is not installed), the trace of
+   steps 10-11 naming the conv kernels; then ``--resume``: the AdamW state
+   restored bit-equal to the first run's end, moments on the card, step
+   counts on the host; (d) the resumed epoch's data_ms and step_ms of
+   steps 2..8 and the device's busy share over the traced window.
 
 It prints a JSON line of the kernels, one entry per kernel and path (the
 serving forward of phases 2-3 and 7, the train step of phases 5-6, the IoU
@@ -228,6 +247,20 @@ META_TAPS_BOUND_MAX = 3.0
 # of ~340k terms in another order
 TAP_OFF_MAX = 1e-4
 TAP_SUM_TOL = 1e-5
+# phase 10's CLI run: training frames (B=2: 8 steps an epoch), the
+# recipe's options, the speedometer's frequency; AdamWS's standardized
+# kernels within STD_TOL of mean 0 / std 1 a filter after each step
+CLI_FRAMES = 16
+LOG_FREQ = 4
+STD_TOL = 1e-4
+CLI_RECIPE = """from rangedet_tpu_torch.configs import load_config
+
+
+def get_config(is_train):
+    return load_config({recipe!r}, is_train).replace(
+        optimizer="adamws", lr_mode="onecycle", clip_mode="global_norm",
+        remat=True, log_frequency={freq})
+"""
 
 
 def _smi():
@@ -1996,6 +2029,342 @@ def phase9(torch, m, dev, earlier):
     return totals, launches, taps_totals, taps_launches
 
 
+# ---------------------------------------------------------------- phase 10
+def remat_launches(cfg, per_step):
+    """The launches of one step with ``remat``: the step's, plus each
+    backbone stage's convs (all but the 4 deconvs and the head's) and the
+    fused block's meta_stats and meta_agg again, as the backward recomputes
+    the stages' forward."""
+    n_levels = len(cfg.fpn_strides)
+    stage = (conv_launches(cfg)[0] - 4
+             - n_levels * (cfg.cls_conv_layers + cfg.reg_conv_layers))
+    n_meta = meta_units(cfg) if cfg.use_pallas_meta else 0
+    out = dict(per_step)
+    out.update(fwd=per_step["fwd"] + stage,
+               meta_stats=per_step["meta_stats"] + n_meta,
+               meta_agg=per_step["meta_agg"] + n_meta)
+    return out, stage
+
+
+def remat_pair(torch, m, cfg, dev, remat_kw, tag, fail):
+    """One step from one seeded init and one batch without and with
+    ``remat_kw``: losses, parameters and running statistics bit-equal, the
+    launches of each; then the median of 10 more steps and the peak
+    memory of each. Returns (launches without, launches with)."""
+    init = m["RangeDet"](**cfg.model_kwargs())
+    init.init_from(torch.Generator().manual_seed(SEED))
+    init_sd = copy.deepcopy(init.state_dict())
+    batch = m["batch_to_device"](
+        m["make_batch"](cfg, 2, seed=SEED, num_boxes=20), dev)
+    runs = {}
+    for name, c in (("plain", cfg), ("remat", cfg.replace(**remat_kw))):
+        model = m["RangeDet"](**c.model_kwargs())
+        model.load_state_dict(init_sd)
+        model = model.to(dev)
+        state = m["create_train_state"](model, c, STEPS_PER_EPOCH, seed=None)
+        step = m["make_train_step"](state, c)
+        torch.cuda.synchronize()
+        reset_counts(m)
+        metrics = step(batch)
+        torch.cuda.synchronize()
+        launches = read_counts(m)
+        sd = {k: v.clone() for k, v in model.state_dict().items()}
+        torch.cuda.reset_peak_memory_stats()
+        ms = _median_ms(lambda: step(batch))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        runs[name] = (metrics, sd, launches, ms, peak)
+        del model, state, step
+    (ma, sa, la, msa, pa), (mb, sb, lb, msb, pb) = runs["plain"], \
+        runs["remat"]
+    losses = all(torch.equal(ma[k], mb[k]) for k in ma)
+    stats = [k for k in sa if "running" in k]
+    differ = [k for k in sa if not torch.equal(sa[k], sb[k])]
+    print(f"[10] {tag}: step 1 without and with {remat_kw}: total_loss "
+          f"{float(ma['total_loss'])!r} / {float(mb['total_loss'])!r}, all "
+          f"losses bit-equal {losses}; {len(sa) - len(stats)} parameters and "
+          f"{len(stats)} running statistics, {len(differ)} differ "
+          f"{differ[:4]}; launches {la} / {lb}; B=2 step median {msa:.2f} "
+          f"/ {msb:.2f} ms over 10 steps ({msb / msa - 1:+.1%}), peak "
+          f"memory {pa:.2f} / {pb:.2f} GiB ({pb / pa - 1:+.1%})")
+    if not losses or differ:
+        fail(f"{tag}: the step with {remat_kw} differs from the plain one")
+    return la, lb
+
+
+def standardization_check(torch, model):
+    """-> step(...) wrapper state: after each step, on the card with no
+    wait, the largest |mean| and |std - 1| over the output filters of the
+    kernels AdamWS standardizes, and the smallest such largest deviation
+    of the other conv and Linear weights."""
+    from rangedet_tpu_torch.train.schedule import standardized_params
+
+    std = standardized_params(model)
+    ids = {id(p) for p, _ in std}
+    others = [(p, (1, 2, 3) if p.dim() == 4 else (1,))
+              for p in model.parameters()
+              if p.dim() in (2, 4) and id(p) not in ids]
+
+    def dev(p, dims):
+        w = p.detach().double()
+        mean = w.mean(dim=dims)
+        sd = (w - w.mean(dim=dims, keepdim=True)).square().mean(
+            dim=dims).sqrt()
+        return torch.maximum(mean.abs().max(), (sd - 1).abs().max())
+
+    def read():
+        return torch.stack([
+            torch.stack([dev(p, dims) for p, dims in std]).max(),
+            torch.stack([dev(p, d) for p, d in others]).min()])
+
+    return read, len(std), len(others)
+
+
+def optimizer_update_ms(torch, m, cfg, ocfg, dev):
+    """Median ms of one optimizer update (train_step.apply_update: the
+    clip, the optimizer, AdamWS's standardization) on the recipe's
+    parameters with seeded gradients, for ``cfg``'s optimizer and
+    ``ocfg``'s."""
+    model = m["RangeDet"](**cfg.model_kwargs())
+    model.init_from(torch.Generator().manual_seed(SEED))
+    model = model.to(dev)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    for p in model.parameters():
+        p.grad = torch.randn(p.shape, device=dev, generator=g)
+    out = []
+    for c in (cfg, ocfg):
+        state = m["create_train_state"](model, c, STEPS_PER_EPOCH, seed=None)
+        out.append(_median_ms(lambda: m["train_step"].apply_update(state,
+                                                                  c)))
+    return out
+
+
+def phase10(torch, m, cfg, dev, per_step):
+    """remat and the train CLI's options on the recipe at full size: (a)
+    ``remat`` with the fused block and (b) ``remat_meta`` with the
+    materialized one, each step bit-equal to the plain step from one init
+    and batch (losses, parameters, running statistics), launches as the
+    recompute implies, median ms and peak memory of both; (c) tools.train
+    from files with adamws, onecycle, the global-norm clip, remat and
+    log_frequency LOG_FREQ, --tensorboard --profile-steps 2 over 2 epochs
+    (finite losses, launches, the speedometer lines of log.txt, the trace
+    and its conv kernels, every AdamWS kernel standardized after each step
+    and no other weight, LR and momentum as the schedules give them), then
+    --resume (the Adam state restored bit-equal, on the card); (d) the
+    data_ms / step_ms a step from the second step of an epoch of the
+    resumed run and of one of the recipe as it ships, the device's busy
+    share over the traced window, and one optimizer update's ms of both."""
+    import glob
+
+    from rangedet_tpu_torch.train import checkpoint as ckpt_mod
+    from rangedet_tpu_torch.train.schedule import (
+        build_momentum_schedule,
+        build_schedule,
+    )
+
+    t_phase = time.perf_counter()
+
+    def fail(msg):
+        raise SystemExit(f"[10] {msg}")
+
+    want_remat, n_stage = remat_launches(cfg, per_step)
+    print(f"[10] expected launches of a remat step: phase 6's + {n_stage} "
+          f"conv3x3 forward (the stages' convs, not the 4 deconvs or the "
+          f"head's) + one meta_stats and one meta_agg a fused block; dgrad, "
+          f"wgrad, the block backward and the IoU target unchanged")
+    la, lb = remat_pair(torch, m, cfg, dev, dict(remat=True),
+                        "(a) fused block", fail)
+    if la != per_step or lb != want_remat:
+        fail(f"(a) launches {la} / {lb}, expected {per_step} / "
+             f"{want_remat}")
+    mcfg = cfg.replace(use_pallas_meta=False)
+    la, lb = remat_pair(torch, m, mcfg, dev, dict(remat_meta=True),
+                        "(b) materialized block", fail)
+    if la != lb or any(la[k] for k in ("meta_stats", "meta_agg",
+                                       "meta_block_bwd",
+                                       "meta_kernel_taps")):
+        fail(f"(b) launches {la} / {lb}: the materialized step runs no "
+             f"Meta-Kernel kernel, with or without remat_meta")
+
+    train_cli = m["train_cli"]
+    with tempfile.TemporaryDirectory() as tmp:
+        data, exp = os.path.join(tmp, "data"), os.path.join(tmp, "exp")
+        H, W = cfg.feat_size
+        m["write_waymo_files"](data, CLI_FRAMES, H=H, W=W, seed=SEED + 2,
+                               image_set="training", num_boxes=20)
+        recipe = os.path.join(tmp, "options_recipe.py")
+        with open(recipe, "w") as f:
+            f.write(CLI_RECIPE.format(recipe=RECIPE, freq=LOG_FREQ))
+        files = ["--data-root", data, "--sampling-rate", "1", "--batch",
+                 "2", "--num-workers", "2", "--device", dev.type]
+        argv = ["--config", recipe, "--experiment-dir", exp] + files
+        ccfg = train_cli.apply_overrides(
+            m["load_config"](recipe, is_train=True),
+            train_cli.parse_args(argv + ["--epochs", "2"]))
+        spe = CLI_FRAMES // 2
+        lr_of, mom_of = build_schedule(ccfg, spe), build_momentum_schedule(
+            ccfg, spe)
+
+        # run 1: 2 epochs, every step's standardization read on the card
+        reads, counts = [], {}
+        real_make = m["make_train_step"]
+
+        def checked_make(state, c):
+            step = real_make(state, c)
+            read, n_std, n_other = standardization_check(torch, state.model)
+            counts.update(std=n_std, other=n_other)
+
+            def checked(batch):
+                out = step(batch)
+                reads.append(read())
+                return out
+            return checked
+
+        out = io.StringIO()
+        torch.cuda.synchronize()
+        reset_counts(m)
+        with mock.patch.object(m["train_step"], "make_train_step",
+                               checked_make), contextlib.redirect_stdout(out):
+            hist, state, _ = train_cli.main(
+                argv + ["--epochs", "2", "--tensorboard", "--profile-steps",
+                        "2"])
+        torch.cuda.synchronize()
+        launches = read_counts(m)
+        n = len(hist)
+        want = {k: n * v for k, v in want_remat.items()}
+        if n != 2 * spe or launches != want:
+            fail(f"(c) {n} steps, launches {launches}, expected "
+                 f"{2 * spe} and {want}")
+        if not all(math.isfinite(h["total_loss"]) for h in hist):
+            fail(f"(c) losses {[h['total_loss'] for h in hist]}")
+        devs = torch.stack(reads).tolist()
+        worst_std = max(d[0] for d in devs)
+        least_other = min(d[1] for d in devs)
+        print(f"[10] (c) tools.train, {ccfg.optimizer}, {ccfg.lr_mode}, "
+              f"clip {ccfg.clip_mode}, remat {ccfg.remat}: {n} steps from "
+              f"{CLI_FRAMES} files, launches {n} x (a)'s remat step; "
+              f"total_loss " + " ".join(f"{h['total_loss']:.4f}"
+                                        for h in hist))
+        print(f"[10] (c) after each of the {n} steps: the {counts['std']} "
+              f"kernels AdamWS standardizes within {worst_std:.3g} of mean 0 "
+              f"and std 1 a filter (gate {STD_TOL}); the other "
+              f"{counts['other']} conv and Linear weights at least "
+              f"{least_other:.3g} off")
+        if not (worst_std <= STD_TOL < least_other):
+            fail("(c) the AdamWS standardization is off")
+        for h in hist:
+            if (h["lr"], h["momentum"]) != (lr_of(h["step"]),
+                                            mom_of(h["step"])):
+                fail(f"(c) step {h['step']}: lr {h['lr']!r}, momentum "
+                     f"{h['momentum']!r}, the schedules "
+                     f"{lr_of(h['step'])!r}, {mom_of(h['step'])!r}")
+
+        run_dir = os.path.join(exp, ccfg.name)
+        with open(os.path.join(run_dir, "log.txt")) as f:
+            log = f.read()
+        lines = [ln for ln in log.splitlines() if "frames/s lr=" in ln]
+        where = [(int(ln.split("Epoch[")[1].split("]")[0]),
+                  int(ln.split("Batch[")[1].split("]")[0]),
+                  float(ln.split("lr=")[1].split()[0])) for ln in lines]
+        want_lines = [(h["epoch"], h["step"] - h["epoch"] * spe,
+                       round(h["lr"], 6)) for h in hist[LOG_FREQ - 1::
+                                                        LOG_FREQ]]
+        print(f"[10] (c) log.txt: {len(lines)} speedometer lines, one each "
+              f"{LOG_FREQ} steps, printed lr = the schedule's: "
+              f"{where == want_lines}; the last: {lines[-1] if lines else ''}")
+        if where != want_lines:
+            fail(f"(c) speedometer lines {where}, expected {want_lines}")
+        events = glob.glob(os.path.join(run_dir, "tb", "events.*"))
+        warned = "tensorboard writer unavailable" in log
+        print(f"[10] (c) --tensorboard: {len(events)} event file(s)"
+              + ("; tensorboard is not installed: one warning, no events"
+                 if warned else ""))
+        if not events and not warned:
+            fail("(c) no TensorBoard events and no warning")
+        traces = glob.glob(os.path.join(run_dir, "traces", "*.json"))
+        if len(traces) != 1:
+            fail(f"(c) traces {traces}")
+        with open(traces[0]) as f:
+            trace = json.load(f)["traceEvents"]
+        kernels = [e for e in trace if e.get("cat") == "kernel"]
+        conv_names = sorted({e["name"].split("<")[0] for e in kernels
+                             if "conv3x3" in e["name"]})
+        spans = [(e["ts"], e["ts"] + e.get("dur", 0)) for e in trace
+                 if e.get("ph") == "X" and "ts" in e]
+        window = max(b for _, b in spans) - min(a for a, _ in spans)
+        busy, end = 0.0, -math.inf
+        for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in kernels):
+            busy += max(0.0, b - max(a, end))
+            end = max(end, b)
+        print(f"[10] (c)/(d) --profile-steps 2: {os.path.basename(traces[0])}"
+              f" ({os.path.getsize(traces[0]) / 2 ** 20:.1f} MiB), "
+              f"{len(kernels)} kernel events, the port's conv kernels "
+              f"{conv_names}; device busy {busy / 1e3:.2f} ms of the traced "
+              f"{window / 1e3:.2f} ms ({busy / window:.1%}; steps 10-11 "
+              f"under the profiler)")
+        if not conv_names:
+            fail("(c) the trace names no conv3x3 kernel")
+        del trace, kernels, spans
+
+        # run 2: --resume from epoch 1's checkpoint, the Adam state
+        restored = {}
+        real_restore = ckpt_mod.restore_checkpoint
+
+        def keep_restored(target, c, epoch=None):
+            target, ep = real_restore(target, c, epoch)
+            restored["opt"] = copy.deepcopy(target.optimizer.state_dict())
+            restored["step"] = target.step
+            return target, ep
+
+        out2 = io.StringIO()
+        with mock.patch.object(ckpt_mod, "restore_checkpoint",
+                               keep_restored), \
+                contextlib.redirect_stdout(out2):
+            hist2, _, _ = train_cli.main(argv + ["--epochs", "3",
+                                                 "--resume"])
+        saved = state.optimizer.state_dict()["state"]
+        got = restored["opt"]["state"]
+        same = sorted(got) == sorted(saved) and all(
+            torch.equal(got[k][n], saved[k][n]) for k in saved
+            for n in saved[k])
+        where = {n: sorted({got[k][n].device.type for k in got})
+                 for n in ("exp_avg", "exp_avg_sq", "step")}
+        print(f"[10] (c) --resume: {'resumed from epoch 1' in out2.getvalue()}"
+              f" at step {restored['step']}; the AdamW state of "
+              f"{len(got)} parameters bit-equal to run 1's end: {same}; "
+              f"on {where}; {len(hist2)} more steps, total_loss "
+              + " ".join(f"{h['total_loss']:.4f}" for h in hist2))
+        if ("resumed from epoch 1" not in out2.getvalue() or not same
+                or restored["step"] != 2 * spe
+                or where != {"exp_avg": [dev.type], "exp_avg_sq": [dev.type],
+                             "step": ["cpu"]}):
+            fail("(c) the resume did not restore the Adam state")
+        # run 3: the recipe as it ships (sgd, cosine, no remat), one epoch
+        with contextlib.redirect_stdout(io.StringIO()):
+            hist3, _, _ = train_cli.main(
+                ["--config", RECIPE, "--experiment-dir",
+                 os.path.join(tmp, "exp_recipe"), "--epochs", "1"] + files)
+        for name, h in (("the recipe as it ships", hist3),
+                        ("the options recipe, resumed", hist2)):
+            steady = h[1:]
+            print(f"[10] (d) tools.train steady state, steps 2..{len(h)} of "
+                  f"an epoch from the files ({ccfg.pad_field[0]}x"
+                  f"{ccfg.pad_field[1]}, B=2, 2 loader workers), {name}: "
+                  f"data_ms " + " ".join(f"{x['data_ms']:.2f}" for x in steady)
+                  + "; step_ms " + " ".join(f"{x['step_ms']:.2f}"
+                                            for x in steady)
+                  + f"; medians "
+                  f"{statistics.median(x['data_ms'] for x in steady):.2f} / "
+                  f"{statistics.median(x['step_ms'] for x in steady):.2f} ms;"
+                  f" mean wall a step (wait + dispatch + the window's sync) "
+                  f"{statistics.mean(x['data_ms'] + x['step_ms'] for x in steady):.2f}"
+                  f" ms")
+    update_ms = optimizer_update_ms(torch, m, cfg, ccfg, dev)
+    print(f"[10] (d) one optimizer update of the recipe's parameters "
+          f"(median of 10, synchronized): sgd + elementwise clip {update_ms[0]:.2f} ms, "
+          f"adamws + global-norm clip + onecycle {update_ms[1]:.2f} ms")
+    print(f"[10] phase 10 in {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     import numpy as np
     import torch
@@ -2030,6 +2399,7 @@ def main():
         latest_epoch,
         restore_checkpoint,
     )
+    from rangedet_tpu_torch.train import train_step as train_step_mod
     from rangedet_tpu_torch.train.state import create_train_state
     from rangedet_tpu_torch.train.train_step import (
         batch_to_device,
@@ -2283,6 +2653,10 @@ def main():
     # ------------------------------------------------------------ phase 9
     wide, wide_launches, wide_taps, wide_taps_launches = phase9(
         torch, mods, dev, earlier)
+
+    # ----------------------------------------------------------- phase 10
+    mods.update(train_step=train_step_mod)
+    phase10(torch, mods, tcfg, dev, launches)
 
     # one entry per kernel and path: the serving forward (launches of the
     # B=1 eval step of phase 3, times of one B=1 forward in phases 2 and

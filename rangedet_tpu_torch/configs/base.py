@@ -5,11 +5,14 @@ same names and defaults, and ``dtype`` as a ``torch.dtype``.
 Meta-Kernel block in training (``ops/meta_block.py``) and the taps' kernel
 in eval (``ops/meta_kernel.py``).
 
+``remat`` and ``remat_meta`` keep theirs: ``torch.utils.checkpoint`` over
+every backbone stage, and over the materialized Meta-Kernel block.
+
 Left out are the JAX package's TPU-only knobs: ``layout``,
 ``use_pallas_conv``, ``use_pallas_iou``, ``topk_method``, ``iou_chunk``,
-``width_axis``, ``bn_sync_axis``, ``remat``, ``remat_meta``,
-``mesh_shape``, and ``wnms_prefilter_topm``, which only the
-serial WNMS form reads (the port runs the blocked form, ``wnms_block > 0``).
+``width_axis``, ``bn_sync_axis``, ``mesh_shape``, and
+``wnms_prefilter_topm``, which only the serial WNMS form reads (the port
+runs the blocked form, ``wnms_block > 0``).
 ``tests/test_torch_model.py`` holds the two dataclasses against each other.
 """
 from __future__ import annotations
@@ -52,6 +55,12 @@ class RangeDetConfig:
     # the Meta-Kernel's kernels: the fused block in training (kernels 3-5),
     # the materialized block with the taps' kernel in eval (kernel 7)
     use_pallas_meta: bool = False
+    # recompute each backbone stage's forward in the backward
+    # (torch.utils.checkpoint; the reference's memonger, config:169)
+    remat: bool = False
+    # recompute the materialized Meta-Kernel block (its 9C taps) in the
+    # backward; the fused block keeps no 9C tensor and is never wrapped
+    remat_meta: bool = False
 
     # ------------------------------------------------------------- loss
     vfl_alpha: float = 1.0
@@ -147,6 +156,8 @@ class RangeDetConfig:
             reg_conv_channel=self.reg_conv_channel,
             dtype=self.dtype,
             use_pallas_meta=self.use_pallas_meta,
+            remat=self.remat,
+            remat_meta=self.remat_meta,
         )
 
     def replace(self, **kw) -> "RangeDetConfig":

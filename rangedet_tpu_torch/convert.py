@@ -84,6 +84,17 @@ def _param_to_flax(path: Tuple[str, ...], t: np.ndarray, is_bn: bool):
     return parent + (leaf,), t
 
 
+def flax_ndim(name: str, shape) -> int:
+    """The rank of the JAX leaf that the port's parameter ``name`` of
+    ``shape`` maps to, by ``_param_to_flax``'s rules: a 1x1 ``*_weight``
+    (``sc_weight``, the head's projections) is (Ci, Co) there; every other
+    leaf keeps its rank."""
+    if name.rsplit(".", 1)[-1].endswith("_weight") and \
+            tuple(shape[2:]) == (1, 1):
+        return 2
+    return len(shape)
+
+
 _STATS = {"mean": "running_mean", "var": "running_var"}
 
 

@@ -32,12 +32,14 @@ class RangeDet(nn.Module):
                  cls_conv_layers: int = 4, cls_conv_channel: int = 128,
                  reg_conv_layers: int = 4, reg_conv_channel: int = 128,
                  dtype: torch.dtype = torch.bfloat16,
-                 use_pallas_meta: bool = False):
+                 use_pallas_meta: bool = False, remat: bool = False,
+                 remat_meta: bool = False):
         super().__init__()
         self.fpn_strides = tuple(fpn_strides)
         self.backbone = DLABackbone(fpn_strides, num_block, num_filter,
                                     meta_units, add_data_sc, dtype=dtype,
-                                    use_pallas_meta=use_pallas_meta)
+                                    use_pallas_meta=use_pallas_meta,
+                                    remat=remat, remat_meta=remat_meta)
         self.head = RangeRpnHead(
             self.backbone.out_channels, num_classes, num_reg_delta,
             cls_conv_layers, cls_conv_channel, reg_conv_layers,

@@ -8,6 +8,14 @@ with the taps from their kernel (the JAX MetaKernel with use_pallas=True,
 layout "nhwc": ``ops/meta_kernel.py``). Without it the block is the
 materialized form with the taps' plain version, differentiated by autograd.
 
+``remat`` runs every ResStage (res1 .. res3 and the four agg stages, not
+the deconvs or the head) under ``torch.utils.checkpoint``, as JAX's
+nn.remat over ResStage: its activations are recomputed in the backward.
+``remat_meta`` does so for the materialized Meta-Kernel block only; the
+fused block saves no 9C tensor (``rangedet_tpu/models/dla_backbone.py:
+194-205``). Either way the running statistics move once a step
+(``layers.frozen_stats``).
+
 The network downsamples the width only (stride (1, 2) at res2a, res2,
 res3a, res3) and re-aggregates with deconv "agg" nodes into per-stride
 outputs {1: agg3 (+ input skip), 2: agg2a, 4: agg2, 16: res3}. The
@@ -16,11 +24,13 @@ res1_unit2).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, List, Mapping, Optional, Sequence
 
 import torch
 from torch import nn
 from torch.profiler import record_function
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import meta_block
 from .layers import (
@@ -29,6 +39,7 @@ from .layers import (
     DeconvNormRelu,
     conv1x1_bhcw,
     conv3x3_consume,
+    frozen_stats,
     lecun_normal_,
 )
 from .meta_kernel import MetaKernel
@@ -52,6 +63,17 @@ AGG_NODES = (
     ("agg3", "agg1", "agg2a", (3, 4), 2),
 )
 LEVELS = {1: "agg3", 2: "agg2a", 4: "agg2", 16: "res3"}  # stride -> output
+
+
+def checkpointed(module: nn.Module, *args):
+    """module(*args), its activations recomputed in the backward
+    (non-reentrant ``torch.utils.checkpoint``) with its running statistics
+    frozen there; a plain call where no gradient is taken."""
+    if not (module.training and torch.is_grad_enabled()):
+        return module(*args)
+    return checkpoint(module, *args, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(),
+                                          frozen_stats(module)))
 
 
 class MetaBlock(nn.Module):
@@ -78,9 +100,13 @@ class MetaBlock(nn.Module):
         self.meta_bn = BatchNorm(9 * c, dtype)
         self.meta_agg = ConvNormRelu(9 * c, features, kernel=1, dtype=dtype)
 
+    @property
+    def fused(self) -> bool:
+        return self.training and self.use_pallas_meta
+
     def forward(self, x: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
         with record_function("meta_block"):
-            if self.training and self.use_pallas_meta:
+            if self.fused:
                 return self._fused(x, coords)
             mk = torch.relu(self.meta_bn(self.meta_kernel(x, coords)))
             return self.meta_agg(mk)
@@ -102,15 +128,17 @@ class MetaBlock(nn.Module):
 class BasicBlock(nn.Module):
     """Residual basic block. A unit1 projects the shortcut with a 1x1 conv
     and carries the stage's stride on conv2 (conv1 is stride 1). conv1's BN
-    apply + relu is deferred into conv2's kernel input load."""
+    apply + relu is deferred into conv2's kernel input load. With
+    ``remat_meta`` the materialized Meta-Kernel block is checkpointed."""
 
     def __init__(self, in_channels: int, features: int, stride_w: int = 1,
                  proj: bool = False,
                  meta_channel_list: Optional[Sequence[int]] = None,
                  dtype: torch.dtype = torch.bfloat16,
-                 use_pallas_meta: bool = False):
+                 use_pallas_meta: bool = False, remat_meta: bool = False):
         super().__init__()
         self.stride_w, self.proj, self.dtype = stride_w, proj, dtype
+        self.remat_meta = remat_meta
         if meta_channel_list is not None:
             self.meta_block = MetaBlock(meta_channel_list, features, dtype,
                                         use_pallas_meta)
@@ -134,7 +162,10 @@ class BasicBlock(nn.Module):
     def forward(self, x: torch.Tensor, coords: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
         if self.meta_block is not None:
-            y = self.meta_block(x, coords)
+            if self.remat_meta and not self.meta_block.fused:
+                y = checkpointed(self.meta_block, x, coords)
+            else:
+                y = self.meta_block(x, coords)
         else:
             y = self.conv1(x)
         y, sums = conv3x3_consume(y, self.conv2_weight, self.stride_w,
@@ -158,7 +189,7 @@ class ResStage(nn.Module):
                  features: int, stride_w: int = 1,
                  meta_units: Optional[Mapping[str, dict]] = None,
                  dtype: torch.dtype = torch.bfloat16,
-                 use_pallas_meta: bool = False):
+                 use_pallas_meta: bool = False, remat_meta: bool = False):
         super().__init__()
         self.unit_names: List[str] = []
         for i in range(1, num_block + 1):
@@ -169,6 +200,7 @@ class ResStage(nn.Module):
                 stride_w=stride_w if i == 1 else 1, proj=(i == 1),
                 meta_channel_list=meta["channel_list"] if meta else None,
                 dtype=dtype, use_pallas_meta=use_pallas_meta,
+                remat_meta=remat_meta,
             ))
             self.unit_names.append(unit)
 
@@ -188,13 +220,15 @@ class DLABackbone(nn.Module):
                  meta_units: Optional[Mapping[str, dict]] = None,
                  add_data_sc: bool = True, in_channels: int = 8,
                  dtype: torch.dtype = torch.bfloat16,
-                 use_pallas_meta: bool = False):
+                 use_pallas_meta: bool = False, remat: bool = False,
+                 remat_meta: bool = False):
         super().__init__()
         nb = dict(num_block or DEFAULT_NUM_BLOCK)
         nf = dict(num_filter or DEFAULT_NUM_FILTER)
         meta = DEFAULT_META_UNITS if meta_units is None else meta_units
         self.fpn_strides = tuple(fpn_strides)
         self.add_data_sc, self.dtype = add_data_sc, dtype
+        self.remat = remat
 
         ch = {"data": in_channels}
         for name, src, stride in (("res1", "data", 1), ("res2a", "res1", 2),
@@ -202,7 +236,7 @@ class DLABackbone(nn.Module):
                                   ("res3", "res3a", 2)):
             self.add_module(name, ResStage(name, nb[name], ch[src], nf[name],
                                            stride, meta, dtype,
-                                           use_pallas_meta))
+                                           use_pallas_meta, remat_meta))
             ch[name] = nf[name]
         for name, const, up, kernel, stride in AGG_NODES:
             self.add_module(f"{name}_deconv", DeconvNormRelu(
@@ -211,7 +245,8 @@ class DLABackbone(nn.Module):
                 raise ValueError(f"{name}: {const} has {ch[const]} channels, "
                                  f"the deconv {nf[name]}")
             self.add_module(name, ResStage(name, nb[name], nf[name], nf[name],
-                                           1, meta, dtype, use_pallas_meta))
+                                           1, meta, dtype, use_pallas_meta,
+                                           remat_meta))
             ch[name] = nf[name]
         self.out_channels = [
             ch[LEVELS[s]] + (in_channels if s == 1 and add_data_sc else 0)
@@ -223,13 +258,19 @@ class DLABackbone(nn.Module):
         """data (B, H, W, 8), coords (B, H, W, 3)."""
         data = data.to(self.dtype).permute(0, 1, 3, 2).contiguous()
         f: Dict[str, torch.Tensor] = {"data": data}
-        f["res1"] = self.res1(data, coords)
+        f["res1"] = self._stage("res1", data, coords)
         for name, src in (("res2a", "res1"), ("res2", "res2a"),
                           ("res3a", "res2"), ("res3", "res3a")):
-            f[name] = getattr(self, name)(f[src])
+            f[name] = self._stage(name, f[src])
         for name, const, up, _, _ in AGG_NODES:
             x_up = getattr(self, f"{name}_deconv")(f[up])
-            f[name] = getattr(self, name)(f[const] + x_up)
+            f[name] = self._stage(name, f[const] + x_up)
         if self.add_data_sc:
             f["agg3"] = torch.cat([data, f["agg3"]], dim=2)
         return [f[LEVELS[s]] for s in self.fpn_strides]
+
+    def _stage(self, name: str, x: torch.Tensor,
+               coords: Optional[torch.Tensor] = None) -> torch.Tensor:
+        stage = getattr(self, name)
+        return checkpointed(stage, x, coords) if self.remat else stage(
+            x, coords)

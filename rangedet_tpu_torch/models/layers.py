@@ -14,6 +14,7 @@ Parameter layouts are PyTorch's: conv weights (Co, Ci, kh, kw) as in
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import NamedTuple, Optional, Tuple, Union
 
@@ -95,9 +96,10 @@ class BatchNormFold(nn.Module):
     fold (scale, bias), for a kernel that applies it without materializing
     the tensor (``rangedet_tpu/models/layers.py:181-222``, the fused
     Meta-Kernel block's). Training: mean = s1/n, var = s2/n - mean^2
-    clamped at 0, running statistics moved by momentum 0.9; eval: the
-    running statistics. Parameter and buffer names are BatchNorm's, so
-    state dicts are interchangeable."""
+    clamped at 0, running statistics moved by momentum 0.9 (not while
+    ``frozen``: a forward recomputed in the backward, see ``frozen_stats``);
+    eval: the running statistics. Parameter and buffer names are
+    BatchNorm's, so state dicts are interchangeable."""
 
     def __init__(self, channels: int):
         super().__init__()
@@ -105,6 +107,7 @@ class BatchNormFold(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
+        self.frozen = 0  # depth of the frozen_stats contexts around it
 
     def forward(self, s1: torch.Tensor, s2: torch.Tensor, count: float
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -115,6 +118,8 @@ class BatchNormFold(nn.Module):
 
     def _update_fold(self, mean, var):
         var = var.clamp(min=0.0)
+        if self.frozen:
+            return self._fold(mean, var)
         with torch.no_grad():
             self.running_mean.copy_(BN_MOMENTUM * self.running_mean
                                     + (1 - BN_MOMENTUM) * mean)
@@ -125,6 +130,22 @@ class BatchNormFold(nn.Module):
     def _fold(self, mean, var):
         inv = torch.rsqrt(var + BN_EPSILON) * self.weight
         return inv, self.bias - mean * inv
+
+
+@contextlib.contextmanager
+def frozen_stats(module: nn.Module):
+    """Within it, no BatchNorm of ``module`` moves its running statistics.
+    A checkpointed forward runs again in the backward (``torch.utils.
+    checkpoint``); that recompute runs in this context, so the statistics
+    move once a step, as JAX's functional batch_stats do."""
+    bns = [m for m in module.modules() if isinstance(m, BatchNormFold)]
+    for m in bns:
+        m.frozen += 1
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.frozen -= 1
 
 
 class BatchNorm(BatchNormFold):

@@ -5,7 +5,8 @@ on one card:
         [--data-root DIR] [--sampling-rate N] [--batch B] [--epochs E] \
         [--steps-per-epoch N] [--resume] [--checkpoint-every N] \
         [--num-workers N] [--eval-every N] [--eval-frames N] [--seed S] \
-        [--experiment-dir DIR] [--device cuda]
+        [--experiment-dir DIR] [--tensorboard] [--profile-steps N] \
+        [--device cuda]
     python -m rangedet_tpu_torch.tools.train --config ... --synthetic \
         --steps-per-epoch 50 --epochs 2
 
@@ -21,10 +22,20 @@ style="vehicles")`` (``synthetic_batch``), and an epoch is 100 steps.
 thread prepares the next batches while the card runs the step.
 
 The run trains epochs ``begin_epoch .. end_epoch`` (``--epochs`` sets
-``end_epoch``). The LR follows the recipe's schedule over those epochs,
+``end_epoch``) with the recipe's optimizer (sgd, adamw, adamws), clip
+(elementwise, global_norm) and ``remat``. The LR (and with onecycle the
+momentum) follows the recipe's schedule over those epochs, its base
 rescaled as ``tools/train.py`` does when ``auto_scale_lr`` is set (base_lr
-* batch / 16). Each step prints its losses, its LR, the ms it waited for
-its batch and the ms of the step. At the end of every
+* batch / 16). The log (``utils/logger.py``: the console and
+``<experiment>/<name>/log.txt``) gets a speedometer line every
+``log_frequency`` steps: frames/s, LR, the mean ms of the wait for a batch
+and of a step, the mean losses. The steps chain without a wait for the
+card; their metrics stay there until the window of ``log_frequency`` steps
+(or the epoch's end) is fetched in one round trip. ``--tensorboard``
+writes the line's scalars and each validation's AP under
+``<experiment>/<name>/tb``; ``--profile-steps N`` a ``torch.profiler``
+trace of steps 10 .. 10+N under ``<experiment>/<name>/traces``. At the end
+of every
 ``checkpoint_every_epochs``-th epoch a checkpoint (``train/checkpoint.py``)
 is written under the experiment directory (``--checkpoint-every 0``: none);
 ``--resume`` restores the latest one and goes on at the next epoch, its LR
@@ -42,6 +53,7 @@ to initialise), so epoch e trains on the loader's permutation e + 1.
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
@@ -49,6 +61,7 @@ import torch
 
 STEPS_PER_EPOCH = 100  # tools/train.py's default for synthetic data
 LOADER_SEED = 0  # tools/train.py passes no seed to its BatchLoader
+PROFILE_START = 10  # tools/train.py's ProfilerHook starts at step 10
 
 
 def parse_args(argv=None):
@@ -76,7 +89,16 @@ def parse_args(argv=None):
                    help="validation frames per in-run eval")
     p.add_argument("--seed", type=int, default=0, help="seed of the init")
     p.add_argument("--experiment-dir", default=None,
-                   help="override cfg.experiment_dir (checkpoint root)")
+                   help="override cfg.experiment_dir (checkpoints and "
+                        "logs root)")
+    p.add_argument("--tensorboard", action="store_true",
+                   help="write TensorBoard scalars (losses, lr, frames/s, "
+                        "data/step ms, validation AP) under "
+                        "<experiment>/<name>/tb")
+    p.add_argument("--profile-steps", type=int, default=0,
+                   help=f"write a torch.profiler trace of N steps from "
+                        f"step {PROFILE_START} under <experiment>/<name>/"
+                        f"traces")
     p.add_argument("--device", default="cuda")
     return p.parse_args(argv)
 
@@ -114,12 +136,12 @@ def synthetic_batch(cfg, epoch: int, i: int):
                       style="vehicles")
 
 
-def epoch_source(cfg, args):
+def epoch_source(cfg, args, logger):
     """-> (steps per epoch, epoch_batches(epoch) -> iterator of host
     batches), from the files of ``cfg.data_root`` or synthetic scenes."""
     if args.synthetic or not cfg.data_root:
         spe = args.steps_per_epoch or STEPS_PER_EPOCH
-        print("training on synthetic data")
+        logger.info("training on synthetic data")
 
         def epoch_batches(epoch):
             return (synthetic_batch(cfg, epoch, i) for i in range(spe))
@@ -131,7 +153,7 @@ def epoch_source(cfg, args):
 
     roidb = load_roidbs(cfg.data_root, cfg.image_set, cfg.sampling_rate,
                         cfg.filter_class)
-    print(f"loaded {len(roidb)} roidb records")
+    logger.info(f"loaded {len(roidb)} roidb records")
     loader = BatchLoader(
         roidb,
         lambda rec: record_to_inputs(rec, cfg.pad_field, cfg.max_gt_boxes,
@@ -142,10 +164,31 @@ def epoch_source(cfg, args):
     return args.steps_per_epoch or len(loader), lambda epoch: loader.epoch()
 
 
+def fetch_window(metrics, keys):
+    """The metrics of a window of steps (device scalars, one dict a step)
+    on the host in one round trip: one stacked tensor, one copy. -> one
+    row of floats a step, in ``keys`` order."""
+    flat = torch.stack([m[k].float() for m in metrics for k in keys]
+                       ).tolist()
+    n = len(keys)
+    return [flat[r * n:(r + 1) * n] for r in range(len(metrics))]
+
+
+def hyperparams(opt):
+    """(lr, momentum) of the optimizer's last update: SGD's momentum or
+    Adam's beta1."""
+    group = opt.param_groups[0]
+    return group["lr"], (group["betas"][0] if "betas" in group
+                         else group["momentum"])
+
+
 def main(argv=None):
-    """Returns (one record per step: its epoch, step count, lr, data_ms,
-    step_ms and metrics as floats; the TrainState; {epoch: validation
-    result} of the epochs validated)."""
+    """Returns (one record per step: its epoch, step count, lr, momentum
+    (SGD's, or Adam's beta1), data_ms, step_ms and metrics as floats; the
+    TrainState; {epoch: validation result} of the epochs validated).
+    ``step_ms`` is the host's time to dispatch the step, from the batch in
+    hand to the step's return (on the card the device runs behind it), and
+    on a metrics window's last step also the window's sync and fetch."""
     args = parse_args(argv)
     from rangedet_tpu_torch.configs import load_config
     from rangedet_tpu_torch.data.prefetch import threaded_prefetch
@@ -159,12 +202,20 @@ def main(argv=None):
         batch_to_device,
         make_train_step,
     )
+    from rangedet_tpu_torch.utils.logger import (
+        DetailSpeedometer,
+        ProfilerHook,
+        ScalarWriter,
+        config_logger,
+    )
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {args.device}: no CUDA card")
     cfg = apply_overrides(load_config(args.config, is_train=True), args)
-    spe, epoch_batches = epoch_source(cfg, args)
+    run_dir = os.path.join(cfg.experiment_dir, cfg.name)
+    logger = config_logger(cfg.experiment_dir, cfg.name)
+    spe, epoch_batches = epoch_source(cfg, args, logger)
 
     model = RangeDet(**cfg.model_kwargs())
     model.init_from(torch.Generator().manual_seed(args.seed))
@@ -174,57 +225,98 @@ def main(argv=None):
         state, ep = restore_checkpoint(state, cfg)
         if ep is not None:
             begin_epoch = ep + 1
-            print(f"resumed from epoch {ep}")
+            logger.info(f"resumed from epoch {ep}")
     step = make_train_step(state, cfg)
-    print(f"{args.config}: batch {cfg.batch_image}, lr {cfg.base_lr:.5f}, "
-          f"{spe} steps an epoch, epochs {begin_epoch}..{cfg.end_epoch - 1}, "
-          f"weights seeded init ({args.seed}), device {device}")
+    logger.info(
+        f"{args.config}: batch {cfg.batch_image}, lr {cfg.base_lr:.5f} "
+        f"({cfg.lr_mode}), {cfg.optimizer}, clip {cfg.clip_mode}, remat "
+        f"{cfg.remat}, {spe} steps an epoch, epochs {begin_epoch}.."
+        f"{cfg.end_epoch - 1}, weights seeded init ({args.seed}), device "
+        f"{device}")
 
+    tb = (ScalarWriter(os.path.join(run_dir, "tb"), logger)
+          if args.tensorboard else None)
+    speedometer = DetailSpeedometer(cfg.batch_image, cfg.log_frequency,
+                                    logger, tb=tb)
+    profiler = ProfilerHook(os.path.join(run_dir, "traces"), PROFILE_START,
+                            args.profile_steps)
     history, validations = [], {}
     val_fn = None
-    for epoch in range(begin_epoch, cfg.end_epoch):
-        t_ep = time.perf_counter()
-        batches = threaded_prefetch(iter(epoch_batches(epoch)), depth=2)
-        try:
-            i = 0
-            while True:
-                t0 = time.perf_counter()
-                batch = next(batches, None)
-                if batch is None:
-                    break
-                t1 = time.perf_counter()
-                lr = state.schedule(state.step)
-                metrics = {k: float(v) for k, v in
-                           step(batch_to_device(batch, device)).items()}
-                if device.type == "cuda":
-                    torch.cuda.synchronize(device)
-                rec = dict(epoch=epoch, step=state.step - 1, lr=lr,
-                           data_ms=(t1 - t0) * 1e3,
-                           step_ms=(time.perf_counter() - t1) * 1e3,
-                           **metrics)
-                history.append(rec)
-                losses = " ".join(f"{k} {v:.5f}"
-                                  for k, v in sorted(metrics.items()))
-                print(f"epoch {epoch} step {i}: {losses} lr {lr:.6g} "
-                      f"data_ms {rec['data_ms']:.1f} "
-                      f"step_ms {rec['step_ms']:.1f}")
-                i += 1
-                if args.steps_per_epoch and i >= args.steps_per_epoch:
-                    break
-        finally:
-            batches.close()  # ends the prefetch thread and loader workers
-        print(f"epoch {epoch} done in {time.perf_counter() - t_ep:.1f}s")
-        every = cfg.checkpoint_every_epochs
-        if every and (epoch + 1) % every == 0:
-            print(f"checkpoint: {save_checkpoint(state, cfg, epoch)}")
-        if args.eval_every and (epoch + 1) % args.eval_every == 0:
-            if val_fn is None:
-                val_fn = build_validation(state.model, cfg, args.synthetic,
-                                          cfg.data_root,
-                                          n_frames=args.eval_frames)
-            validations[epoch] = val_fn()
-            print(f"epoch {epoch} validation: {validations[epoch]}")
-    print("training complete")
+    try:
+        for epoch in range(begin_epoch, cfg.end_epoch):
+            t_ep = time.perf_counter()
+            # Steps chain with no per-step fetch or sync: each step's
+            # metrics stay on the device until the window of
+            # log_frequency steps is fetched in one round trip
+            # (tools/train.py:356-405)
+            pending = []  # per step: (batch index, record, metrics)
+
+            def flush():
+                if not pending:
+                    return
+                t_f = time.perf_counter()
+                keys = sorted(pending[0][2])
+                rows = fetch_window([m for _, _, m in pending], keys)
+                sync_s = time.perf_counter() - t_f
+                speedometer.tick(0.0, sync_s)  # the sync is step time
+                pending[-1][1]["step_ms"] += sync_s * 1e3
+                for (bi, rec, _), row in zip(pending, rows):
+                    rec.update(zip(keys, row))
+                    lr = rec["lr"] if speedometer.due_next else None
+                    speedometer(epoch, bi, {k: rec[k] for k in keys},
+                                lr=lr, global_step=rec["step"])
+                    history.append(rec)
+                pending.clear()
+
+            batches = threaded_prefetch(iter(epoch_batches(epoch)), depth=2)
+            try:
+                i = 0
+                while True:
+                    t0 = time.perf_counter()
+                    batch = next(batches, None)
+                    if batch is None:
+                        break
+                    t1 = time.perf_counter()
+                    profiler(state.step)
+                    metrics = step(batch_to_device(batch, device))
+                    t2 = time.perf_counter()
+                    speedometer.tick(t1 - t0, t2 - t1)
+                    lr, mom = hyperparams(state.optimizer)
+                    pending.append((i, dict(
+                        epoch=epoch, step=state.step - 1, lr=lr,
+                        momentum=mom, data_ms=(t1 - t0) * 1e3,
+                        step_ms=(t2 - t1) * 1e3), metrics))
+                    if len(pending) >= cfg.log_frequency:
+                        flush()
+                    i += 1
+                    if args.steps_per_epoch and i >= args.steps_per_epoch:
+                        break
+            finally:
+                batches.close()  # ends the prefetch thread, loader workers
+            flush()
+            logger.info(f"epoch {epoch} done in "
+                        f"{time.perf_counter() - t_ep:.1f}s")
+            every = cfg.checkpoint_every_epochs
+            if every and (epoch + 1) % every == 0:
+                logger.info(
+                    f"checkpoint: {save_checkpoint(state, cfg, epoch)}")
+            if args.eval_every and (epoch + 1) % args.eval_every == 0:
+                if val_fn is None:
+                    val_fn = build_validation(state.model, cfg,
+                                              args.synthetic, cfg.data_root,
+                                              n_frames=args.eval_frames)
+                validations[epoch] = val_fn()
+                logger.info(f"epoch {epoch} validation: {validations[epoch]}")
+                if tb is not None:
+                    tb.scalars({f"val/{name}_ap": m["ap"] for name, m in
+                                validations[epoch].items()}, state.step)
+            if tb is not None:
+                tb.flush()
+    finally:
+        profiler.close()
+        if tb is not None:
+            tb.close()
+    logger.info("training complete")
     return history, state, validations
 
 

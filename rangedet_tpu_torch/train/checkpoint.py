@@ -3,8 +3,9 @@
 utils/load_model.py:5-51).
 
 A checkpoint is one ``torch.save`` file holding the model's ``state_dict``
-(parameters and BatchNorm running statistics), the optimizer's (momentum
-buffers), the step count and the epoch. The JAX package's checkpoints are
+(parameters and BatchNorm running statistics), the optimizer's (SGD's
+momentum buffers, or AdamW's moments and step counts), the step count and
+the epoch. The JAX package's checkpoints are
 orbax directories, which the port cannot read; ``convert.load_npz`` is the
 bridge for JAX weights. Both may share one experiment directory: the port
 names its files ``torch_epoch_NNNN.pt`` beside orbax's ``epoch_NNNN``, and
@@ -62,14 +63,16 @@ def restore_checkpoint(target: Union[TrainState, torch.nn.Module], cfg,
     """Load the checkpoint of ``epoch`` (default: the latest) into
     ``target`` in place: a TrainState gets the model, the optimizer and
     the step; a bare model its state_dict. Returns (target, epoch), or
-    (target, None) when there is no checkpoint."""
+    (target, None) when there is no checkpoint. The file is read to the
+    host; loading puts each tensor where the target's lives, and leaves
+    AdamW's step counts on the host, as a fresh optimizer keeps them (one
+    on the card would cost a wait a parameter and step)."""
     if epoch is None:
         epoch = latest_epoch(cfg)
     if epoch is None:
         return target, None
     model = target.model if isinstance(target, TrainState) else target
-    device = next(model.parameters()).device
-    ckpt = torch.load(checkpoint_path(cfg, epoch), map_location=device,
+    ckpt = torch.load(checkpoint_path(cfg, epoch), map_location="cpu",
                       weights_only=True)
     model.load_state_dict(ckpt["model"], strict=True)
     if isinstance(target, TrainState):

@@ -416,8 +416,8 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 20
     covered = {f.parent.name for f in files}
-    assert {"configs", "eval", "data", "ops", "tools", "train"} <= covered, \
-        covered
+    assert {"configs", "eval", "data", "ops", "tools", "train",
+            "utils"} <= covered, covered
     assert REPO / "rangedet_tpu_torch" / "data" / "augment.py" in files
     banned = {"jax", "flax", "optax", "rangedet_tpu"}
     bad = [(str(f.relative_to(REPO)), m) for f in files for m in _imports(f)

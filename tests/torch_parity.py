@@ -22,12 +22,12 @@ BOX_ATOL = 1e-3
 SCORE_MARGIN = 1e-3
 ORDER_GAP = 1e-6
 
-# JAX-only knobs the port's config leaves out (TPU layout, kernels, sharding,
-# remat, and the serial-WNMS prefilter the blocked form never reads)
+# JAX-only knobs the port's config leaves out (TPU layout, kernels,
+# sharding, and the serial-WNMS prefilter the blocked form never reads)
 SKIPPED_FIELDS = {
     "layout", "use_pallas_conv", "use_pallas_iou",
-    "topk_method", "iou_chunk", "width_axis", "bn_sync_axis", "remat",
-    "remat_meta", "mesh_shape", "wnms_prefilter_topm",
+    "topk_method", "iou_chunk", "width_axis", "bn_sync_axis",
+    "mesh_shape", "wnms_prefilter_topm",
 }
 DTYPES = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
 
