@@ -126,7 +126,34 @@ Phases, one line of output each (or a table), failing on the first error:
    steps 10-11 naming the conv kernels; then ``--resume``: the AdamW state
    restored bit-equal to the first run's end, moments on the card, step
    counts on the host; (d) the resumed epoch's data_ms and step_ms of
-   steps 2..8 and the device's busy share over the traced window.
+   steps 2..8 and the device's busy share over the traced window;
+11. device-side data and the training probes on ``rangedet_veh_wo_aug_4_18e``
+   at 64x2650 (pad 2656): (a) ``data/synthetic_device.py``'s raytracer on
+   the card, B=2 with 10 boxes, vehicles and three families with 4 clutter
+   cuboids: against the same draws rendered on the CPU (within RENDER_TOL,
+   face pixels that flip at most FACE_FLIP_FRAC), the census (the
+   assigner's counts equal gt_num_points), ms a batch beside the host
+   ``make_batch``'s; (b) 16 files packed and staged
+   (``data/device_cache.py``): MB a frame against the f32 dict's,
+   ``expand_inputs`` and ``augment_raw`` under explicit draws against
+   ``record_to_inputs`` without and with the host augmentation under the
+   matched draws, within the codec's budgets (CHANNEL_TOL), and
+   ``build_train_targets`` on the device-augmented batch against the host's
+   outside the codec's band (``cached_targets_check``: the pixels within
+   PC_BAND of a box face or RANGE_BAND of an FPN interval bound counted);
+   (c) ``tools.train --device-cache --device-augment flip,rotation`` for an
+   epoch of 3 steps under torch.profiler (launches 3 x phase 6's per step,
+   host-to-device bytes inside the steps under H2D_STEP_MAX a step), then
+   ``--resume --eval-every 1`` (the cached validation's launches, the flips
+   and shifts an unbroken run draws, finite losses), then an epoch like
+   [10]'s of the recipe from the 16 files with the cache (its steady step
+   ms beside [10]'s loader epoch); (d) ``tools.quality_probe`` for 20 steps
+   with 8 held-out frames (every line parses, the AP keys finite, launches
+   20 steps + 2 eval forwards), ``--save`` then ``--stop-after 0 --resume
+   --save`` (the AP keys of the last record; the state it saves bit-equal
+   to the file it resumed: the model's parameters and buffers, the
+   optimizer's state, the step count), ``tools.overfit_probe`` for 3 steps,
+   and their s_per_step.
 
 It prints a JSON line of the kernels, one entry per kernel and path (the
 serving forward of phases 2-3 and 7, the train step of phases 5-6, the IoU
@@ -2138,6 +2165,18 @@ def optimizer_update_ms(torch, m, cfg, ocfg, dev):
     return out
 
 
+def steady_ms(hist):
+    """data_ms and step_ms medians and the mean wall a step of a train
+    CLI history's steps after the first of each epoch (``steps``)."""
+    steady = [h for i, h in enumerate(hist)
+              if i and h["epoch"] == hist[i - 1]["epoch"]]
+    return dict(
+        data_ms=statistics.median(x["data_ms"] for x in steady),
+        step_ms=statistics.median(x["step_ms"] for x in steady),
+        wall_ms=statistics.mean(x["data_ms"] + x["step_ms"] for x in steady),
+        n=len(steady), steps=steady)
+
+
 def phase10(torch, m, cfg, dev, per_step):
     """remat and the train CLI's options on the recipe at full size: (a)
     ``remat`` with the fused block and (b) ``remat_meta`` with the
@@ -2152,7 +2191,8 @@ def phase10(torch, m, cfg, dev, per_step):
     --resume (the Adam state restored bit-equal, on the card); (d) the
     data_ms / step_ms a step from the second step of an epoch of the
     resumed run and of one of the recipe as it ships, the device's busy
-    share over the traced window, and one optimizer update's ms of both."""
+    share over the traced window, and one optimizer update's ms of both.
+    Returns ``steady_ms`` of the recipe's epoch from the files."""
     import glob
 
     from rangedet_tpu_torch.train import checkpoint as ckpt_mod
@@ -2345,24 +2385,646 @@ def phase10(torch, m, cfg, dev, per_step):
                  os.path.join(tmp, "exp_recipe"), "--epochs", "1"] + files)
         for name, h in (("the recipe as it ships", hist3),
                         ("the options recipe, resumed", hist2)):
-            steady = h[1:]
+            st = steady_ms(h)
             print(f"[10] (d) tools.train steady state, steps 2..{len(h)} of "
                   f"an epoch from the files ({ccfg.pad_field[0]}x"
                   f"{ccfg.pad_field[1]}, B=2, 2 loader workers), {name}: "
-                  f"data_ms " + " ".join(f"{x['data_ms']:.2f}" for x in steady)
+                  f"data_ms " + " ".join(f"{x['data_ms']:.2f}"
+                                         for x in st["steps"])
                   + "; step_ms " + " ".join(f"{x['step_ms']:.2f}"
-                                            for x in steady)
-                  + f"; medians "
-                  f"{statistics.median(x['data_ms'] for x in steady):.2f} / "
-                  f"{statistics.median(x['step_ms'] for x in steady):.2f} ms;"
+                                            for x in st["steps"])
+                  + f"; medians {st['data_ms']:.2f} / {st['step_ms']:.2f} ms;"
                   f" mean wall a step (wait + dispatch + the window's sync) "
-                  f"{statistics.mean(x['data_ms'] + x['step_ms'] for x in steady):.2f}"
-                  f" ms")
+                  f"{st['wall_ms']:.2f} ms")
+        loader = steady_ms(hist3)
     update_ms = optimizer_update_ms(torch, m, cfg, ccfg, dev)
     print(f"[10] (d) one optimizer update of the recipe's parameters "
           f"(median of 10, synchronized): sgd + elementwise clip {update_ms[0]:.2f} ms, "
           f"adamws + global-norm clip + onecycle {update_ms[1]:.2f} ms")
     print(f"[10] phase 10 in {time.perf_counter() - t_phase:.1f} s")
+    return loader
+
+
+# --------------------------------------------------------------- phase 11
+# the packed cache's codec (data/device_cache.py): one pc step (i16 at
+# 409.5 a meter) and one range step (u16 over 80 m)
+PC_BAND = 1 / 409.5
+RANGE_BAND = 80.0 / 65535.0
+# per regression dim (of 8): the sqrt-signed offsets move by at most
+# sqrt(|dp| (1 + |offset| / r)), 3 m offsets at r >= 1 m; cos / sin of the
+# yaw - azimuth by the azimuth's dp / r; the rest come from the GT alone
+REG_TOL = (0.1, 0.1, 1e-5, 1e-5, 2.5e-3, 2.5e-3, 1e-5, 1e-5)
+
+
+# the codec's budgets on the normalized channels (tests/test_device_cache.py):
+# one quantization step over the channel's sigma; the azimuth 3e-3 rad
+CHANNEL_TOL = (2e-3 / math.sqrt(1500.0) + 1e-6,
+               (1 / 255.0) / math.sqrt(0.01) / 2 + 1e-6,
+               (1 / 255.0) / math.sqrt(0.0267) / 2 + 1e-6,
+               2.5e-3 / math.sqrt(307.4), 2.5e-3 / math.sqrt(219.1),
+               2.5e-3 / math.sqrt(1.0), 1e-5, 3e-3 / math.sqrt(2.55))
+# [11](a): the renderer on the card against it on the CPU on the same
+# draws, within RENDER_TOL (relative, with as much absolute), but for the
+# pixels whose ray grazes a face or ties with the wall (a flip: a box hit
+# on one side only), at most FACE_FLIP_FRAC of them
+RENDER_TOL = 1e-5
+FACE_FLIP_FRAC = 1e-4
+H2D_STEP_MAX = 64 * 1024  # [11](c): host-to-device bytes a cached step
+CACHE_FRAMES = 16
+CACHE_STEPS = 3
+PROBE_STEPS = 20
+PROBE_HOLDOUT = 8
+AUG_SEED0 = 0  # RandomState(AUG_SEED0 + i): frame i's host draws in [11](b)
+
+
+def codec_check(host, cached, rotated=False):
+    """A batch rebuilt from the packed cache (``cached``) against
+    record_to_inputs' (``host``), numpy dicts: masks, NLZ flags and GT
+    classes exact, GT boxes within 1e-5, points within 2.5e-3 (4e-3 after
+    a rotation), the range within 2e-3 and each normalized channel within
+    CHANNEL_TOL (x and y doubled after a rotation, which moves a point's
+    error onto both; the azimuth modulo the +-pi cut). -> the largest
+    error of each channel. Raises AssertionError on a breach."""
+    import numpy as np
+
+    for k in ("mask", "is_in_nlz", "gt_class", "gt_valid"):
+        assert np.array_equal(cached[k], host[k]), k
+    for k, tol in (("gt_csa", 1e-5), ("pc", 4e-3 if rotated else 2.5e-3),
+                   ("unnorm_range", 2e-3)):
+        err = float(np.abs(cached[k] - host[k]).max())
+        assert err <= tol, (k, err, tol)
+    err = np.abs(cached["input_data"] - host["input_data"])
+    err[..., 7] = np.minimum(
+        err[..., 7], np.abs(err[..., 7] - 2 * np.pi / np.sqrt(2.55)))
+    worst = [float(err[..., c].max()) for c in range(err.shape[-1])]
+    for c, tol in enumerate(CHANNEL_TOL):
+        tol *= 2 if rotated and c in (3, 4) else 1
+        assert worst[c] <= tol * 1.05, (c, worst[c], tol)
+    return worst
+
+
+def render_diff(got, want, tol=RENDER_TOL):
+    """Two renders of the same draws (numpy dicts of render_scenes) ->
+    (face flips: pixels hit on one side only or at another range, dropped
+    pixels whose azimuth differs (atan2 of signed zeros, which follow the
+    sign of cos(azimuth) at the column where it crosses 0), the keys with
+    any other element outside ``tol``)."""
+    import numpy as np
+
+    flip = ((got["mask"] != want["mask"])
+            | (np.abs(got["unnorm_range"] - want["unnorm_range"])
+               > tol * np.abs(want["unnorm_range"]) + tol))[..., 0]
+    zero_pt = ((np.abs(want["pc"]).max(-1) == 0)
+               & (np.abs(got["pc"]).max(-1) == 0))
+    bad = []
+    for k in want:
+        g, w = got[k], want[k]
+        ok = np.abs(g - w) <= tol * np.abs(w) + tol
+        if k == "input_data":
+            ok[..., 7] |= zero_pt
+        if g.ndim == 4:
+            ok |= flip[..., None]
+        if g.shape != w.shape or not ok.all():
+            bad.append(k)
+    az = np.abs(got["input_data"][..., 7] - want["input_data"][..., 7])
+    return int(flip.sum()), int((zero_pt & (az > tol)).sum()), bad
+
+
+def trace_in_ranges(trace, names):
+    """What a chrome trace's CPU ranges ``names`` launched on the device
+    (a runtime call in such a range, its device event by correlation id):
+    -> dict of h2d_bytes and h2d (host-to-device copies), memcpy_calls
+    (runtime memcpy calls of any direction), matched (those of them whose
+    device copy the trace holds), kinds ({direction: copies}), all_h2d
+    (every host-to-device copy of the trace), launches and kernel_us (the
+    kernels launched, their summed device time)."""
+    ranges = [(e["ts"], e["ts"] + e.get("dur", 0)) for e in trace
+              if e.get("cat") == "user_annotation" and e.get("name") in names]
+
+    def corr_of(pred):
+        return {e.get("args", {}).get("correlation") for e in trace
+                if e.get("cat") == "cuda_runtime" and pred(e.get("name", ""))
+                and any(a <= e["ts"] <= b for a, b in ranges)}
+
+    def corr(e):
+        return e.get("args", {}).get("correlation")
+
+    copy_corr = corr_of(lambda n: "Memcpy" in n)
+    launch_corr = corr_of(lambda n: "LaunchKernel" in n)
+    copies = [e for e in trace if e.get("cat") == "gpu_memcpy"]
+    mine = [e for e in copies if corr(e) in copy_corr]
+    kinds = {}
+    for e in mine:
+        kind = e.get("name", "").split(" (")[0].replace("Memcpy ", "")
+        kinds[kind] = kinds.get(kind, 0) + 1
+    h2d = [e for e in mine if "HtoD" in e.get("name", "")]
+    kernels = [e for e in trace if e.get("cat") == "kernel"
+               and corr(e) in launch_corr]
+    return dict(
+        h2d_bytes=sum(e["args"].get("bytes", 0) for e in h2d), h2d=len(h2d),
+        memcpy_calls=len(copy_corr), matched=len({corr(e) for e in mine}),
+        kinds=kinds, all_h2d=sum(1 for e in copies
+                                 if "HtoD" in e.get("name", "")),
+        launches=len(kernels), kernel_us=sum(e.get("dur", 0)
+                                             for e in kernels))
+
+
+def codec_band(torch, batch, cfg):
+    """(B, H, Wp) bool: the pixels whose point lies within PC_BAND of a
+    face of a valid GT box (signed distance to the box surface, box frame,
+    Chebyshev), or whose range lies within RANGE_BAND of an FPN interval
+    bound; -> (band, face pixels, bound pixels). The codec may move such a
+    pixel across the assignment's or the interval's decision."""
+    n_gt = max(int(batch["gt_valid"].sum(1).max()), 1)  # valid rows lead
+    pc, gt = batch["pc"].float(), batch["gt_csa"][:, :n_gt].float()
+    B, H, Wp = pc.shape[:3]
+    p = pc.reshape(B, -1, 1, 3)
+    c, yaw = gt[:, None, :, :3], gt[:, None, :, 6]
+    dx, dy, dz = (p - c).unbind(-1)
+    cs, sn = torch.cos(yaw), torch.sin(yaw)
+    lx, ly = cs * dx + sn * dy, -sn * dx + cs * dy
+    sd = torch.maximum(torch.maximum(lx.abs() - gt[:, None, :, 3] / 2,
+                                     ly.abs() - gt[:, None, :, 4] / 2),
+                       dz.abs() - gt[:, None, :, 5] / 2)
+    face = ((sd.abs() <= PC_BAND) & (batch["gt_valid"][:, None, :n_gt] > 0)
+            ).any(-1).reshape(B, H, Wp)
+    rng = batch["unnorm_range"][..., 0]
+    bound = torch.zeros_like(face)
+    for lo, hi in cfg.fpn_intervals.values():
+        bound |= ((rng - lo).abs() <= RANGE_BAND) | (
+            (rng - hi).abs() <= RANGE_BAND)
+    bound &= batch["mask"][..., 0] > 0  # a hole's range is 0 on both sides
+    return face | bound, int(face.sum()), int(bound.sum())
+
+
+def cached_targets_check(torch, build_train_targets, cfg, host, cached):
+    """build_train_targets on a batch rebuilt from the packed cache
+    (``cached``: gathered, unpacked, augmented on the device, finalized)
+    against it on the host's batch of the same frames and augmentation
+    (``host``), both dicts of tensors on one device. Outside the codec's
+    band (``codec_band`` of the host batch) every mask and weight plane is
+    equal, the regression targets within REG_TOL, the strided points
+    within PC_BAND, and a pixel's 1 / (points in its box) implies counts
+    apart by at most the face band's pixels; the GT corners within
+    1e-4. -> dict of the counts and largest errors. Raises AssertionError
+    on the first breach."""
+    from rangedet_tpu_torch.ops.targets import stride_slice
+
+    band, n_face, n_bound = codec_band(torch, host, cfg)
+    th = build_train_targets(host, cfg)
+    td = build_train_targets(cached, cfg)
+    out = dict(band_face_px=n_face, band_bound_px=n_bound, differ_px=0,
+               reg_err=[0.0] * 8, pc_err=0.0, corner_err=0.0,
+               count_shift=0)
+    for s in cfg.fpn_strides:
+        keep = ~stride_slice(band, s, w_axis=2)  # (B, H, Ws)
+        a_h = th[f"reg_weight_s{s}"].sum(-1) > 0
+        a_d = td[f"reg_weight_s{s}"].sum(-1) > 0
+        differ = (a_h != a_d) | (th[f"mask_s{s}"][..., 0]
+                                 != td[f"mask_s{s}"][..., 0])
+        assert not (differ & keep).any(), (
+            f"stride {s}: {int((differ & keep).sum())} pixels outside the "
+            f"codec band differ in assignment or mask")
+        out["differ_px"] += int(differ.sum())
+        for key in ("mask", "reg_weight"):
+            assert torch.equal(th[f"{key}_s{s}"][keep],
+                               td[f"{key}_s{s}"][keep]), (s, key)
+        both = keep & a_h & a_d
+        rh, rd = th[f"reg_target_s{s}"], td[f"reg_target_s{s}"]
+        for dim in range(rh.shape[-1]):
+            err = float((rh[..., dim] - rd[..., dim])[both].abs().max()
+                        ) if both.any() else 0.0
+            j = dim % 8
+            out["reg_err"][j] = max(out["reg_err"][j], err)
+            assert err <= REG_TOL[j], (s, dim, err)
+        perr = float((th[f"pc_s{s}"] - td[f"pc_s{s}"]).abs().max())
+        out["pc_err"] = max(out["pc_err"], perr)
+        assert perr <= PC_BAND, (s, perr)
+        # 1 / (points in the pixel's box): a count moves only by pixels
+        # of the face band crossing the box's faces
+        nh = (1 / th[f"reg_norm_weight_s{s}"].amax(-1)[both]).round()
+        nd = (1 / td[f"reg_norm_weight_s{s}"].amax(-1)[both]).round()
+        shift = int((nh - nd).abs().max()) if both.any() else 0
+        out["count_shift"] = max(out["count_shift"], shift)
+        assert shift <= n_face, (s, shift, n_face)
+    for k in range(cfg.num_classes):
+        cerr = float((th[f"gt_corners_cls{k}"]
+                      - td[f"gt_corners_cls{k}"]).abs().max())
+        out["corner_err"] = max(out["corner_err"], cerr)
+        assert cerr <= 1e-4, (k, cerr)
+    return out
+
+
+def saved_state_diff(a, b):
+    """The entries in which two ``quality_probe --save`` files differ, by
+    path ("model/<name>", "optimizer/state/<i>/<name>",
+    "optimizer/param_groups/...", "step"): every tensor bit for bit (dtype,
+    shape, bits), every other value by ``==``."""
+    import torch
+
+    def flat(x, path, out):
+        if isinstance(x, dict):
+            for k, v in x.items():
+                flat(v, f"{path}/{k}" if path else str(k), out)
+        elif isinstance(x, (list, tuple)):
+            for i, v in enumerate(x):
+                flat(v, f"{path}/{i}", out)
+        else:
+            out[path] = x
+        return out
+
+    def bits(t):
+        return t.contiguous().reshape(-1).view(torch.uint8)
+
+    def same(x, y):
+        if torch.is_tensor(x) or torch.is_tensor(y):
+            return (torch.is_tensor(x) and torch.is_tensor(y)
+                    and x.dtype == y.dtype and x.shape == y.shape
+                    and torch.equal(bits(x), bits(y)))
+        return x == y
+
+    fa, fb = (flat(torch.load(p, map_location="cpu", weights_only=True),
+                   "", {}) for p in (a, b))
+    return sorted(k for k in fa.keys() | fb.keys()
+                  if k not in fa or k not in fb or not same(fa[k], fb[k]))
+
+
+def phase11(torch, m, cfg, dev, per_step, loader):
+    """Device-side data and the training probes on the recipe at full size:
+    (a) the raytracer on the card (vehicles; three families with clutter)
+    against itself on the CPU on the same draws, the census, ms a batch
+    beside the host make_batch's; (b) the packed cache of CACHE_FRAMES
+    files: MB a frame, expand / augment_raw against record_to_inputs (with
+    the host augmentation under matched draws) within the codec's budgets,
+    the train targets outside the codec's band; (c) tools.train
+    --device-cache --device-augment flip,rotation: an epoch of CACHE_STEPS
+    steps under torch.profiler (launches, host-to-device bytes a step),
+    then --resume with a cached validation (launches, the draws of an
+    unbroken run), then an epoch like [10]'s of the recipe from the
+    files, cached, its step ms beside [10]'s loader; (d) quality_probe for
+    PROBE_STEPS steps with PROBE_HOLDOUT held-out frames, --save, an
+    eval-only --resume whose --save is bit-equal to the file it read, and
+    overfit_probe. ``per_step``: phase 6's
+    launches of one train step; ``loader``: phase 10's ``steady_ms``."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    sd, dc = m["synthetic_device"], m["device_cache"]
+    train_cli, qp = m["train_cli"], m["quality_probe"]
+    cpu = torch.device("cpu")
+    t_phase = time.perf_counter()
+
+    def fail(msg):
+        raise SystemExit(f"[11] {msg}")
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    H, W = cfg.feat_size
+    PW, MG = cfg.pad_field[1], cfg.max_gt_boxes
+    n_fwd, n_meta = conv_launches(cfg)[0], meta_units(cfg)
+    per_frame = dict.fromkeys(per_step, 0)  # one eval forward
+    per_frame.update(fwd=n_fwd, meta_kernel_taps=n_meta)
+
+    # (a) the raytracer
+    scenes = {
+        "vehicles": dict(num_boxes=10),
+        "veh+ped+cyc, 4 clutter": dict(
+            num_boxes=10, num_clutter=4,
+            families=qp.scene_families(("veh", "ped", "cyc"), False)),
+    }
+    host_ms = _median_ms(lambda: m["make_batch"](
+        cfg, 2, seed=SEED, num_boxes=10, style="vehicles"), iters=3,
+        warmup=1)
+    for name, kw in scenes.items():
+        draws = sd.draw_scenes(torch.Generator(device=dev).manual_seed(SEED),
+                               2, H, W, **kw)
+        got = sd.render_scenes(draws, H, W, PW, MG, **kw)
+        ref = sd.render_scenes({k: v.to(cpu) for k, v in draws.items()}, H,
+                               W, PW, MG, **kw)
+        flips, zero_az, bad = render_diff(
+            {k: v.cpu().numpy() for k, v in got.items()},
+            {k: v.numpy() for k, v in ref.items()})
+        counts = [m["points_per_box"](m["assign"](
+            got["pc"][f].reshape(-1, 3),
+            m["csa_to_corners3d"](got["gt_csa"][f]),
+            got["mask"][f].reshape(-1), box_valid=got["gt_valid"][f]), MG)
+            for f in range(2)]
+        census = all(torch.equal(c, got["gt_num_points"][f])
+                     for f, c in enumerate(counts))
+        ms = _median_ms(lambda: sd.make_batch_device(
+            torch.Generator(device=dev).manual_seed(SEED), 2, H, W, PW, MG,
+            **kw))
+        classes = sorted(set(got["gt_class"][got["gt_valid"] > 0].tolist()))
+        print(f"[11] (a) raytracer, {name}, B=2 at {H}x{W} (pad {PW}): "
+              f"card vs CPU on the same draws: {flips} face pixels flip "
+              f"(gate {FACE_FLIP_FRAC:g} of {2 * H * W}), {zero_az} dropped "
+              f"pixels' azimuth from signed zeros, all else within "
+              f"{RENDER_TOL:g} relative: {not bad}; census (assigner counts "
+              f"= gt_num_points, {int(sum(c.sum() for c in counts))} "
+              f"points in {int(got['gt_valid'].sum())} boxes, classes "
+              f"{classes}): {census}; {ms:.2f} ms a batch on the card "
+              f"(median of 10), host make_batch(style=vehicles) "
+              f"{host_ms:.1f} ms")
+        if bad or flips > FACE_FLIP_FRAC * 2 * H * W or not census:
+            fail(f"(a) {name}: keys {bad}, {flips} flips, census {census}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        recs = m["write_waymo_files"](data, CACHE_FRAMES, H=H, W=W,
+                                      seed=SEED + 3, image_set="training",
+                                      num_boxes=20)
+        m["write_waymo_files"](data, 2, H=H, W=W, seed=SEED + 4,
+                               image_set="validation", num_boxes=20)
+
+        # (b) the cache against the host path
+        cache, data_w, mb, map_s, put_s = train_cli.stage_frames(recs, cfg,
+                                                                 dev)
+        r2i = m["record_to_inputs"]
+        full = r2i(recs[0], cfg.pad_field, MG)
+        full_mb = sum(v.nbytes for v in full.values()) / 1e6
+        print(f"[11] (b) {CACHE_FRAMES} frames packed and staged: "
+              f"{mb / CACHE_FRAMES:.3f} MB a frame against {full_mb:.3f} MB "
+              f"of record_to_inputs' f32 dict ({full_mb * CACHE_FRAMES / mb:.2f}x"
+              f"); map {map_s:.2f} s, transfer {put_s:.3f} s")
+        pick = [3, 8, 12, 15]
+        idx = torch.tensor(pick, device=dev)
+        host = [r2i(recs[i], cfg.pad_field, MG) for i in pick]
+        host = {k: np.stack([h[k] for h in host]) for k in full}
+        got = {k: v.cpu().numpy() for k, v in dc.expand_inputs(
+            dc.gather_packed(cache, idx), data_w).items()}
+        plain_err = codec_check(host, got)
+        flips, shifts = [], []
+        for i in range(len(pick)):
+            r = np.random.RandomState(AUG_SEED0 + i)
+            flips.append(bool(r.uniform() < 0.5))
+            theta = float(r.uniform(-np.pi / 4, np.pi / 4))
+            shifts.append(int(round(theta / (2 * np.pi) * data_w)))
+        haug = [r2i(recs[i], cfg.pad_field, MG, augment=("flip", "rotation"),
+                    aug_rng=np.random.RandomState(AUG_SEED0 + j))
+                for j, i in enumerate(pick)]
+        haug = {k: np.stack([h[k] for h in haug]) for k in haug[0]}
+        raw = dc.augment_raw(
+            dc.unpack_raw(dc.gather_packed(cache, idx), data_w), data_w,
+            do_flip=torch.tensor(flips, device=dev),
+            shift=torch.tensor(shifts, dtype=torch.int32, device=dev))
+        aug = dc.finalize_inputs(raw)
+        aug_err = codec_check(haug, {k: v.cpu().numpy()
+                                     for k, v in aug.items()}, rotated=True)
+        print(f"[11] (b) frames {pick}: expand_inputs vs record_to_inputs, "
+              f"largest error a normalized channel "
+              + " ".join(f"{e:.2e}" for e in plain_err)
+              + f"; augment_raw (flips {flips}, shifts {shifts}) vs the host "
+              f"augmentation under the matched RandomState draws "
+              + " ".join(f"{e:.2e}" for e in aug_err)
+              + " (within CHANNEL_TOL)")
+        tc = cached_targets_check(
+            torch, m["build_train_targets"], cfg,
+            {k: torch.from_numpy(v).to(dev) for k, v in haug.items()}, aug)
+        print(f"[11] (b) build_train_targets on the device-augmented batch vs "
+              f"the host-augmented one: {tc['differ_px']} strided pixels "
+              f"differ in assignment or mask, all within the codec's band "
+              f"({tc['band_face_px']} pixels within {PC_BAND * 1e3:.2f} mm of "
+              f"a box face, {tc['band_bound_px']} within "
+              f"{RANGE_BAND * 1e3:.2f} mm of an FPN interval bound); "
+              f"elsewhere masks and weights equal, reg targets' largest "
+              f"error a dim " + " ".join(f"{e:.1e}" for e in tc["reg_err"])
+              + f", points {tc['pc_err']:.1e}, box counts apart by <= "
+              f"{tc['count_shift']}, GT corners {tc['corner_err']:.1e}")
+        del cache, host, got, haug, raw, aug
+
+        # (c) the train CLI's cached path
+        exp = os.path.join(tmp, "exp")
+        argv = ["--config", RECIPE, "--data-root", data, "--sampling-rate",
+                "1", "--batch", "2", "--steps-per-epoch", str(CACHE_STEPS),
+                "--experiment-dir", exp, "--device", dev.type,
+                "--device-cache", "--device-augment", "flip,rotation"]
+        draws, inside = [], []
+        real_draw = dc.draw_augment
+        real_make = m["make_train_step"]
+        real_val = train_cli.build_validation
+
+        def draw(*a, **kw):
+            out = real_draw(*a, **kw)
+            draws.append(tuple(t.tolist() for t in out))
+            return out
+
+        def ranged_make(state, c):
+            step = real_make(state, c)
+
+            def ranged(batch):
+                with torch.profiler.record_function("chip_smoke_step"):
+                    return step(batch)
+            return ranged
+
+        def counted_validation(*a, **kw):
+            run = real_val(*a, **kw)
+
+            def counted():
+                sync()
+                before = read_counts(m)
+                out = run()
+                sync()
+                inside.append({k: v - before[k]
+                               for k, v in read_counts(m).items()})
+                return out
+            return counted
+
+        def run_cli(*extra):
+            out = io.StringIO()
+            sync()
+            reset_counts(m)
+            with mock.patch.object(dc, "draw_augment", draw), \
+                    mock.patch.object(m["train_step"], "make_train_step",
+                                      ranged_make), \
+                    mock.patch.object(train_cli, "build_validation",
+                                      counted_validation), \
+                    contextlib.redirect_stdout(out):
+                hist, state, val = train_cli.main(argv + list(extra))
+            sync()
+            n_val = len(inside)
+            ev = {k: sum(d[k] for d in inside) for k in per_step}
+            inside.clear()
+            total = read_counts(m)
+            return (hist, state, val, out.getvalue(),
+                    {k: total[k] - ev[k] for k in per_step}, ev, n_val)
+
+        acts = [ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+        with profile(activities=acts) as prof:
+            hist0, _, _, text0, tr0, _, _ = run_cli("--epochs", "1")
+        trace_path = os.path.join(tmp, "cached_steps.json")
+        prof.export_chrome_trace(trace_path)
+        with open(trace_path) as f:
+            trace = json.load(f)["traceEvents"]
+        tr = trace_in_ranges(trace, {"chip_smoke_step",
+                                     "device_cache_batch"})
+        tb = trace_in_ranges(trace, {"device_cache_batch"})
+        n_kernels = sum(1 for e in trace if e.get("cat") == "kernel")
+        del trace, prof
+        hist1, state, val, text1, tr1, ev, n_val = run_cli(
+            "--epochs", "2", "--resume", "--eval-every", "1",
+            "--eval-frames", "2")
+        hist = hist0 + hist1
+        staged = [ln for ln in text0.splitlines() if "device cache staged" in ln]
+        want = {k: CACHE_STEPS * v for k, v in per_step.items()}
+        want_val = {k: 2 * v for k, v in per_frame.items()}
+        unbroken = [tuple(t.tolist() for t in real_draw(
+            2, data_w, train_cli.augment_generator(0, n, dev)))
+            for n in range(2 * CACHE_STEPS)]
+        vals = [v for mt in val.get(1, {}).values() for v in mt.values()]
+        print(f"[11] (c) tools.train --device-cache --device-augment "
+              f"flip,rotation, {CACHE_FRAMES} files, B=2: "
+              f"{staged[0].split('INFO ')[-1] if staged else 'no staging line'}"
+              f"; epoch 0 ({CACHE_STEPS} steps, under torch.profiler: "
+              f"{n_kernels} kernel events), then --resume: "
+              f"{'resumed from epoch 0' in text1}, epoch 1 ({CACHE_STEPS} "
+              f"steps) and a cached validation of 2 frames "
+              f"{json.dumps(val.get(1))}; launches of each run's steps "
+              f"{CACHE_STEPS} x [6]'s per step: {tr0 == want and tr1 == want}"
+              f", the validation's 2 x (conv {n_fwd}, taps {n_meta}): "
+              f"{ev == want_val}; total_loss "
+              + " ".join(f"{h['total_loss']:.4f}" for h in hist))
+        print(f"[11] (c) draws (flips; shifts) of steps 0..{len(draws) - 1}: "
+              + " | ".join(f"{d[0]}; {d[1]}" for d in draws)
+              + f"; = an unbroken run's (seeded by (seed + 7, step)): "
+              f"{draws == unbroken}")
+        h2d = tr["h2d_bytes"] / CACHE_STEPS
+        print(f"[11] (c) host-to-device copies launched inside the "
+              f"{CACHE_STEPS} profiled steps (batch build + step): "
+              f"{tr['h2d']} copies, {tr['h2d_bytes']} bytes = {h2d:.0f} "
+              f"bytes a step (gate {H2D_STEP_MAX}; a full f32 frame is "
+              f"{full_mb * 1e6:.0f}); their {tr['memcpy_calls']} runtime "
+              f"memcpy calls of any direction, {tr['matched']} matched to "
+              f"their device copy: {tr['kinds']}; {tr['all_h2d']} "
+              f"host-to-device copies in the whole run (staging, weights, "
+              f"scalars). The batch build on the card adds "
+              f"{tb['launches'] / CACHE_STEPS:.0f} kernel launches and "
+              f"{tb['kernel_us'] / CACHE_STEPS / 1e3:.3f} ms of device time "
+              f"a step (under the profiler)")
+        if (len(hist) != 2 * CACHE_STEPS or state.step != 2 * CACHE_STEPS
+                or not all(math.isfinite(h["total_loss"]) for h in hist)):
+            fail(f"(c) steps {[h['step'] for h in hist]}, losses "
+                 f"{[h['total_loss'] for h in hist]}")
+        if not staged or "resumed from epoch 0" not in text1:
+            fail("(c) no staging line or no resume marker")
+        if tr0 != want or tr1 != want:
+            fail(f"(c) launches {tr0} / {tr1}, expected {want}")
+        if n_val != 1 or ev != want_val or not vals or not all(
+                math.isfinite(v) for v in vals):
+            fail(f"(c) validation {val}, launches {ev}, expected {want_val}")
+        if draws != unbroken:
+            fail(f"(c) draws {draws}, an unbroken run {unbroken}")
+        if h2d >= H2D_STEP_MAX:
+            fail(f"(c) {h2d:.0f} host-to-device bytes a step")
+        # the staging's copies must show, and each memcpy call of the
+        # steps its device copy, or the count above would be vacuous
+        if dev.type == "cuda" and (tr["all_h2d"] == 0 or tr["matched"]
+                                   < tr["memcpy_calls"] or not tb["launches"]):
+            fail(f"(c) the trace: {tr}, the batch build {tb}")
+        # run 3: an epoch like [10]'s (the recipe from 16 files, 8 steps,
+        # one window sync at its end), cached, for the step times
+        with contextlib.redirect_stdout(io.StringIO()):
+            hist3, _, _ = train_cli.main(
+                ["--config", RECIPE, "--data-root", data, "--sampling-rate",
+                 "1", "--batch", "2", "--epochs", "1", "--experiment-dir",
+                 os.path.join(tmp, "exp3"), "--device", dev.type,
+                 "--device-cache", "--device-augment", "flip,rotation"])
+        mine = steady_ms(hist3)
+        print(f"[11] (c) steady state, steps 2..{len(hist3)} of an epoch of "
+              f"the recipe from the {CACHE_FRAMES} files, B=2, cached with "
+              f"device augmentation: data_ms median {mine['data_ms']:.2f}, "
+              f"step_ms median {mine['step_ms']:.2f} (the batch built on the "
+              f"card and the step, dispatched), mean wall "
+              f"{mine['wall_ms']:.2f} ms a step; [10]'s loader epoch of its "
+              f"16 files at 2 workers ({loader['n']} steps): "
+              f"{loader['data_ms']:.2f} / {loader['step_ms']:.2f} / "
+              f"{loader['wall_ms']:.2f} ms; cached / loader step_ms "
+              f"{mine['step_ms'] / max(loader['step_ms'], 1e-9):.3f}")
+
+        # (d) the probes
+        save = os.path.join(tmp, "probe.pt")
+        common = ["--config", RECIPE, "--device", dev.type, "--steps",
+                  str(PROBE_STEPS), "--eval-every", str(PROBE_STEPS),
+                  "--holdout-frames", str(PROBE_HOLDOUT)]
+        n_eval = -(-PROBE_HOLDOUT // 4)  # held-out batches of 4
+
+        def probe(mod, args):
+            out = io.StringIO()
+            sync()
+            reset_counts(m)
+            with contextlib.redirect_stdout(out):
+                recs_ = mod.main(args)
+            sync()
+            lines = [json.loads(ln) for ln in out.getvalue().splitlines()]
+            if lines != recs_:
+                fail(f"(d) {mod.__name__}: printed lines {lines} != "
+                     f"records {recs_}")
+            return recs_, read_counts(m)
+
+        recs_q, lq = probe(qp, common + ["--log-every", "10", "--save", save])
+        steps_q = [r for r in recs_q if "step" in r]
+        last = steps_q[-1] if steps_q else {}
+        ap_keys = {k: v for k, v in last.items()
+                   if k.startswith(("bev_", "l1_", "l2_"))}
+        # an eval forward launches per_frame's kernels at any batch
+        want_q = {k: PROBE_STEPS * per_step[k] + n_eval * per_frame[k]
+                  for k in per_step}
+        print(f"[11] (d) quality_probe, {PROBE_STEPS} steps at "
+              f"{H}x{W}, B=2, a fresh raytraced scene a step: "
+              + " ".join(json.dumps(r) for r in recs_q))
+        # the rescore saves what it resumed: bit-equal to the file it read
+        # iff --resume restored the model, the optimizer and the step count
+        save_r = os.path.join(tmp, "probe_rescore.pt")
+        recs_r, lr = probe(qp, common + ["--stop-after", "0", "--resume",
+                                         save, "--step0", str(PROBE_STEPS),
+                                         "--save", save_r])
+        rescored = {k: v for k, v in recs_r[0].items() if k != "step"}
+        saved = torch.load(save, map_location="cpu", weights_only=True)
+        n_opt = len(saved["optimizer"]["state"])
+        state_diff = saved_state_diff(save, save_r)
+        recs_o, lo = probe(m["overfit_probe"], [
+            "--config", RECIPE, "--device", dev.type, "--steps", "3",
+            "--log-every", "1", "--eval-every", "3", "--style", "vehicles"])
+        steps_o = [r for r in recs_o if "step" in r]
+        print(f"[11] (d) quality_probe --stop-after 0 --resume: "
+              f"{json.dumps(recs_r[0])}, = the last record's AP keys: "
+              f"{rescored == ap_keys}; its --save against the file it "
+              f"resumed ({len(saved['model'])} model tensors, the optimizer "
+              f"state of {n_opt} parameters, step {saved['step']}): "
+              f"entries that differ {state_diff}; overfit_probe 3 steps on "
+              f"2 fixed frames: " + " ".join(json.dumps(r) for r in recs_o))
+        print(f"[11] (d) s_per_step (host clock, the first step's set-up "
+              f"and the eval included): quality_probe "
+              f"{last.get('s_per_step')}, overfit_probe "
+              f"{steps_o[-1]['s_per_step'] if steps_o else None}; launches "
+              f"of the probe: {PROBE_STEPS} x [6]'s step + {n_eval} eval "
+              f"batches of 4: {lq == want_q}")
+        if (not last or last["step"] != PROBE_STEPS or len(ap_keys) < 7
+                or not all(math.isfinite(v) for v in last.values())):
+            fail(f"(d) quality_probe records {recs_q}")
+        if rescored != ap_keys:
+            fail(f"(d) the eval-only rescore {rescored} != {ap_keys}")
+        if state_diff or saved["step"] != PROBE_STEPS or not n_opt:
+            fail(f"(d) --resume did not restore the saved state: "
+                 f"{state_diff}, step {saved['step']}, {n_opt} optimizer "
+                 f"states")
+        if lq != want_q:
+            fail(f"(d) quality_probe launches {lq}, expected {want_q}")
+        want_r = {k: n_eval * per_frame[k] for k in per_step}
+        if lr != want_r:
+            fail(f"(d) rescore launches {lr}, expected {want_r}")
+        okeys = {"step", "loss", "s_per_step", "bev_ap_05", "bev_recall",
+                 "ap3d_07", "recall3d_07", "l1_ap", "l1_aph"}
+        if ([r["step"] for r in steps_o] != [1, 2, 3]
+                or set(steps_o[-1]) != okeys
+                or not all(math.isfinite(r["loss"]) for r in steps_o)):
+            fail(f"(d) overfit_probe records {recs_o}")
+        want_o = {k: 3 * per_step[k] + per_frame[k] for k in per_step}
+        if lo != want_o:
+            fail(f"(d) overfit_probe launches {lo}, expected {want_o}")
+    print(f"[11] phase 11 in {time.perf_counter() - t_phase:.1f} s")
 
 
 def main():
@@ -2394,6 +3056,10 @@ def main():
     from rangedet_tpu_torch.tools import eval_checkpoint, evaluate_pred
     from rangedet_tpu_torch.tools import test as test_cli
     from rangedet_tpu_torch.tools import train as train_cli
+    from rangedet_tpu_torch.data import device_cache, synthetic_device
+    from rangedet_tpu_torch.ops import assigner as ops_assigner
+    from rangedet_tpu_torch.ops import boxes as ops_boxes
+    from rangedet_tpu_torch.tools import overfit_probe, quality_probe
     from rangedet_tpu_torch.train.checkpoint import (
         checkpoint_path,
         latest_epoch,
@@ -2656,7 +3322,15 @@ def main():
 
     # ----------------------------------------------------------- phase 10
     mods.update(train_step=train_step_mod)
-    phase10(torch, mods, tcfg, dev, launches)
+    loader = phase10(torch, mods, tcfg, dev, launches)
+
+    # ----------------------------------------------------------- phase 11
+    mods.update(device_cache=device_cache, synthetic_device=synthetic_device,
+                quality_probe=quality_probe, overfit_probe=overfit_probe,
+                assign=ops_assigner.assign_points_to_boxes,
+                points_per_box=ops_assigner.points_per_box,
+                csa_to_corners3d=ops_boxes.csa_to_corners3d)
+    phase11(torch, mods, tcfg, dev, launches, loader)
 
     # one entry per kernel and path: the serving forward (launches of the
     # B=1 eval step of phase 3, times of one B=1 forward in phases 2 and

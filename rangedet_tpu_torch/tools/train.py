@@ -6,7 +6,7 @@ on one card:
         [--steps-per-epoch N] [--resume] [--checkpoint-every N] \
         [--num-workers N] [--eval-every N] [--eval-frames N] [--seed S] \
         [--experiment-dir DIR] [--tensorboard] [--profile-steps N] \
-        [--device cuda]
+        [--device-cache [--device-augment flip,rotation]] [--device cuda]
     python -m rangedet_tpu_torch.tools.train --config ... --synthetic \
         --steps-per-epoch 50 --epochs 2
 
@@ -43,6 +43,22 @@ from the restored step count. Every ``--eval-every`` epochs the model is
 scored on ``--eval-frames`` frames of the validation split (synthetic
 frames without a data root) by ``build_validation``.
 
+With ``--device-cache`` (``tools/train.py``'s device-cache path) every
+frame of the split is mapped once through ``record_to_inputs`` and packed
+(``data/device_cache.py``, ~1.9 MB a full-size frame against ~11.6 MB),
+and the packed frames are staged on the card; the log gets the staged MB
+and the map and transfer seconds. Epoch e's order is numpy
+``RandomState(seed * 100003 + e).permutation``, moved to the card once an
+epoch; a step slices its indices there, gathers its frames, unpacks them,
+runs ``--device-augment``'s augmentations (``augment_raw``; draws from a
+generator seeded by (seed + 7, the step count), so a resumed run draws
+what an unbroken one draws) and finalizes the batch, all on the card. An
+epoch is ``n_frames // batch`` steps. The validation frames are cached on
+the card too. The recipe's host ``augment`` cannot be combined with it.
+Synthetic data (``--synthetic`` or no data root) takes the cache's place,
+as in ``tools/train.py``: ``--device-cache`` is then ignored with a
+warning, and ``--device-augment`` is refused.
+
 Two properties of ``tools/train.py``'s loader are kept, so that the port
 trains on the frames the JAX loop trains on: the loader's shuffle is
 seeded 0 whatever ``--seed`` is, afresh in every process, so a resumed run
@@ -58,9 +74,11 @@ import time
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 STEPS_PER_EPOCH = 100  # tools/train.py's default for synthetic data
 LOADER_SEED = 0  # tools/train.py passes no seed to its BatchLoader
+DEVICE_AUGMENTATIONS = ("flip", "rotation")
 PROFILE_START = 10  # tools/train.py's ProfilerHook starts at step 10
 
 
@@ -99,6 +117,14 @@ def parse_args(argv=None):
                    help=f"write a torch.profiler trace of N steps from "
                         f"step {PROFILE_START} under <experiment>/<name>/"
                         f"traces")
+    p.add_argument("--device-cache", action="store_true",
+                   help="stage the packed dataset on the card once and "
+                        "build every batch there from its indices "
+                        "(data/device_cache.py)")
+    p.add_argument("--device-augment", default="",
+                   help="comma list of on-card augmentations of the "
+                        "--device-cache path (flip, rotation), fresh draws "
+                        "each step")
     p.add_argument("--device", default="cuda")
     return p.parse_args(argv)
 
@@ -164,6 +190,85 @@ def epoch_source(cfg, args, logger):
     return args.steps_per_epoch or len(loader), lambda epoch: loader.epoch()
 
 
+def augment_generator(seed: int, step: int, device) -> torch.Generator:
+    """The generator of step ``step``'s on-card augmentation draws, seeded
+    by (seed + 7, step) as ``tools/train.py`` folds the step count into
+    ``PRNGKey(seed + 7)``: the draws depend on the step alone."""
+    return torch.Generator(device=device).manual_seed(
+        ((seed + 7) << 32) | step)
+
+
+def stage_frames(roidb, cfg, device):
+    """Map every record once through ``record_to_inputs`` (no host
+    augmentation), pack and stack the frames and stage them on ``device``.
+    -> (cache, the frames' image width, staged MB, map s, transfer s)."""
+    from rangedet_tpu_torch.data.device_cache import (
+        pack_inputs,
+        stack_packed,
+        to_device,
+    )
+    from rangedet_tpu_torch.data.waymo import record_to_inputs
+
+    with np.load(roidb[0]["pc_url"]) as d:
+        data_w = int(d["range_image"].shape[1])
+    t0 = time.perf_counter()
+    host = stack_packed([
+        pack_inputs(record_to_inputs(rec, cfg.pad_field, cfg.max_gt_boxes))
+        for rec in roidb])
+    t1 = time.perf_counter()
+    cache = to_device(host, device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    mb = sum(v.nbytes for v in host.values()) / 1e6
+    return cache, data_w, mb, t1 - t0, time.perf_counter() - t1
+
+
+def device_cache_source(cfg, args, logger, device):
+    """The ``--device-cache`` path: -> (steps per epoch, epoch_batches(epoch)
+    -> generator of index tensors on the card, to_batch(idx, step) -> the
+    step's batch built on the card)."""
+    from rangedet_tpu_torch.data.device_cache import (
+        augment_raw,
+        finalize_inputs,
+        gather_packed,
+        unpack_raw,
+    )
+    from rangedet_tpu_torch.data.waymo import load_roidbs
+
+    if cfg.augment:
+        raise SystemExit(
+            "--device-cache caches pre-augmentation frames; use "
+            "--device-augment instead of the recipe's augment")
+    names = tuple(n for n in args.device_augment.split(",") if n)
+    roidb = load_roidbs(cfg.data_root, cfg.image_set, cfg.sampling_rate,
+                        cfg.filter_class)
+    logger.info(f"loaded {len(roidb)} roidb records (device-cache mode)")
+    cache, data_w, mb, map_s, put_s = stage_frames(roidb, cfg, device)
+    logger.info(f"device cache staged: {len(roidb)} frames, {mb:.1f} MB "
+                f"(map {map_s:.2f}s, transfer {put_s:.3f}s = "
+                f"{mb / max(put_s, 1e-9):.1f} MB/s)")
+    n, B = len(roidb), cfg.batch_image
+    spe = args.steps_per_epoch or n // B
+
+    def epoch_batches(epoch):
+        order = torch.from_numpy(np.random.RandomState(
+            args.seed * 100003 + epoch).permutation(n)).to(device)
+        for s in range(spe):
+            lo = (s * B) % max(n - B + 1, 1)
+            yield order[lo:lo + B]
+
+    def to_batch(idx, step):
+        with record_function("device_cache_batch"):
+            raw = unpack_raw(gather_packed(cache, idx), data_w)
+            if names:
+                raw = augment_raw(raw, data_w, names=names,
+                                  generator=augment_generator(
+                                      args.seed, step, device))
+            return finalize_inputs(raw)
+
+    return spe, epoch_batches, to_batch
+
+
 def fetch_window(metrics, keys):
     """The metrics of a window of steps (device scalars, one dict a step)
     on the host in one round trip: one stacked tensor, one copy. -> one
@@ -212,10 +317,31 @@ def main(argv=None):
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {args.device}: no CUDA card")
+    bad = set(n for n in args.device_augment.split(",") if n) - set(
+        DEVICE_AUGMENTATIONS)
+    if bad or (args.device_augment and not args.device_cache):
+        raise SystemExit(f"--device-augment takes {DEVICE_AUGMENTATIONS} "
+                         f"with --device-cache; got {args.device_augment!r}")
     cfg = apply_overrides(load_config(args.config, is_train=True), args)
     run_dir = os.path.join(cfg.experiment_dir, cfg.name)
     logger = config_logger(cfg.experiment_dir, cfg.name)
-    spe, epoch_batches = epoch_source(cfg, args, logger)
+    # tools/train.py: synthetic data (or no data root) wins over the cache
+    cached = args.device_cache and not args.synthetic and bool(cfg.data_root)
+    if args.device_cache and not cached:
+        if args.device_augment:
+            raise SystemExit("--device-augment needs the device cache, and "
+                             "synthetic data (--synthetic or no data root) "
+                             "takes its place")
+        logger.warning("--device-cache ignored: synthetic data (--synthetic "
+                       "or no data root) takes its place")
+    if cached:
+        spe, epoch_batches, to_batch = device_cache_source(cfg, args, logger,
+                                                           device)
+    else:
+        spe, epoch_batches = epoch_source(cfg, args, logger)
+
+        def to_batch(batch, step):
+            return batch_to_device(batch, device)
 
     model = RangeDet(**cfg.model_kwargs())
     model.init_from(torch.Generator().manual_seed(args.seed))
@@ -268,7 +394,9 @@ def main(argv=None):
                     history.append(rec)
                 pending.clear()
 
-            batches = threaded_prefetch(iter(epoch_batches(epoch)), depth=2)
+            # the cache path's batches are index slices already on the card
+            batches = (epoch_batches(epoch) if cached else
+                       threaded_prefetch(iter(epoch_batches(epoch)), depth=2))
             try:
                 i = 0
                 while True:
@@ -278,7 +406,7 @@ def main(argv=None):
                         break
                     t1 = time.perf_counter()
                     profiler(state.step)
-                    metrics = step(batch_to_device(batch, device))
+                    metrics = step(to_batch(batch, state.step))
                     t2 = time.perf_counter()
                     speedometer.tick(t1 - t0, t2 - t1)
                     lr, mom = hyperparams(state.optimizer)
@@ -304,7 +432,8 @@ def main(argv=None):
                 if val_fn is None:
                     val_fn = build_validation(state.model, cfg,
                                               args.synthetic, cfg.data_root,
-                                              n_frames=args.eval_frames)
+                                              n_frames=args.eval_frames,
+                                              device_cache=cached)
                 validations[epoch] = val_fn()
                 logger.info(f"epoch {epoch} validation: {validations[epoch]}")
                 if tb is not None:
@@ -321,14 +450,16 @@ def main(argv=None):
 
 
 def build_validation(model, cfg, synthetic: bool, data_root: str = "",
-                     n_frames: int = 8):
+                     n_frames: int = 8, device_cache: bool = False):
     """A reusable in-process validation runner, counterpart of
     ``tools/train.py:build_validation``: synthetic vehicle scenes when
     ``synthetic`` or there is no data root, else the first ``n_frames``
     frames of ``data_root``'s validation split. run() evaluates the model
     in eval mode (and restores its mode) at the WOD operating points
     (cfg.eval_iou_thresh, cfg.eval_iou_mode) and returns {class: {ap,
-    recall, precision}}. The JAX package's device cache is not ported."""
+    recall, precision}}. With ``device_cache`` the validation frames are
+    packed and staged on the model's card once (``stage_frames``) and each
+    eval rebuilds them there, as the train step does."""
     from rangedet_tpu_torch.eval.evaluator import evaluate
     from rangedet_tpu_torch.infer import make_eval_step
 
@@ -364,10 +495,27 @@ def build_validation(model, cfg, synthetic: bool, data_root: str = "",
             return {name: csa[cls == enum_of.get(name, 1.0)]
                     for name in cfg.class_names}
 
-        def frames():
-            for rec in roidb:
-                b = record_to_inputs(rec, cfg.pad_field, cfg.max_gt_boxes)
-                yield {k: v[None] for k, v in b.items()}, gt_of(rec)
+        if device_cache:
+            from rangedet_tpu_torch.data.device_cache import (
+                expand_inputs,
+                gather_packed,
+            )
+
+            device = next(model.parameters()).device
+            vcache, data_w, _, _, _ = stage_frames(roidb, cfg, device)
+            ids = torch.arange(len(roidb), device=device)
+
+            def frames():
+                for i, rec in enumerate(roidb):
+                    yield expand_inputs(gather_packed(vcache, ids[i:i + 1]),
+                                        data_w), gt_of(rec)
+        else:
+
+            def frames():
+                for rec in roidb:
+                    b = record_to_inputs(rec, cfg.pad_field,
+                                         cfg.max_gt_boxes)
+                    yield {k: v[None] for k, v in b.items()}, gt_of(rec)
 
     def run():
         was_training = model.training

@@ -419,6 +419,10 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     assert {"configs", "eval", "data", "ops", "tools", "train",
             "utils"} <= covered, covered
     assert REPO / "rangedet_tpu_torch" / "data" / "augment.py" in files
+    for new in ("data/device_cache.py", "data/synthetic_device.py",
+                "tools/quality_probe.py", "tools/overfit_probe.py",
+                "tools/flops.py", "tools/train.py"):
+        assert REPO / "rangedet_tpu_torch" / new in files, new
     banned = {"jax", "flax", "optax", "rangedet_tpu"}
     bad = [(str(f.relative_to(REPO)), m) for f in files for m in _imports(f)
            if m.split(".")[0] in banned]
