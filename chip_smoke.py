@@ -153,13 +153,37 @@ Phases, one line of output each (or a table), failing on the first error:
    --save`` (the AP keys of the last record; the state it saves bit-equal
    to the file it resumed: the model's parameters and buffers, the
    optimizer's state, the step count), ``tools.overfit_probe`` for 3 steps,
-   and their s_per_step.
+   and their s_per_step;
+12. data-parallel training of ``rangedet_veh_wo_aug_4_18e`` at 64x2656
+   (``rangedet_tpu_torch/parallel/``): (a) one B=1 train step, every launch
+   of it through phase 5's correctness gates (the speed against cuDNN and
+   the bounds printed, not gated), phase 6's launches a step; (b) the
+   data-parallel step in sync mode in an NCCL group of one, 2 steps from
+   phase 6's init with its BatchNorms perturbed (``perturb_bn``) and B=2
+   batch, bit-equal to the plain step (losses, parameters, running
+   statistics), its collectives a step; (c) two processes on the one card
+   over gloo (NCCL refuses two ranks on one card), each B=1 of that
+   batch, 2 steps: sync mode within the DP_* gates of the one-process B=2
+   step (the same step with its frames swapped held to them too), both
+   ranks bit-equal, the BatchNorms' all-reduce with its backward keeping
+   none, or DP_FAULT_KEPT, of the other rank's cotangent rejected by the
+   same gates,
+   localbn within DP_LOCAL_TOL of the mean of two one-process B=1 steps
+   and one update of their mean gradient, each rank's launches, collectives,
+   median step ms and peak memory; (d) ``tools.train`` from 16 files, an
+   epoch of 2 steps, then ``--resume``, and ``tools.test`` from 2
+   validation files, each under ``python -m torch.distributed.run
+   --standalone --nproc_per_node 1`` with ``--multihost`` (NCCL).
+
+With ``--rank-worker SPEC`` the script is one rank of [12](c)
+(``rank_main``), started by ``start_ranks``; the CPU tests start it too.
 
 It prints a JSON line of the kernels, one entry per kernel and path (the
 serving forward of phases 2-3 and 7, the train step of phases 5-6, the IoU
 target on the multiclass step of phase 8 as ``"train_multiclass"``, the
 Meta-Kernel kernels at C=128 of phase 9 as ``"train_tpuopt"`` and
-``"serve_tpuopt"``), with
+``"serve_tpuopt"``, the train kernels at B=1 of phase 12 as
+``"train_b1"``, their launches a rank's step of [12](c)), with
 the card's name and power limit on the line before it, then as its last
 line ``{"ok": true, "device": {...}}``. Every kernel, plain and
 cuDNN time in it is the median of 5 timings of 10 calls by CUDA events
@@ -447,19 +471,20 @@ def conv_device(fn, flops, sums, n):
 
 def conv_gate(tag, name, t, split, limit):
     """Print the kernel's sum over the launches against cuDNN's and its
-    device split; fail beyond ``limit`` x cuDNN."""
+    device split; fail beyond ``limit`` x cuDNN (None: no gate)."""
     from rangedet_tpu_torch import _build
 
     dev = sum(split.get(k, 0.0) for k in ("prologue", "gemm", "reduce"))
     print(f"[{tag}] {name}: kernel {t.ms:.3f} ms / cuDNN {t.library_ms:.3f} "
-          f"ms = {t.ms / t.library_ms:.2f}x (limit {limit}); bound "
+          f"ms = {t.ms / t.library_ms:.2f}x (limit "
+          f"{limit or 'none, printed only'}); bound "
           f"{t.bound_ms:.3f} ms = {t.bound_ms / t.ms:.1%} of the kernel's "
           f"time; device time (profiler) over {split.get('measured', 0)} of "
           f"the {t.n} launches {dev:.3f} ms: prologue "
           f"{split.get('prologue', 0.0):.3f}, GEMM {split.get('gemm', 0.0):.3f}"
           f", reduce {split.get('reduce', 0.0):.3f}; GEMM kernel (ptxas) "
           f"{ptxas_report(_build.build_log, 'conv3x3_gemm_kernel')}")
-    if not t.ms <= limit * t.library_ms:
+    if limit is not None and not t.ms <= limit * t.library_ms:
         raise SystemExit(f"[{tag}] {name} takes {t.ms / t.library_ms:.2f}x "
                          f"cuDNN, more than {limit}x")
 
@@ -664,19 +689,21 @@ def add_iou(t, r):
         t.extra[key] = t.extra.get(key, 0.0) + v
 
 
-def phase5_iou(torch, iou_mod, iou, t):
+def phase5_iou(torch, iou_mod, iou, t, tag="5", speed_gates=True):
     """The IoU target's gates and times on the calls the step made, one per
-    level and class, summed into the KernelTotals ``t``."""
+    level and class, summed into the KernelTotals ``t``. Without
+    ``speed_gates`` the clip's time against its bound is printed, not
+    gated."""
     from rangedet_tpu_torch import _build
 
     def fail(msg):
-        raise SystemExit(f"[5] {msg}")
+        raise SystemExit(f"[{tag}] {msg}")
 
     t.extra["before_ms"] = 0.0
     for lvl, call in enumerate(iou):
         d, p, gt, topk = call
         r = iou_call(torch, iou_mod, call, iters=3)
-        print(f"[5] IoU target level {lvl}: deltas {tuple(d.shape)} strides "
+        print(f"[{tag}] IoU target level {lvl}: deltas {tuple(d.shape)} strides "
               f"{d.stride()}, {r['nv'].numel()} blocks, G="
               f"{r['cand'].shape[1]}, nv sum {int(r['nv'].sum())}, max abs "
               f"err {r['err']:.3g} (limit {IOU_TOL}); "
@@ -700,7 +727,7 @@ def phase5_iou(torch, iou_mod, iou, t):
         before_ms = _time_ms(before)
         add_iou(t, r)
         t.extra["before_ms"] += before_ms
-        print(f"[5] IoU target level {lvl}: {r['pairs']} (pixel, candidate) "
+        print(f"[{tag}] IoU target level {lvl}: {r['pairs']} (pixel, candidate) "
               f"pairs ({r['live_pairs']} live), {int((r['out'] > 0).sum())} "
               f"pixels with IoU > 0; kernels {r['ms']:.4f} ms (prep "
               f"{r['prep_ms']:.4f}, clip {r['clip_ms']:.4f}), the old prep "
@@ -709,15 +736,16 @@ def phase5_iou(torch, iou_mod, iou, t):
               f"clip's {r['clip_bound']:.4f} ms")
     x = t.extra
     clip_x = x["clip_ms"] / x["clip_bound_ms"]
-    print(f"[5] IoU target over the step: prep {x['prep_ms']:.4f} ms + "
+    print(f"[{tag}] IoU target over the step: prep {x['prep_ms']:.4f} ms + "
           f"clip {x['clip_ms']:.4f} ms; the old prep with this clip "
           f"{x['before_ms']:.4f} ms; the clip at {clip_x:.2f}x its bound "
-          f"{x['clip_bound_ms']:.4f} ms (limit {IOU_CLIP_BOUND_MAX}), "
+          f"{x['clip_bound_ms']:.4f} ms (limit "
+          f"{IOU_CLIP_BOUND_MAX if speed_gates else 'none, printed only'}), "
           f"{x['clip_ms'] / x['clip_live_bound_ms']:.2f}x its bound over "
           f"live pairs {x['clip_live_bound_ms']:.4f} ms; clip kernel (ptxas) "
           f"{ptxas_report(_build.build_log, 'iou_clip_kernel')}; prep kernel "
           f"(ptxas) {ptxas_report(_build.build_log, 'iou_prep_kernel')}")
-    if not clip_x <= IOU_CLIP_BOUND_MAX:
+    if speed_gates and not clip_x <= IOU_CLIP_BOUND_MAX:
         fail(f"the IoU clip takes {clip_x:.2f}x its bound, more than "
              f"{IOU_CLIP_BOUND_MAX}x")
 
@@ -952,7 +980,13 @@ def meta_block_checks(torch, meta, taps, metas, tag, limits=None):
     return totals
 
 
-def phase5(torch, conv3x3, iou_mod, layers, meta, taps, recorded, H, dev):
+def phase5(torch, conv3x3, iou_mod, layers, meta, taps, recorded, H, dev,
+           tag="5", speed_gates=True):
+    """Every kernel call of a recorded train step (``record_train_step``)
+    against its plain version on the card: phase [5] at B=2, phase [12](a)
+    at B=1 (``tag``). Without ``speed_gates`` the kernels' times against
+    cuDNN and their bounds are printed, not gated; the correctness gates
+    hold either way. Returns {kernel: KernelTotals}."""
     from rangedet_tpu_torch import _build
     from rangedet_tpu_torch.tools.profile_wgrad import (
         device_ms as wgrad_device_ms,
@@ -968,46 +1002,46 @@ def phase5(torch, conv3x3, iou_mod, layers, meta, taps, recorded, H, dev):
         return 1.0 + 0.3 * rn(C), 0.2 * rn(C)
 
     def fail(msg):
-        raise SystemExit(f"[5] {msg}")
+        raise SystemExit(f"[{tag}] {msg}")
 
     totals = {k: KernelTotals() for k in ("fwd", "dgrad", "wgrad", "iou",
                                           "meta_stats", "meta_agg",
                                           "meta_block_bwd")}
     fwd_split, dgrad_split = {}, {}
-    print(f"[5] one B=2 train step: {len(fwd)} forward, {len(dgrad)} dgrad,"
-          f" {len(wgrad)} wgrad shapes, {len(deconv)} deconvs, {len(iou)} "
-          f"IoU-target levels")
-    print("[5] kernel  B    Ci    Co     W s ingest stats   n  max_abs_err"
+    print(f"[{tag}] one B={next(iter(fwd))[0]} train step: {len(fwd)} "
+          f"forward, {len(dgrad)} dgrad, {len(wgrad)} wgrad shapes, "
+          f"{len(deconv)} deconvs, {len(iou)} IoU-target levels")
+    print(f"[{tag}] kernel  B    Ci    Co     W s ingest stats   n  max_abs_err"
           "  kernel_ms   plain_ms  cudnn_ms   bound_ms")
     for key, n in sorted(fwd.items()):
         B, Ci, Co, W, s, ingest, stats = key
         err, k_ms, p_ms, c_ms, bound, call = conv_fwd_case(
             torch, conv3x3, key, H, rn, vecs, fail)
         totals["fwd"].add(n, k_ms, p_ms, bound, c_ms, err)
-        print(f"[5] fwd   {B:2d} {Ci:5d} {Co:5d} {W:5d} {s} {int(ingest):6d} "
+        print(f"[{tag}] fwd   {B:2d} {Ci:5d} {Co:5d} {W:5d} {s} {int(ingest):6d} "
               f"{int(stats):5d} {n:3d} {err:12.6g} {k_ms:10.4f} {p_ms:10.4f} "
               f"{c_ms:9.4f} {bound[0]:10.4f}")
-        print("[5]   " + conv_device(
+        print(f"[{tag}]   " + conv_device(
             call, 2 * B * H * (W // s) * Co * Ci * 9, fwd_split, n))
 
-    print("[5] kernel  B   Cgy   Cdx     W   cot affine   n  max_abs_err"
+    print(f"[{tag}] kernel  B   Cgy   Cdx     W   cot affine   n  max_abs_err"
           "  kernel_ms   plain_ms  cudnn_ms   bound_ms")
     for key, n in sorted(dgrad.items()):
         B, Cg, Cx, W, cot, aff = key
         err, k_ms, p_ms, c_ms, bound, call = conv_dgrad_case(
             torch, conv3x3, key, H, rn, vecs, fail)
         totals["dgrad"].add(n, k_ms, p_ms, bound, c_ms, err)
-        print(f"[5] dgrad {B:2d} {Cg:5d} {Cx:5d} {W:5d} {int(cot):5d} "
+        print(f"[{tag}] dgrad {B:2d} {Cg:5d} {Cx:5d} {W:5d} {int(cot):5d} "
               f"{int(aff):6d} {n:3d} {err:12.6g} {k_ms:10.4f} {p_ms:10.4f} "
               f"{c_ms:9.4f} {bound[0]:10.4f}")
-        print("[5]   " + conv_device(
+        print(f"[{tag}]   " + conv_device(
             call, 2 * B * H * W * Cg * Cx * 9, dgrad_split, n))
-    conv_gate(5, "conv3x3 forward over the step", totals["fwd"], fwd_split,
-              FWD_CUDNN_MAX)
-    conv_gate(5, "dgrad over the step", totals["dgrad"], dgrad_split,
-              DGRAD_CUDNN_MAX)
+    conv_gate(tag, "conv3x3 forward over the step", totals["fwd"], fwd_split,
+              FWD_CUDNN_MAX if speed_gates else None)
+    conv_gate(tag, "dgrad over the step", totals["dgrad"], dgrad_split,
+              DGRAD_CUDNN_MAX if speed_gates else None)
 
-    print("[5] kernel  B    Ci    Co     W ingest cot   n  max_abs_err"
+    print(f"[{tag}] kernel  B    Ci    Co     W ingest cot   n  max_abs_err"
           "  max_rel_err  kernel_ms   plain_ms  cudnn_ms   bound_ms"
           "  TFLOP/s of_bound")
     prologue_ms = device_ms = 0.0
@@ -1019,32 +1053,33 @@ def phase5(torch, conv3x3, iou_mod, layers, meta, taps, recorded, H, dev):
         dev_ms = wgrad_device_ms(call)
         flops = 2 * B * H * W * Ci * Co * 9
         totals["wgrad"].add(n, k_ms, p_ms, bound, c_ms, err)
-        print(f"[5] wgrad {B:2d} {Ci:5d} {Co:5d} {W:5d} {int(ingest):6d} "
+        print(f"[{tag}] wgrad {B:2d} {Ci:5d} {Co:5d} {W:5d} {int(ingest):6d} "
               f"{int(cot):3d} {n:3d} {err:12.6g} {rel:12.6g} {k_ms:10.4f} "
               f"{p_ms:10.4f} {c_ms:9.4f} {bound[0]:10.4f} "
               f"{flops / k_ms / 1e9:8.1f} {bound[0] / k_ms:8.1%}")
         if dev_ms is None:
-            print("[5]   device time per call: not measured (the profiler "
+            print(f"[{tag}]   device time per call: not measured (the profiler "
                   "saw none of its kernels)")
             continue
         pro_ms, gemm_ms = dev_ms
         prologue_ms += n * pro_ms
         device_ms += n * (pro_ms + gemm_ms)
         measured += n
-        print(f"[5]   device time per call: prologue {pro_ms:.4f} ms, GEMM "
+        print(f"[{tag}]   device time per call: prologue {pro_ms:.4f} ms, GEMM "
               f"+ reduction {gemm_ms:.4f} ms "
               f"({flops / gemm_ms / 1e9:.1f} TFLOP/s)")
     t = totals["wgrad"]
     regs = ptxas_report(_build.build_log, "conv3x3_wgrad_kernel")
-    print(f"[5] wgrad over the step: kernel {t.ms:.3f} ms / cuDNN "
+    print(f"[{tag}] wgrad over the step: kernel {t.ms:.3f} ms / cuDNN "
           f"{t.library_ms:.3f} ms = {t.ms / t.library_ms:.2f}x (limit "
-          f"{WGRAD_CUDNN_MAX}); bound {t.bound_ms:.3f} ms = "
+          f"{WGRAD_CUDNN_MAX if speed_gates else 'none, printed only'}); "
+          f"bound {t.bound_ms:.3f} ms = "
           f"{t.bound_ms / t.ms:.1%} of the kernel's time; device time "
           f"(profiler) over {measured} of the {t.n} launches "
           f"{device_ms:.3f} ms, of which the prologue {prologue_ms:.3f} ms "
           f"= {prologue_ms / max(device_ms, 1e-9):.1%}; GEMM kernel "
           f"(ptxas) {regs}")
-    if not t.ms <= WGRAD_CUDNN_MAX * t.library_ms:
+    if speed_gates and not t.ms <= WGRAD_CUDNN_MAX * t.library_ms:
         fail(f"wgrad summed over the step takes {t.ms / t.library_ms:.2f}x "
              f"cuDNN's conv2d_weight, more than {WGRAD_CUDNN_MAX}x")
 
@@ -1072,7 +1107,7 @@ def phase5(torch, conv3x3, iou_mod, layers, meta, taps, recorded, H, dev):
                     + (s2 * r2).sum())
 
         rels = grads_both(f, (x, w, sc, bi))
-        print(f"[5] stride-2 backward (B={B} Ci={Ci} Co={Co} W={W}, ingest "
+        print(f"[{tag}] stride-2 backward (B={B} Ci={Ci} Co={Co} W={W}, ingest "
               f"+ stats): max|a-b|/max|b| dx {rels[0]:.3g} dw {rels[1]:.3g} "
               f"dscale {rels[2]:.3g} dbias {rels[3]:.3g}")
         if not max(rels) <= FN_TOL:
@@ -1084,20 +1119,21 @@ def phase5(torch, conv3x3, iou_mod, layers, meta, taps, recorded, H, dev):
         rels = grads_both(
             lambda x, wt: (layers.deconv_bhcw(x, wt, s).float() * r).sum(),
             (x, wt))
-        print(f"[5] deconv backward (B={B} Ci={Ci} Co={Co} W={W} s={s}): "
+        print(f"[{tag}] deconv backward (B={B} Ci={Ci} Co={Co} W={W} s={s}): "
               f"max|a-b|/max|b| dx {rels[0]:.3g} dw {rels[1]:.3g}")
         if not max(rels) <= FN_TOL:
             fail(f"deconv backward kernel vs plain {max(rels)} > {FN_TOL}")
 
-    phase5_iou(torch, iou_mod, iou, totals["iou"])
-    totals.update(meta_block_checks(torch, meta, taps, metas, "5", {
+    phase5_iou(torch, iou_mod, iou, totals["iou"], tag, speed_gates)
+    totals.update(meta_block_checks(torch, meta, taps, metas, tag, {
         "meta_block_bwd": META_BWD_BOUND_MAX,
-        "meta_agg": META_AGG_BOUND_MAX, "meta_stats": META_STATS_BOUND_MAX}))
+        "meta_agg": META_AGG_BOUND_MAX, "meta_stats": META_STATS_BOUND_MAX}
+        if speed_gates else None))
     for name, t in totals.items():
         lib = (f"cuDNN {t.library_ms:.3f} ms" if name in ("fwd", "dgrad",
                                                           "wgrad")
                else "no library call")
-        print(f"[5] {name}: {t.n} launches per step, kernel {t.ms:.3f} ms, "
+        print(f"[{tag}] {name}: {t.n} launches per step, kernel {t.ms:.3f} ms, "
               f"plain {t.plain_ms:.3f} ms, bound {t.bound_ms:.3f} ms "
               f"({t.bound_by()}), {lib}")
     return totals
@@ -2248,8 +2284,8 @@ def phase10(torch, m, cfg, dev, per_step):
         reads, counts = [], {}
         real_make = m["make_train_step"]
 
-        def checked_make(state, c):
-            step = real_make(state, c)
+        def checked_make(state, c, group=None):
+            step = real_make(state, c, group)
             read, n_std, n_other = standardization_check(torch, state.model)
             counts.update(std=n_std, other=n_other)
 
@@ -2810,8 +2846,8 @@ def phase11(torch, m, cfg, dev, per_step, loader):
             draws.append(tuple(t.tolist() for t in out))
             return out
 
-        def ranged_make(state, c):
-            step = real_make(state, c)
+        def ranged_make(state, c, group=None):
+            step = real_make(state, c, group)
 
             def ranged(batch):
                 with torch.profiler.record_function("chip_smoke_step"):
@@ -3027,6 +3063,571 @@ def phase11(torch, m, cfg, dev, per_step, loader):
     print(f"[11] phase 11 in {time.perf_counter() - t_phase:.1f} s")
 
 
+# ----------------------------------------------------------- phase 12
+RANKS = 2  # processes of [12](c), both on the one card, over gloo
+DP_STEPS = 2  # steps of each two-rank run
+DP_TIMED = 5  # more steps of the sync run, timed
+RANK_TIMEOUT = 600
+# gates of [12](c), two ranks of B=1 against one process of B=2 in bf16 on
+# the card, after each of DP_STEPS steps (``dp_spread``): the losses' max
+# relative difference, and over the parameters and running statistics the
+# median and the max of their update's (new - init) max|a - b| / max|b|.
+# From (b)'s weights (BatchNorms perturbed, ``perturb_bn``), on an NVIDIA
+# H100 80GB HBM3 at 700.00 W (PERF.md section 6), after steps 1 / 2: the
+# same B=2 step with its two frames swapped, which only reorders the sums,
+# reads losses 0.0010 / 0.0040, median 0.186 / 0.247, max 1.60 / 1.70; two
+# ranks 0.0002 / 0.0062, 0.190 / 0.255, 1.26 / 1.59; the planted fault
+# keeping half of the other rank's cotangent 0.0002 / 0.0104, 0.406 /
+# 0.511, 10.5 / 10.3; keeping none 0.0002 / 0.0257, 0.545 / 0.712, 20.9 /
+# 20.9. bf16 moves any reordering that far; the perturbation did not
+# narrow it (unperturbed: median 0.197 / 0.246, max 1.30 / 2.05). The
+# spreads repeat from call to call, the kernels being deterministic. The
+# gates sit between the floor and the half fault, and [12](c) holds the
+# swapped frames to them too.
+DP_LOSS_TOL = 1e-2
+DP_UPDATE_MEDIAN_TOL = 0.35
+DP_UPDATE_MAX_TOL = 4.0
+# the second planted fault keeps this share of the other rank's cotangent
+DP_FAULT_KEPT = 0.5
+# localbn against the mean of two one-process B=1 steps: the same kernels
+# on the same rows, so only the all-reduce's rounding separates them
+DP_LOCAL_TOL = 1e-5
+
+
+def free_port():
+    """A TCP port of 127.0.0.1 that is free now."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def planted_detached_sum(kept=0.0):
+    """The BatchNorms' all-reduce with its backward (partly) detached: the
+    forward sums over the group, the backward keeps each rank's own
+    cotangent of the sums and ``kept`` of the other ranks' share. The
+    planted faults of [12](c) and of the CPU tests (``kept`` 0)."""
+    from rangedet_tpu_torch.parallel.dist import AllReduceSum
+
+    class Detached(AllReduceSum):
+        @staticmethod
+        def backward(ctx, g):
+            if not kept:
+                return g, None
+            total, _ = AllReduceSum.backward(ctx, g)
+            return g + kept * (total - g), None
+
+    return lambda x, group: Detached.apply(x, group)
+
+
+def rank_main(spec_path):
+    """One rank of a data-parallel run (``start_ranks``): join the group the
+    spec names, take this rank's rows of the spec's global batch, run
+    ``steps`` steps of ``train_step.build_train_step_fn``'s step from the
+    spec's weights (``mode`` "sync" or "local"; ``fault``: the planted
+    fault, keeping ``kept`` of the other ranks' cotangent), counting each step's kernel launches and collectives, then on
+    the card time ``timed`` more steps; save the metrics, the state after
+    each counted step, the counts, the median step ms and the peak memory
+    to ``out``."""
+    import torch
+
+    from rangedet_tpu_torch.models import RangeDet, layers
+    from rangedet_tpu_torch.ops import conv3x3, iou_target, meta_block
+    from rangedet_tpu_torch.ops import meta_kernel
+    from rangedet_tpu_torch.parallel import dist as pd
+    from rangedet_tpu_torch.train.state import create_train_state
+    from rangedet_tpu_torch.train.train_step import (
+        batch_to_device,
+        build_train_step_fn,
+    )
+
+    spec = torch.load(spec_path, weights_only=False)
+    if spec["device"] == "cpu":
+        torch.set_num_threads(1)
+    ranks = pd.join(spec["device"], backend=spec["backend"],
+                    rank=spec["rank"], world_size=spec["world"],
+                    init_method=spec["init_method"], always=True)
+    dev = ranks.device
+    cuda = dev.type == "cuda"
+    cfg = spec["cfg"].replace(sync_bn=spec["mode"] == "sync")
+    model = RangeDet(**cfg.model_kwargs())
+    model.load_state_dict(spec["state"])
+    model = model.to(dev)
+    layers.set_sync_group(model, ranks.group if cfg.sync_bn else None)
+    state = create_train_state(model, cfg, STEPS_PER_EPOCH, seed=None)
+    step = build_train_step_fn(state, cfg, ranks.group)
+    batch = batch_to_device(
+        pd.local_rows(spec["batch"], ranks.rank, ranks.world), dev)
+    mods = dict(conv3x3=conv3x3, iou=iou_target, meta=meta_block,
+                taps=meta_kernel)
+    out = dict(bn_semantics=step.bn_semantics, metrics=[], states=[],
+               launches=[], collectives=[])
+    planted = (mock.patch.object(layers, "all_reduce_sum",
+                                 planted_detached_sum(spec.get("kept", 0.0)))
+               if spec.get("fault") else contextlib.nullcontext())
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    with planted:
+        for _ in range(spec["steps"]):
+            if cuda:
+                torch.cuda.synchronize(dev)
+            reset_counts(mods)
+            pd.reset_counts()
+            metrics = step(batch)
+            if cuda:
+                torch.cuda.synchronize(dev)
+            out["launches"].append(read_counts(mods))
+            out["collectives"].append(pd.COLLECTIVES)
+            out["metrics"].append({k: float(v) for k, v in metrics.items()})
+            out["states"].append({k: v.detach().cpu().clone()
+                                  for k, v in model.state_dict().items()})
+        if cuda and spec.get("timed"):
+            out["step_ms"] = _median_ms(lambda: step(batch),
+                                        iters=spec["timed"], warmup=1)
+            out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    torch.save(out, spec["out"])
+    pd.leave(ranks)
+
+
+def start_ranks(spec, world, tmp, name):
+    """Start ``world`` processes of this script's ``rank_main`` on ``spec``
+    (a group on a free port of 127.0.0.1). -> a handle for
+    ``wait_ranks``."""
+    import torch
+
+    port = free_port()
+    procs = []
+    for r in range(world):
+        path = os.path.join(tmp, f"{name}_rank{r}")
+        torch.save(dict(spec, rank=r, world=world,
+                        init_method=f"tcp://127.0.0.1:{port}",
+                        out=f"{path}.out"), f"{path}.spec")
+        log = open(f"{path}.log", "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--rank-worker",
+             f"{path}.spec"], stdout=log, stderr=subprocess.STDOUT,
+            env=dict(os.environ, OMP_NUM_THREADS="1")), log, path))
+    return name, procs
+
+
+def wait_ranks(handle, timeout=RANK_TIMEOUT):
+    """Wait for the processes of ``start_ranks`` (killing them all if one
+    fails or the time runs out). -> each rank's saved output, by rank."""
+    import torch
+
+    name, procs = handle
+    deadline = time.monotonic() + timeout
+    try:
+        for p, _, _ in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p, log, _ in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    if any(p.returncode for p, _, _ in procs):
+        tails = []
+        for p, _, path in procs:
+            with open(f"{path}.log") as f:
+                tails.append(f"rank {path[-1]} exit {p.returncode}:\n"
+                             + f.read()[-3000:])
+        raise RuntimeError(f"{name}: a rank failed\n" + "\n".join(tails))
+    return [torch.load(f"{path}.out", weights_only=False)
+            for _, _, path in procs]
+
+
+def dp_spread(metrics, states, ref_metrics, ref_states, init):
+    """How far a run lies from its reference after each step (lists of
+    per-step metrics as floats, and of state dicts): the losses' max
+    relative difference; each floating tensor's update (new - init) by
+    max|a - b| / max|b|, as the median, the max and its name, and the head
+    projections' max; the cosine of the parameters' whole updates."""
+    import torch
+
+    out = []
+    for m, st, rm, rst in zip(metrics, states, ref_metrics, ref_states):
+        rels, a, b = {}, [], []
+        for k, v0 in init.items():
+            if not v0.is_floating_point():
+                continue
+            d_got = st[k].double() - v0.double()
+            d_ref = rst[k].double() - v0.double()
+            rels[k] = float((d_got - d_ref).abs().max()
+                            / d_ref.abs().max().clamp(min=1e-30))
+            if "running_" not in k:
+                a.append(d_got.flatten())
+                b.append(d_ref.flatten())
+        a, b = torch.cat(a), torch.cat(b)
+        worst = max(rels, key=rels.get)
+        out.append(dict(
+            loss=max(abs(m[k] - rm[k]) / max(abs(rm[k]), 1e-30)
+                     for k in rm),
+            median=statistics.median(rels.values()), max=rels[worst],
+            worst=worst, n=len(rels),
+            head=max(r for k, r in rels.items() if "_lvl_" in k and (
+                "cls_logit" in k or "reg_delta" in k)),
+            cos=float(a @ b / (a.norm() * b.norm()))))
+    return out
+
+
+def dp_passes(spread):
+    """The gates of [12](c): every step's losses, update median and
+    update max."""
+    return all(s["loss"] <= DP_LOSS_TOL
+               and s["median"] <= DP_UPDATE_MEDIAN_TOL
+               and s["max"] <= DP_UPDATE_MAX_TOL for s in spread)
+
+
+def dp_line(spread):
+    """The spread of each step, as text."""
+    return "; ".join(
+        f"step {i + 1}: losses {s['loss']:.4g}, update median "
+        f"{s['median']:.4g}, max {s['max']:.4g} ({s['worst']}), head "
+        f"projections {s['head']:.4g}, cosine {s['cos']:.6f}"
+        for i, s in enumerate(spread))
+
+
+def perturb_bn(torch, layers, model, seed):
+    """Seeded noise on every BatchNorm's scale, bias and running
+    statistics, as the CPU tests' ``torch_parity.perturb`` puts it on the
+    weights they hold against JAX: scale x U(0.7, 1.3), bias and mean
+    + 0.1 N(0, 1), var x U(0.5, 1.5). At the init's scale 1 and bias 0 the
+    BatchNorm backward nearly cancels, and any reordering of a bf16 sum
+    moves the gradient far."""
+    g = torch.Generator().manual_seed(seed)
+
+    def uniform(t, lo, hi):
+        return torch.rand(t.shape, generator=g) * (hi - lo) + lo
+
+    with torch.no_grad():
+        for bn in model.modules():
+            if isinstance(bn, layers.BatchNormFold):
+                bn.weight.mul_(uniform(bn.weight, 0.7, 1.3))
+                bn.bias.add_(0.1 * torch.randn(bn.bias.shape, generator=g))
+                bn.running_mean.add_(
+                    0.1 * torch.randn(bn.running_mean.shape, generator=g))
+                bn.running_var.mul_(uniform(bn.running_var, 0.5, 1.5))
+
+
+def plain_steps(torch, m, cfg, dev, init_sd, batch):
+    """DP_STEPS plain steps from ``init_sd`` on ``batch``: -> (metrics as
+    floats, state dicts on the host), a step each."""
+    model = m["RangeDet"](**cfg.model_kwargs())
+    model.load_state_dict(init_sd)
+    model = model.to(dev)
+    state = m["create_train_state"](model, cfg, STEPS_PER_EPOCH, seed=None)
+    step = m["make_train_step"](state, cfg)
+    metrics, states = [], []
+    for _ in range(DP_STEPS):
+        metrics.append({k: float(v) for k, v in step(batch).items()})
+        states.append({k: v.detach().cpu().clone()
+                       for k, v in model.state_dict().items()})
+    return metrics, states
+
+
+def world1_check(torch, m, cfg, dev, init_sd, batch, backend):
+    """The data-parallel step in sync mode in a group of one (``backend``)
+    against the plain step, DP_STEPS steps from ``init_sd`` on ``batch``:
+    -> (bit-equal, the plain run's metrics and states (on the host), the
+    launches and collectives a step of each)."""
+    pd, layers = m["pdist"], m["layers"]
+    ranks = pd.join(str(dev), backend=backend, rank=0, world_size=1,
+                    init_method=f"tcp://127.0.0.1:{free_port()}",
+                    always=True)
+    runs = {}
+    try:
+        for name in ("plain", "dp"):
+            model = m["RangeDet"](**cfg.model_kwargs())
+            model.load_state_dict(init_sd)
+            model = model.to(dev)
+            state = m["create_train_state"](model, cfg, STEPS_PER_EPOCH,
+                                            seed=None)
+            if name == "dp":
+                layers.set_sync_group(model, ranks.group)
+            step = m["make_train_step"](
+                state, cfg, ranks.group if name == "dp" else None)
+            r = runs[name] = dict(metrics=[], states=[], launches=[],
+                                  collectives=[])
+            for _ in range(DP_STEPS):
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                reset_counts(m)
+                pd.reset_counts()
+                metrics = step(batch)
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                r["launches"].append(read_counts(m))
+                r["collectives"].append(pd.COLLECTIVES)
+                r["metrics"].append({k: v.detach().clone()
+                                     for k, v in metrics.items()})
+                r["states"].append({k: v.detach().clone() for k, v in
+                                    model.state_dict().items()})
+    finally:
+        pd.leave(ranks)
+    a, b = runs["plain"], runs["dp"]
+    same = all(torch.equal(x[k], y[k]) for x, y in zip(a["metrics"],
+                                                       b["metrics"])
+               for k in x) and all(
+        torch.equal(x[k], y[k]) for x, y in zip(a["states"], b["states"])
+        for k in x)
+    host = [{k: v.cpu() for k, v in s.items()} for s in a["states"]]
+    return same, [{k: float(v) for k, v in x.items()}
+                  for x in a["metrics"]], host, a, b
+
+
+def phase12(torch, m, cfg, dev, per_step):
+    """Data-parallel training of the recipe at 64x2656 (``parallel/``):
+    (a) one B=1 train step, every launch through phase 5's correctness
+    gates (its speed printed, not gated) and the launches of phase 6's
+    step; (b) the data-parallel step in sync mode in an NCCL group of one,
+    DP_STEPS steps from phase 6's init with its BatchNorms perturbed and
+    B=2 batch, bit-equal to the plain step (losses, parameters, running
+    statistics), its collectives a step; (c) RANKS processes on the one
+    card over gloo, each B=1 of that batch: sync mode against (b)'s plain
+    step within the DP_* gates, both ranks bit-equal, the planted faults
+    (the BatchNorm all-reduce's backward keeping none, or DP_FAULT_KEPT,
+    of the other rank's cotangent) rejected by the same gates, localbn against the mean
+    of two one-process B=1 steps, each rank's launches (phase 6's per
+    step), median step ms and peak memory; (d) tools.train and tools.test
+    under ``python -m torch.distributed.run --nproc_per_node 1`` (NCCL)
+    from CACHE_FRAMES files: an epoch of 2 steps, a checkpoint, --resume,
+    then the validation frames' pickle. -> the KernelTotals of (a) and the
+    launches of a rank's step."""
+    import numpy as np
+
+    pd, layers = m["pdist"], m["layers"]
+    t_phase = time.perf_counter()
+
+    def fail(msg):
+        raise SystemExit(f"[12] {msg}")
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    H, W = cfg.feat_size
+    init = m["RangeDet"](**cfg.model_kwargs())
+    init.init_from(torch.Generator().manual_seed(SEED))
+    init_sd = {k: v.clone() for k, v in init.state_dict().items()}
+    perturb_bn(torch, layers, init, SEED)  # the weights of (b) and (c)
+    dp_sd = {k: v.clone() for k, v in init.state_dict().items()}
+    del init
+
+    # (a) the train kernels at B=1
+    model = m["RangeDet"](**cfg.model_kwargs())
+    model.load_state_dict(init_sd)
+    state = m["create_train_state"](model.to(dev), cfg, STEPS_PER_EPOCH,
+                                    seed=None)
+    step = m["make_train_step"](state, cfg)
+    batch1 = m["batch_to_device"](m["make_batch"](cfg, 1, seed=SEED,
+                                                  num_boxes=20), dev)
+    sync()
+    reset_counts(m)
+    step(batch1)
+    sync()
+    b1 = read_counts(m)
+    print(f"[12] (a) one B=1 train step: launches {b1}")
+    if b1 != per_step:
+        fail(f"(a) B=1 launches {b1}, phase 6's step {per_step}")
+    recorded = record_train_step(step, batch1, m["conv3x3"], m["iou"],
+                                 layers, m["meta"])
+    del model, state, step
+    totals = phase5(torch, m["conv3x3"], m["iou"], layers, m["meta"],
+                    m["taps"], recorded, H, dev, tag="12",
+                    speed_gates=False)
+    del recorded
+
+    # (b) NCCL in a group of one
+    batch_np = m["make_batch"](cfg, 2, seed=SEED, num_boxes=20)
+    batch = m["batch_to_device"](batch_np, dev)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    same, ref_metrics, ref_states, plain, dp = world1_check(
+        torch, m, cfg, dev, dp_sd, batch, backend)
+    n_bn = sum(isinstance(x, layers.BatchNormFold)
+               for x in m["RangeDet"](**cfg.model_kwargs()).modules())
+    coll = dp["collectives"][-1]
+    print(f"[12] (b) dp step, sync, {backend} group of one, {DP_STEPS} steps "
+          f"against the plain step: losses, parameters and running "
+          f"statistics bit-equal: {same}; total_loss "
+          + " ".join(repr(x["total_loss"]) for x in ref_metrics)
+          + f"; launches a step {dp['launches'][-1]} (plain "
+          f"{plain['launches'][-1]}); collectives a step {coll} (plain "
+          f"{plain['collectives'][-1]}): {n_bn} BatchNorms x 2 (their sums "
+          f"forward and the sums' cotangent backward) + "
+          f"{2 * len(cfg.fpn_strides)} loss normalizers + "
+          f"{coll - 2 * n_bn - 2 * len(cfg.fpn_strides)} flat buffers "
+          f"(gradients with the metrics, running statistics)")
+    if not same:
+        fail("(b) the dp step in a group of one differs from the plain step")
+    if dp["launches"] != plain["launches"]:
+        fail(f"(b) launches {dp['launches']} != {plain['launches']}")
+    del plain, dp
+
+    # (c) two processes on the one card over gloo
+    spec = dict(cfg=cfg, state={k: v.cpu() for k, v in dp_sd.items()},
+                batch=batch_np, steps=DP_STEPS,
+                device=str(batch["input_data"].device), backend="gloo")
+    init_host = spec["state"]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        outs = wait_ranks(start_ranks(dict(spec, mode="sync",
+                                           timed=DP_TIMED), RANKS, tmp,
+                                      "sync"))
+        t1 = time.perf_counter()
+        h_fault = start_ranks(dict(spec, mode="sync", fault=True), RANKS,
+                              tmp, "fault")
+        h_half = start_ranks(dict(spec, mode="sync", fault=True,
+                                  kept=DP_FAULT_KEPT), RANKS, tmp, "half")
+        h_local = start_ranks(dict(spec, mode="local", steps=1), RANKS, tmp,
+                              "local")
+        faults, halves = wait_ranks(h_fault), wait_ranks(h_half)
+        locals_ = wait_ranks(h_local)
+        t2 = time.perf_counter()
+    print(f"[12] (c) {RANKS} ranks over gloo on {spec['device']}: sync run "
+          f"{t1 - t0:.1f} s; the two faults' and localbn's runs together "
+          f"{t2 - t1:.1f} s")
+    for r, o in enumerate(outs):
+        print(f"[12] (c) sync rank {r}: launches a step {o['launches'][-1]}"
+              f", collectives a step {o['collectives'][-1]}, step median "
+              f"{o.get('step_ms', 'not measured')} ms over {DP_TIMED} "
+              f"steps, peak memory {o.get('peak_gib', 'not measured')} GiB")
+        if o["launches"] != [per_step] * DP_STEPS:
+            fail(f"(c) rank {r} launches {o['launches']}, phase 6's "
+                 f"{per_step} a step")
+    for name, o in (("sync", outs), ("fault", faults), ("half fault", halves),
+                    ("local", locals_)):
+        same = all(torch.equal(a[k], o[1]["states"][i][k])
+                   for i, a in enumerate(o[0]["states"]) for k in a)
+        print(f"[12] (c) {name}: both ranks' states bit-equal: {same}")
+        if not same:
+            fail(f"(c) {name}: the ranks' states differ")
+    # the floor: the same B=2 step with its two frames swapped, which
+    # only reorders the sums
+    swapped = plain_steps(torch, m, cfg, dev, dp_sd,
+                          {k: v.flip(0) for k, v in batch.items()})
+    stat = {"swapped frames": dp_spread(*swapped, ref_metrics, ref_states,
+                                        init_host)}
+    for name, o in (("sync", outs), ("fault", faults),
+                    ("half fault", halves)):
+        stat[name] = dp_spread(o[0]["metrics"], o[0]["states"],
+                               ref_metrics, ref_states, init_host)
+    for name, sp in stat.items():
+        print(f"[12] (c) {name} vs one process of B=2 (total_loss "
+              + " ".join(f"{x['total_loss']:.6f}" for x in ref_metrics)
+              + f"): {dp_line(sp)}; gates, every step: losses <= "
+              f"{DP_LOSS_TOL}, update median <= {DP_UPDATE_MEDIAN_TOL}, "
+              f"max <= {DP_UPDATE_MAX_TOL}: "
+              f"{'pass' if dp_passes(sp) else 'reject'}")
+    if not (dp_passes(stat["sync"]) and dp_passes(stat["swapped frames"])):
+        fail("(c) two ranks (or the swapped frames) vs one process outside "
+             "the gates")
+    if dp_passes(stat["fault"]) or dp_passes(stat["half fault"]):
+        fail("(c) the gates pass a planted fault")
+
+    # localbn: the mean of two one-process B=1 steps
+    rows, grads, bufs = [], [], []
+    for r in range(RANKS):
+        model = m["RangeDet"](**cfg.model_kwargs())
+        model.load_state_dict(dp_sd)
+        model = model.to(dev).train()
+        b = m["batch_to_device"](pd.local_rows(batch_np, r, RANKS), dev)
+        targets = m["build_train_targets"](b, cfg)
+        cls, reg = model(b["input_data"], b["coord"])
+        total, metrics = m["compute_losses"](cls, reg, targets, cfg)
+        total.backward()
+        rows.append({k: float(v.detach()) for k, v in metrics.items()})
+        grads.append([p.grad for p in model.parameters()])
+        bufs.append({k: v.clone() for k, v in model.named_buffers()})
+    model = m["RangeDet"](**cfg.model_kwargs())
+    model.load_state_dict(dp_sd)
+    model = model.to(dev)
+    state = m["create_train_state"](model, cfg, STEPS_PER_EPOCH, seed=None)
+    for p, *g in zip(model.parameters(), *grads):
+        p.grad = None if g[0] is None else sum(g) / RANKS
+    m["train_step"].apply_update(state, cfg)
+    with torch.no_grad():
+        for k, v in model.named_buffers():
+            v.copy_(sum(b[k] for b in bufs) / RANKS)
+    want = {k: v.cpu() for k, v in model.state_dict().items()}
+    mean_rows = [{k: sum(r[k] for r in rows) / RANKS for k in rows[0]}]
+    (s,) = dp_spread(locals_[0]["metrics"], locals_[0]["states"][:1],
+                     mean_rows, [want], init_host)
+    exact = all(torch.equal(want[k], locals_[0]["states"][0][k])
+                for k in want)
+    print(f"[12] (c) localbn vs the mean of two one-process B=1 steps and "
+          f"one apply_update of their mean gradient: losses max rel diff "
+          f"{s['loss']:.4g}, update max {s['max']:.4g} ({s['worst']}), "
+          f"median {s['median']:.4g} (gate {DP_LOCAL_TOL}); bit-equal "
+          f"{exact}; total_loss {locals_[0]['metrics'][0]['total_loss']:.6f}"
+          f" = mean of {rows[0]['total_loss']:.6f} and "
+          f"{rows[1]['total_loss']:.6f}")
+    if not (s["loss"] <= DP_LOCAL_TOL and s["max"] <= DP_LOCAL_TOL):
+        fail("(c) localbn differs from the mean of two B=1 steps")
+    del model, state, grads, bufs
+
+    # (d) the CLIs under the launcher
+    repo = os.path.dirname(os.path.abspath(__file__))
+    launcher = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                "--nproc_per_node", "1", "-m"]
+    env = dict(os.environ, PYTHONPATH=repo)
+
+    def launch(args, what):
+        t0 = time.perf_counter()
+        p = subprocess.run(launcher + args, cwd=repo, env=env,
+                           capture_output=True, text=True, timeout=600)
+        out = p.stdout + p.stderr
+        if p.returncode:
+            fail(f"(d) {what} exit {p.returncode}:\n{out[-4000:]}")
+        return out, time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data, exp = os.path.join(tmp, "data"), os.path.join(tmp, "exp")
+        m["write_waymo_files"](data, CACHE_FRAMES, H=H, W=W, seed=SEED + 3,
+                               image_set="training", num_boxes=20)
+        m["write_waymo_files"](data, VAL_FRAMES, H=H, W=W, seed=SEED + 4,
+                               image_set="validation", num_boxes=20)
+        train = ["rangedet_tpu_torch.tools.train", "--config", RECIPE,
+                 "--data-root", data, "--sampling-rate", "1", "--batch", "2",
+                 "--num-workers", "2", "--steps-per-epoch", "2",
+                 "--experiment-dir", exp, "--device", dev.type, "--multihost",
+                 "--mesh", "data=1"]
+        out1, s1 = launch(train + ["--epochs", "1"], "tools.train")
+        out2, s2 = launch(train + ["--epochs", "2", "--resume"],
+                          "tools.train --resume")
+        ccfg = cfg.replace(experiment_dir=exp)
+        pkl = os.path.join(tmp, "pred.pkl")
+        out3, s3 = launch(["rangedet_tpu_torch.tools.test", "--config",
+                           RECIPE, "--data-root", data, "--image-set",
+                           "validation", "--batch", "1", "--experiment-dir",
+                           exp, "--epoch", "1", "--device", dev.type,
+                           "--multihost", "--output", pkl], "tools.test")
+        epochs = m["latest_epoch"](ccfg)
+        with open(pkl, "rb") as f:
+            anno, preds = pickle.load(f), pickle.load(f)
+    joined = f"1 rank(s), {backend}"
+    print(f"[12] (d) under torch.distributed.run --nproc_per_node 1: "
+          f"tools.train {s1:.1f} s ('{joined}' logged: {joined in out1}), "
+          f"--resume {s2:.1f} s (resumed from epoch 0: "
+          f"{'resumed from epoch 0' in out2}), latest checkpoint {epochs}; "
+          f"tools.test {s3:.1f} s: {len(preds)} frames, "
+          f"{sum(len(p['det_xyzlwhyaws']['veh']) for p in preds.values())} "
+          f"detections")
+    if joined not in out1 or "resumed from epoch 0" not in out2:
+        fail(f"(d) the train CLI's log:\n{out1[-2000:]}\n{out2[-2000:]}")
+    if epochs != 1 or len(preds) != VAL_FRAMES or len(anno) != VAL_FRAMES:
+        fail(f"(d) checkpoint {epochs}, {len(preds)} predicted frames")
+    for p in preds.values():
+        d = p["det_xyzlwhyaws"]["veh"]
+        if d.ndim != 2 or d.shape[1] != 8 or not np.isfinite(d).all():
+            fail("(d) malformed detections")
+    print(f"[12] phase 12 in {time.perf_counter() - t_phase:.1f} s")
+    return totals, outs[0]["launches"][-1]
+
+
 def main():
     import numpy as np
     import torch
@@ -3066,6 +3667,7 @@ def main():
         restore_checkpoint,
     )
     from rangedet_tpu_torch.train import train_step as train_step_mod
+    from rangedet_tpu_torch.parallel import dist as pdist
     from rangedet_tpu_torch.train.state import create_train_state
     from rangedet_tpu_torch.train.train_step import (
         batch_to_device,
@@ -3332,6 +3934,10 @@ def main():
                 csa_to_corners3d=ops_boxes.csa_to_corners3d)
     phase11(torch, mods, tcfg, dev, launches, loader)
 
+    # ----------------------------------------------------------- phase 12
+    mods.update(pdist=pdist)
+    b1, b1_launches = phase12(torch, mods, tcfg, dev, launches)
+
     # one entry per kernel and path: the serving forward (launches of the
     # B=1 eval step of phase 3, times of one B=1 forward in phases 2 and
     # 7), then the B=2 train step (phases 6 and 5)
@@ -3375,6 +3981,21 @@ def main():
         ("serve_tpuopt", "meta_kernel_taps", wide_taps[1],
          wide_taps_launches, meta_src,
          "rangedet_tpu/ops/meta_kernel_pallas.py:138"),
+        *(("train_b1", name, b1[key], b1_launches[key], source, replaces)
+          for name, key, source, replaces in (
+              ("conv3x3_bhcw_train", "fwd", conv_src, conv_tpu),
+              ("conv3x3_dgrad", "dgrad", conv_src, conv_tpu),
+              ("conv3x3_wgrad", "wgrad",
+               "rangedet_tpu_torch/csrc/conv3x3_wgrad.cu",
+               "rangedet_tpu/ops/conv_pallas.py:452"),
+              ("iou_target", "iou", "rangedet_tpu_torch/csrc/iou_target.cu",
+               "rangedet_tpu/ops/iou_target_pallas.py:193"),
+              ("meta_stats", "meta_stats", meta_src,
+               "rangedet_tpu/ops/meta_block_pallas.py:338"),
+              ("meta_agg", "meta_agg", meta_src,
+               "rangedet_tpu/ops/meta_block_pallas.py:368"),
+              ("meta_block_bwd", "meta_block_bwd", meta_src,
+               "rangedet_tpu/ops/meta_block_pallas.py:411"))),
     ):
         entries.append({
             "name": name, "path": path, "route": "cuda", "source": source,
@@ -3387,9 +4008,9 @@ def main():
         if source == meta_src:
             entries[-1]["f32_bound_ms"] = t.f32_bound_ms
         if name == "iou_target":  # its prep and clip kernels, the old path
-            entries[-1].update(t.extra, prep_launches=(
-                mc_launches if path == "train_multiclass"
-                else launches)["iou_prep"])
+            entries[-1].update(t.extra, prep_launches={
+                "train_multiclass": mc_launches, "train_b1": b1_launches,
+            }.get(path, launches)["iou_prep"])
     print(_smi())  # the card beside the numbers of the line below
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
@@ -3398,4 +4019,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--rank-worker"]:
+        rank_main(sys.argv[2])
+    else:
+        main()

@@ -8,9 +8,14 @@ in eval (``ops/meta_kernel.py``).
 ``remat`` and ``remat_meta`` keep theirs: ``torch.utils.checkpoint`` over
 every backbone stage, and over the materialized Meta-Kernel block.
 
+``mesh_shape`` is the data-parallel mesh, data only (``{"data": N}``, N
+the number of processes; the train CLI's ``--mesh``); a "model" axis, width
+sharding, is not ported (ROADMAP #16 part 2).
+
 Left out are the JAX package's TPU-only knobs: ``layout``,
 ``use_pallas_conv``, ``use_pallas_iou``, ``topk_method``, ``iou_chunk``,
-``width_axis``, ``bn_sync_axis``, ``mesh_shape``, and
+``width_axis``, ``bn_sync_axis`` (the train CLI sets the BatchNorms' sync
+group instead, ``models/layers.py:set_sync_group``), and
 ``wnms_prefilter_topm``, which only the serial WNMS form reads (the port
 runs the blocked form, ``wnms_block > 0``).
 ``tests/test_torch_model.py`` holds the two dataclasses against each other.
@@ -131,7 +136,8 @@ class RangeDetConfig:
     augment: Sequence[str] = ()
 
     # ------------------------------------------------------------- parallel
-    sync_bn: bool = True
+    mesh_shape: Optional[Dict[str, int]] = None  # {"data": N}; None: all
+    sync_bn: bool = True  # global BN; False = per-rank ("localbn") stats
 
     # ------------------------------------------------------------- io
     experiment_dir: str = "experiments"

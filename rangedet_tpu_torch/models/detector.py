@@ -144,21 +144,24 @@ def iou_targets_per_level(reg_deltas: List[torch.Tensor],
 
 def compute_losses(cls_logits: List[torch.Tensor],
                    reg_deltas: List[torch.Tensor],
-                   targets: Dict[str, torch.Tensor], cfg
+                   targets: Dict[str, torch.Tensor], cfg, sync_group=None
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Total loss and per-level metrics (get_fpn_loss, builder.py:268-348),
-    weights cls x cfg.cls_loss_weight, reg x cfg.reg_loss_weight."""
+    weights cls x cfg.cls_loss_weight, reg x cfg.reg_loss_weight.
+    ``sync_group``: the normalizers are the group's (``losses.py``), so the
+    loss is this rank's share of the global batch's."""
     iou_t = iou_targets_per_level(reg_deltas, targets, cfg)
     metrics = {}
     total = 0.0
     for level, s in enumerate(cfg.fpn_strides):
         cls_loss = L.vfl_cls_loss(cls_logits[level], iou_t[level],
                                   targets[f"mask_s{s}"], alpha=cfg.vfl_alpha,
-                                  gamma=cfg.vfl_gamma)
+                                  gamma=cfg.vfl_gamma, sync_group=sync_group)
         reg_loss = L.normalized_reg_loss(
             reg_deltas[level], targets[f"reg_target_s{s}"],
             targets[f"reg_weight_s{s}"], targets[f"reg_norm_weight_s{s}"],
-            smooth_l1_scalar=cfg.smooth_l1_scalar, l1=cfg.l1_loss)
+            smooth_l1_scalar=cfg.smooth_l1_scalar, l1=cfg.l1_loss,
+            sync_group=sync_group)
         metrics[f"cls_loss_s{s}"] = cls_loss
         metrics[f"reg_loss_s{s}"] = reg_loss
         total = (total + cfg.cls_loss_weight * cls_loss

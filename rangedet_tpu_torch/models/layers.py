@@ -9,6 +9,12 @@ sum y^2) when given. A layer that emits ``PendingBN`` defers its BN apply +
 relu to the consumer, whose 3x3 conv fuses it into the kernel's input load
 (``ops/conv3x3.py``); gradients flow through all of it.
 
+With a sync group (``set_sync_group``) a training BatchNorm sums its
+statistics over the group's ranks, as JAX's BatchNorm psums them over
+``bn_sync_axis`` (``rangedet_tpu/models/layers.py:143-162,200-211``):
+global sync-BN over the per-rank batches, the sums still the producer
+kernel's.
+
 Parameter layouts are PyTorch's: conv weights (Co, Ci, kh, kw) as in
 ``nn.Conv2d``, deconv weights (Ci, Co, kh, kw) as in ``nn.ConvTranspose2d``.
 """
@@ -19,9 +25,11 @@ import math
 from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
+import torch.distributed as tdist
 from torch import nn
 
 from ..ops import conv3x3 as _conv
+from ..parallel.dist import all_reduce_sum
 
 BN_EPSILON = 1e-3
 BN_MOMENTUM = 0.9
@@ -99,7 +107,12 @@ class BatchNormFold(nn.Module):
     clamped at 0, running statistics moved by momentum 0.9 (not while
     ``frozen``: a forward recomputed in the backward, see ``frozen_stats``);
     eval: the running statistics. Parameter and buffer names are
-    BatchNorm's, so state dicts are interchangeable."""
+    BatchNorm's, so state dicts are interchangeable.
+
+    ``sync_group`` (None: this rank's batch alone): in training, the sums
+    are summed over the group's ranks (``parallel/dist.py:AllReduceSum``,
+    whose backward sums their cotangent too) and the count multiplied by
+    the world size, so every rank folds the global batch's statistics."""
 
     def __init__(self, channels: int):
         super().__init__()
@@ -108,13 +121,23 @@ class BatchNormFold(nn.Module):
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
         self.frozen = 0  # depth of the frozen_stats contexts around it
+        self.sync_group = None
 
     def forward(self, s1: torch.Tensor, s2: torch.Tensor, count: float
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         if not self.training:
             return self._fold(self.running_mean, self.running_var)
+        if self.sync_group is not None:
+            s1, s2, world = self._sync(s1, s2)
+            count = count * world
         mean = s1 / count
         return self._update_fold(mean, s2 / count - mean * mean)
+
+    def _sync(self, a: torch.Tensor, b: torch.Tensor):
+        """(a, b) summed over the sync group, in one all-reduce, and the
+        group's size."""
+        s = all_reduce_sum(torch.stack([a, b]), self.sync_group)
+        return s[0], s[1], tdist.get_world_size(self.sync_group)
 
     def _update_fold(self, mean, var):
         var = var.clamp(min=0.0)
@@ -130,6 +153,23 @@ class BatchNormFold(nn.Module):
     def _fold(self, mean, var):
         inv = torch.rsqrt(var + BN_EPSILON) * self.weight
         return inv, self.bias - mean * inv
+
+
+def set_sync_group(module: nn.Module, group) -> None:
+    """Every BatchNorm of ``module`` sums its training statistics over
+    ``group`` (None: each rank its own), the counterpart of building the
+    JAX model from ``cfg.replace(bn_sync_axis="data")``. Eval, on the
+    running statistics, is unaffected."""
+    for m in module.modules():
+        if isinstance(m, BatchNormFold):
+            m.sync_group = group
+
+
+def sync_groups(module: nn.Module) -> set:
+    """The sync groups of ``module``'s BatchNorms (a set of one, where
+    ``set_sync_group`` set them all)."""
+    return {m.sync_group for m in module.modules()
+            if isinstance(m, BatchNormFold)}
 
 
 @contextlib.contextmanager
@@ -153,7 +193,10 @@ class BatchNorm(BatchNormFold):
     102-178``). Eval: the running statistics. Training: the batch's, in
     f32, from ``sums`` = (sum x, sum x^2) when the producer kernel gave them
     and from the tensor otherwise; var = E[x^2] - mean^2 clamped at 0; the
-    running statistics move by momentum 0.9.
+    running statistics move by momentum 0.9. With a sync group the tensor's
+    statistics are summed as its means (E[x], E[x^2]) over the ranks, whose
+    counts are equal, and divided by the world size: a group of one is the
+    plain BatchNorm bit for bit.
 
     With ``affine_out`` it returns ``PendingBN(x, scale, bias)`` with the f32
     fold; otherwise ``x * mul + add`` in ``dtype``, with the fold cast to
@@ -171,14 +214,23 @@ class BatchNorm(BatchNormFold):
              ) -> Tuple[torch.Tensor, torch.Tensor]:
         if not self.training:
             return self._fold(self.running_mean, self.running_var)
+        sync = self.sync_group is not None
         if sums is not None:
             n = x.numel() // x.shape[2]
-            mean = sums[0] / n
-            var = sums[1] / n - mean * mean
+            s1, s2 = sums
+            if sync:
+                s1, s2, world = self._sync(s1, s2)
+                n = n * world
+            mean = s1 / n
+            var = s2 / n - mean * mean
         else:
             xf = x.float()
             mean = xf.mean(dim=(0, 1, 3))
-            var = (xf * xf).mean(dim=(0, 1, 3)) - mean * mean
+            msq = (xf * xf).mean(dim=(0, 1, 3))
+            if sync:
+                mean, msq, world = self._sync(mean, msq)
+                mean, msq = mean / world, msq / world
+            var = msq - mean * mean
         return self._update_fold(mean, var)
 
     def forward(self, x: torch.Tensor, sums=None) -> MaybePending:

@@ -5,10 +5,17 @@ RangeRpnHead.get_vfl_loss / get_normalize_reg_loss, builder.py:350-422).
 bf16 compute with f32 loss math and no loss scaling: the reference's x128
 grad_scale / rescale_grad pair collapses to plain weighting (cls x10,
 reg x8 in the shipped configs). Targets, masks and weights are detached.
+
+``sync_group``: the normalizer (detached) is summed over the group's ranks,
+the numerator stays this rank's, as ``rangedet_tpu/models/losses.py:70-77,
+96-99`` psums only the denominator: each rank's gradient is then a partial
+of the global batch's loss, and the ranks' gradients sum to it.
 """
 from __future__ import annotations
 
 import torch
+
+from ..parallel.dist import all_reduce_sum
 
 
 def sigmoid_bce_with_logits(logits: torch.Tensor, labels: torch.Tensor
@@ -42,22 +49,28 @@ def smooth_l1(x: torch.Tensor, scalar: float = 1.0) -> torch.Tensor:
 
 def vfl_cls_loss(cls_logit: torch.Tensor, iou_target: torch.Tensor,
                  valid_mask: torch.Tensor, alpha: float = 1.0,
-                 gamma: float = 2.0) -> torch.Tensor:
+                 gamma: float = 2.0, sync_group=None) -> torch.Tensor:
     """Per-level cls loss (builder.py:350-379): masked VFL summed over the
     level, over (#valid pixels + 1)."""
     loss = varifocal_loss(cls_logit, iou_target.detach(), alpha, gamma)
     mask = valid_mask.detach()
-    return (loss * mask).sum() / (mask.sum() + 1.0)
+    den = mask.sum()
+    if sync_group is not None:
+        den = all_reduce_sum(den, sync_group)
+    return (loss * mask).sum() / (den + 1.0)
 
 
 def normalized_reg_loss(reg_delta: torch.Tensor, reg_target: torch.Tensor,
                         reg_weight: torch.Tensor,
                         reg_norm_weight: torch.Tensor,
-                        smooth_l1_scalar: float = 3.0, l1: bool = False
-                        ) -> torch.Tensor:
+                        smooth_l1_scalar: float = 3.0, l1: bool = False,
+                        sync_group=None) -> torch.Tensor:
     """Per-level reg loss (builder.py:381-422): per-dim weighted smooth-L1
     over (sum of the 1/N-points weights + 1)."""
     diff = reg_delta - reg_target.detach()
     loss = diff.abs() if l1 else smooth_l1(diff, smooth_l1_scalar)
     nw = reg_norm_weight.detach()
-    return (loss * reg_weight.detach() * nw).sum() / (nw.sum() + 1.0)
+    den = nw.sum()
+    if sync_group is not None:
+        den = all_reduce_sum(den, sync_group)
+    return (loss * reg_weight.detach() * nw).sum() / (den + 1.0)

@@ -18,6 +18,14 @@ frame. Weights come from ``--weights`` (a flat .npz of the JAX parameter
 tree, see ``rangedet_tpu_torch/convert.py``), else from the port's
 checkpoint of ``--epoch`` (default: the latest) under the experiment
 directory, else from a fixed seed; the run prints which.
+
+Over several processes (``torchrun --nproc_per_node N -m
+rangedet_tpu_torch.tools.test ...``, or ``--multihost`` to join at one
+process), the counterpart of ``tools/test.py``'s eval batch sharded over
+the devices: each rank runs on its card (``cuda:LOCAL_RANK``) the frames
+i = rank (mod N), ``--batch`` of them a step, and rank 0 gathers the
+outputs and writes the pickle in the order of a one-process run, which
+it equals.
 """
 from __future__ import annotations
 
@@ -51,7 +59,12 @@ def parse_args(argv=None):
     p.add_argument("--weights", default=None,
                    help=".npz of the JAX parameter tree (convert.save_npz)")
     p.add_argument("--output", default=None, help="output pickle path")
-    p.add_argument("--device", default="cuda")
+    p.add_argument("--multihost", action="store_true",
+                   help="join the process group from the launcher's "
+                        "environment even at one process (it is joined "
+                        "whenever WORLD_SIZE > 1)")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (the card cuda:LOCAL_RANK) or cpu")
     return p.parse_args(argv)
 
 
@@ -76,21 +89,23 @@ def load_weights(model, cfg, weights=None, epoch=None) -> str:
            f"{os.path.join(cfg.experiment_dir, cfg.name)}"
 
 
-def frame_source(cfg, synthetic: int):
+def frame_source(cfg, synthetic: int, rank: int = 0, world: int = 1):
     """(number of frames, iterator of (rec_id, batch of one frame,
-    annotation dict)) from synthetic frames or from cfg.data_root."""
+    annotation dict)) from synthetic frames or from cfg.data_root; the
+    iterator yields rank ``rank``'s frames of ``world``: i = rank (mod
+    world)."""
     if synthetic or not cfg.data_root:
         from rangedet_tpu_torch.data.synthetic import make_batch
 
         n = synthetic or 4
         return n, ((f"synthetic_{i}", make_batch(cfg, 1, seed=i), {})
-                   for i in range(n))
+                   for i in range(rank, n, world))
     from rangedet_tpu_torch.data.waymo import load_roidbs, record_to_inputs
 
     roidb = load_roidbs(cfg.data_root, cfg.image_set, 1, None)
 
     def frames():
-        for rec in roidb:
+        for rec in roidb[rank::world]:
             b = record_to_inputs(rec, cfg.pad_field, cfg.max_gt_boxes)
             anno = {
                 "gt_bbox_csa": np.asarray(
@@ -125,12 +140,27 @@ def batched(frames, batch: int):
 
 
 def main(argv=None) -> str:
+    """Returns the pickle's path (on rank 0; None on the other ranks)."""
     args = parse_args(argv)
+    from rangedet_tpu_torch.parallel import dist as pdist
+
+    ranks = pdist.join(args.device, always=args.multihost)
+    try:
+        return _test(args, ranks)
+    finally:
+        pdist.leave(ranks)
+
+
+def _test(args, ranks):
+    """main's run, in the process group ``ranks`` joined."""
     from rangedet_tpu_torch.configs import load_config
     from rangedet_tpu_torch.infer import build_eval_inputs, make_eval_step
     from rangedet_tpu_torch.models import RangeDet
 
-    device = torch.device(args.device)
+    device, rank, world = ranks.device, ranks.rank, ranks.world
+    if world > 1:
+        print(f"rank {rank} of {world} "
+              f"({torch.distributed.get_backend(ranks.group)}) on {device}")
     cfg = load_config(args.config, is_train=False)
     if args.data_root:
         cfg = cfg.replace(data_root=args.data_root)
@@ -142,10 +172,12 @@ def main(argv=None) -> str:
     print(load_weights(model, cfg, args.weights, args.epoch))
     model = model.to(device).eval()
     eval_step = make_eval_step(model, cfg)
-    n_frames, frames = frame_source(cfg, args.synthetic)
-    print(f"{n_frames} eval frames")
+    n_frames, frames = frame_source(cfg, args.synthetic, rank, world)
+    print(f"{n_frames} eval frames" + (f", {len(range(rank, n_frames, world))}"
+                                       f" on rank {rank}" if world > 1
+                                       else ""))
 
-    output_dict, annotation_dict = {}, {}
+    rows = []  # (rec_id, annotation, output) a frame, in order
     n = n_truncated = 0
     t0 = time.perf_counter()
     for group, real in batched(frames, args.batch):
@@ -165,17 +197,26 @@ def main(argv=None) -> str:
                     : cfg.max_det_per_image]
                 truncated |= bool(res["truncated"][j])
             n_truncated += truncated
-            output_dict[rec_id] = {
+            rows.append((rec_id, anno, {
                 "det_xyzlwhyaws": det,
                 "meta_info": anno.get(
                     "meta_info", {"name": str(rec_id), "timestamp_micros": 0}),
                 "truncated": truncated,
-            }
-            annotation_dict[rec_id] = anno
+            }))
             n += 1
     dt = time.perf_counter() - t0
     print(f"{n} frames in {dt:.1f}s on {device} (batch {args.batch}); "
           f"{n_truncated} flagged truncated (device_topk cap bound)")
+    if world > 1:
+        # rank r ran frames r, r + N, ...: interleave them back
+        parts = [None] * world if rank == 0 else None
+        torch.distributed.gather_object(rows, parts, dst=0,
+                                        group=ranks.group)
+        if rank:
+            return None
+        rows = [parts[i % world][i // world] for i in range(n_frames)]
+    annotation_dict = {rec_id: anno for rec_id, anno, _ in rows}
+    output_dict = {rec_id: out for rec_id, _, out in rows}
 
     out_path = args.output or os.path.join(
         cfg.experiment_dir, cfg.name, "predictions_torch.pkl")

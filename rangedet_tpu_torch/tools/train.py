@@ -1,5 +1,5 @@
-"""Train entry point of the PyTorch port, counterpart of ``tools/train.py``
-on one card:
+"""Train entry point of the PyTorch port, counterpart of ``tools/train.py``,
+one process per card:
 
     python -m rangedet_tpu_torch.tools.train --config rangedet_veh_wo_aug_4_18e \
         [--data-root DIR] [--sampling-rate N] [--batch B] [--epochs E] \
@@ -9,6 +9,29 @@ on one card:
         [--device-cache [--device-augment flip,rotation]] [--device cuda]
     python -m rangedet_tpu_torch.tools.train --config ... --synthetic \
         --steps-per-epoch 50 --epochs 2
+    torchrun --nproc_per_node N -m rangedet_tpu_torch.tools.train \
+        --config ... [--mesh data=N] [--multihost]
+
+Data parallel (``parallel/``): under a launcher that starts N > 1
+processes (``torchrun`` / ``python -m torch.distributed.run``; several
+nodes with ``--nnodes`` and a rendezvous, or with ``--multihost``, which
+joins from the launcher's environment even at one process), each process
+joins the group (nccl on the card ``cuda:LOCAL_RANK``, gloo on the CPU),
+trains ``--batch`` frames a step on its own card and the ranks reduce
+their gradients before each update (``parallel/dp_step.py``): the global
+batch is ``batch * N``, and ``auto_scale_lr`` scales to it. The recipe's
+``sync_bn`` (the default) makes every BatchNorm sum its statistics over
+the ranks; ``sync_bn=False`` keeps each rank's ("localbn"). Synthetic data:
+every rank draws the global batch of the step and trains on its rows.
+Files: rank r loads its own ``1/N`` of the split (``BatchLoader``'s
+``host_id`` / ``num_hosts``), ``--batch`` frames a step, so an epoch
+covers the split once. Rank 0's parameters are broadcast after the init
+and after ``--resume`` (every rank restores); only rank 0 writes
+checkpoints (the others wait for it), ``log.txt``, TensorBoard and the
+profiler's trace; every rank runs the validation. ``--mesh data=N`` must
+name the number of processes; a "model" axis and ``--gspmd-width`` (width
+sharding, ROADMAP #16 part 2) and ``--device-cache`` over several
+processes are refused.
 
 The weights are a seeded random init (``--seed``). Frames come from the
 roidb files of the recipe's ``image_set`` under ``--data-root`` (subsampled
@@ -125,13 +148,33 @@ def parse_args(argv=None):
                    help="comma list of on-card augmentations of the "
                         "--device-cache path (flip, rotation), fresh draws "
                         "each step")
-    p.add_argument("--device", default="cuda")
+    jax_flags = p.add_argument_group(
+        "JAX command-line parity",
+        "accepted as tools/train.py takes them; the launcher's WORLD_SIZE "
+        "sets the ranks, so none of them changes what runs")
+    jax_flags.add_argument(
+        "--mesh", default=None,
+        help="'data=N': checked against the number of processes (default: "
+             "the recipe's mesh_shape); a 'model' axis (width sharding, "
+             "ROADMAP #16 part 2) is refused")
+    jax_flags.add_argument(
+        "--gspmd-width", action="store_true",
+        help="refused: width sharding is not ported (ROADMAP #16 part 2)")
+    jax_flags.add_argument(
+        "--multihost", action="store_true",
+        help="join the process group from the launcher's environment; the "
+             "port joins whenever WORLD_SIZE > 1 (one process drives one "
+             "card), so at one process this changes nothing but the join: "
+             "a group of one runs the plain step")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (the card cuda:LOCAL_RANK) or cpu")
     return p.parse_args(argv)
 
 
-def apply_overrides(cfg, args):
+def apply_overrides(cfg, args, world: int = 1):
     """The recipe with the command line's overrides, as ``tools/train.py``
-    applies them, and its LR scaled to the batch."""
+    applies them, and its LR scaled to the global batch, ``batch_image``
+    frames on each of ``world`` ranks."""
     if args.data_root:
         cfg = cfg.replace(data_root=args.data_root)
     if args.sampling_rate is not None:
@@ -148,29 +191,36 @@ def apply_overrides(cfg, args):
         cfg = cfg.replace(checkpoint_every_epochs=args.checkpoint_every)
     if args.experiment_dir:
         cfg = cfg.replace(experiment_dir=args.experiment_dir)
-    if cfg.auto_scale_lr:  # one card: the global batch is batch_image
-        cfg = cfg.replace(base_lr=cfg.base_lr * cfg.batch_image / 16.0)
+    if cfg.auto_scale_lr:  # tools/train.py:155-159, the global batch
+        cfg = cfg.replace(
+            base_lr=cfg.base_lr * cfg.batch_image * world / 16.0)
     return cfg
 
 
-def synthetic_batch(cfg, epoch: int, i: int):
-    """The host batch of step i of ``epoch``: ``tools/train.py``'s
-    synthetic draw, a fresh batch of raytraced vehicle scenes per step."""
+def synthetic_batch(cfg, epoch: int, i: int, rank: int = 0,
+                    world: int = 1):
+    """The host batch of step i of ``epoch`` on ``rank``: its rows of
+    ``tools/train.py``'s synthetic draw, a fresh global batch of
+    ``batch_image * world`` raytraced vehicle scenes per step."""
     from rangedet_tpu_torch.data.synthetic import make_batch
+    from rangedet_tpu_torch.parallel.dist import local_rows
 
-    return make_batch(cfg, cfg.batch_image, seed=epoch * 10000 + i,
-                      style="vehicles")
+    return local_rows(make_batch(cfg, cfg.batch_image * world,
+                                 seed=epoch * 10000 + i, style="vehicles"),
+                      rank, world)
 
 
-def epoch_source(cfg, args, logger):
+def epoch_source(cfg, args, logger, rank: int = 0, world: int = 1):
     """-> (steps per epoch, epoch_batches(epoch) -> iterator of host
-    batches), from the files of ``cfg.data_root`` or synthetic scenes."""
+    batches), rank ``rank``'s of ``world``, from the files of
+    ``cfg.data_root`` or synthetic scenes."""
     if args.synthetic or not cfg.data_root:
         spe = args.steps_per_epoch or STEPS_PER_EPOCH
         logger.info("training on synthetic data")
 
         def epoch_batches(epoch):
-            return (synthetic_batch(cfg, epoch, i) for i in range(spe))
+            return (synthetic_batch(cfg, epoch, i, rank, world)
+                    for i in range(spe))
 
         return spe, epoch_batches
 
@@ -185,7 +235,7 @@ def epoch_source(cfg, args, logger):
         lambda rec: record_to_inputs(rec, cfg.pad_field, cfg.max_gt_boxes,
                                      augment=cfg.augment),
         batch_size=cfg.batch_image, num_workers=args.num_workers,
-        seed=LOADER_SEED)
+        seed=LOADER_SEED, host_id=rank, num_hosts=world)
     loader.skip_epoch()  # the shuffle tools/train.py's sample batch spends
     return args.steps_per_epoch or len(loader), lambda epoch: loader.epoch()
 
@@ -287,6 +337,22 @@ def hyperparams(opt):
                          else group["momentum"])
 
 
+def check_jax_flags(args, cfg, world: int) -> None:
+    """The flags kept for JAX's command line: ``--gspmd-width`` exits, and
+    the mesh (``--mesh``, else the recipe's ``mesh_shape``) must be
+    data-only over ``world`` processes."""
+    from rangedet_tpu_torch.parallel import dist as pdist
+
+    if args.gspmd_width:
+        raise SystemExit("--gspmd-width: width sharding is not ported "
+                         "(ROADMAP #16 part 2)")
+    try:
+        pdist.check_mesh(pdist.parse_mesh(args.mesh) if args.mesh
+                         else cfg.mesh_shape, world)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
+
+
 def main(argv=None):
     """Returns (one record per step: its epoch, step count, lr, momentum
     (SGD's, or Adam's beta1), data_ms, step_ms and metrics as floats; the
@@ -296,8 +362,35 @@ def main(argv=None):
     on a metrics window's last step also the window's sync and fetch."""
     args = parse_args(argv)
     from rangedet_tpu_torch.configs import load_config
+    from rangedet_tpu_torch.parallel import dist as pdist
+
+    if torch.device(args.device).type == "cuda" and \
+            not torch.cuda.is_available():
+        raise SystemExit(f"--device {args.device}: no CUDA card")
+    bad = set(n for n in args.device_augment.split(",") if n) - set(
+        DEVICE_AUGMENTATIONS)
+    if bad or (args.device_augment and not args.device_cache):
+        raise SystemExit(f"--device-augment takes {DEVICE_AUGMENTATIONS} "
+                         f"with --device-cache; got {args.device_augment!r}")
+    cfg = load_config(args.config, is_train=True)
+    world = int(os.environ.get("WORLD_SIZE", 1))
+    check_jax_flags(args, cfg, world)
+    if args.device_cache and world > 1:
+        raise SystemExit("--device-cache is single-process only "
+                         "(tools/train.py:222)")
+    ranks = pdist.join(args.device, always=args.multihost)
+    try:
+        return _train(args, cfg, ranks)
+    finally:
+        pdist.leave(ranks)
+
+
+def _train(args, cfg, ranks):
+    """main's run, in the process group ``ranks`` joined."""
     from rangedet_tpu_torch.data.prefetch import threaded_prefetch
     from rangedet_tpu_torch.models import RangeDet
+    from rangedet_tpu_torch.models.layers import set_sync_group
+    from rangedet_tpu_torch.parallel import dist as pdist
     from rangedet_tpu_torch.train.checkpoint import (
         restore_checkpoint,
         save_checkpoint,
@@ -305,7 +398,7 @@ def main(argv=None):
     from rangedet_tpu_torch.train.state import create_train_state
     from rangedet_tpu_torch.train.train_step import (
         batch_to_device,
-        make_train_step,
+        build_train_step_fn,
     )
     from rangedet_tpu_torch.utils.logger import (
         DetailSpeedometer,
@@ -314,17 +407,17 @@ def main(argv=None):
         config_logger,
     )
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit(f"--device {args.device}: no CUDA card")
-    bad = set(n for n in args.device_augment.split(",") if n) - set(
-        DEVICE_AUGMENTATIONS)
-    if bad or (args.device_augment and not args.device_cache):
-        raise SystemExit(f"--device-augment takes {DEVICE_AUGMENTATIONS} "
-                         f"with --device-cache; got {args.device_augment!r}")
-    cfg = apply_overrides(load_config(args.config, is_train=True), args)
+    device, rank, world = ranks.device, ranks.rank, ranks.world
+    lead = rank == 0  # writes checkpoints, log.txt, TensorBoard, the trace
+    cfg = apply_overrides(cfg, args, world)
     run_dir = os.path.join(cfg.experiment_dir, cfg.name)
-    logger = config_logger(cfg.experiment_dir, cfg.name)
+    logger = config_logger(cfg.experiment_dir, cfg.name, log_file=lead)
+    backend = (torch.distributed.get_backend(ranks.group)
+               if ranks.group is not None else "no group")
+    logger.info(f"data parallel: {world} rank(s), {backend}; rank {rank} "
+                f"on {device}, {cfg.batch_image} frames a step, global "
+                f"batch {cfg.batch_image * world}, BatchNorm "
+                f"{'sync' if cfg.sync_bn else 'local'}")
     # tools/train.py: synthetic data (or no data root) wins over the cache
     cached = args.device_cache and not args.synthetic and bool(cfg.data_root)
     if args.device_cache and not cached:
@@ -338,7 +431,7 @@ def main(argv=None):
         spe, epoch_batches, to_batch = device_cache_source(cfg, args, logger,
                                                            device)
     else:
-        spe, epoch_batches = epoch_source(cfg, args, logger)
+        spe, epoch_batches = epoch_source(cfg, args, logger, rank, world)
 
         def to_batch(batch, step):
             return batch_to_device(batch, device)
@@ -347,12 +440,15 @@ def main(argv=None):
     model.init_from(torch.Generator().manual_seed(args.seed))
     state = create_train_state(model.to(device), cfg, spe, seed=None)
     begin_epoch = cfg.begin_epoch
-    if args.resume:
+    if args.resume:  # every rank reads the checkpoint
         state, ep = restore_checkpoint(state, cfg)
         if ep is not None:
             begin_epoch = ep + 1
             logger.info(f"resumed from epoch {ep}")
-    step = make_train_step(state, cfg)
+    if world > 1:
+        pdist.replicate_state(state.model, ranks.group)
+        set_sync_group(state.model, ranks.group if cfg.sync_bn else None)
+    step = build_train_step_fn(state, cfg, ranks.group)
     logger.info(
         f"{args.config}: batch {cfg.batch_image}, lr {cfg.base_lr:.5f} "
         f"({cfg.lr_mode}), {cfg.optimizer}, clip {cfg.clip_mode}, remat "
@@ -361,11 +457,11 @@ def main(argv=None):
         f"{device}")
 
     tb = (ScalarWriter(os.path.join(run_dir, "tb"), logger)
-          if args.tensorboard else None)
-    speedometer = DetailSpeedometer(cfg.batch_image, cfg.log_frequency,
-                                    logger, tb=tb)
+          if args.tensorboard and lead else None)
+    speedometer = DetailSpeedometer(cfg.batch_image * world,
+                                    cfg.log_frequency, logger, tb=tb)
     profiler = ProfilerHook(os.path.join(run_dir, "traces"), PROFILE_START,
-                            args.profile_steps)
+                            args.profile_steps if lead else 0)
     history, validations = [], {}
     val_fn = None
     try:
@@ -426,8 +522,10 @@ def main(argv=None):
                         f"{time.perf_counter() - t_ep:.1f}s")
             every = cfg.checkpoint_every_epochs
             if every and (epoch + 1) % every == 0:
-                logger.info(
-                    f"checkpoint: {save_checkpoint(state, cfg, epoch)}")
+                if lead:
+                    logger.info(
+                        f"checkpoint: {save_checkpoint(state, cfg, epoch)}")
+                pdist.barrier(ranks)  # a --resume on any rank finds it
             if args.eval_every and (epoch + 1) % args.eval_every == 0:
                 if val_fn is None:
                     val_fn = build_validation(state.model, cfg,

@@ -26,15 +26,27 @@ from .schedule import clip_gradients, set_hyperparams, standardize_
 from .state import TrainState
 
 
-def make_train_step(state: TrainState, cfg
+def make_train_step(state: TrainState, cfg, group=None
                     ) -> Callable[[Dict[str, torch.Tensor]],
                                   Dict[str, torch.Tensor]]:
     """Returns step(batch) -> metrics {cls_loss_s{s}, reg_loss_s{s},
     total_loss} (detached f32 scalars of the forward before the update).
     The step updates ``state`` in place: parameters, BatchNorm running
     statistics, the optimizer's state and the step count. batch holds device
-    tensors, channels last (see build_train_targets)."""
+    tensors, channels last (see build_train_targets).
+
+    With a process ``group`` the step is data-parallel: batch holds this
+    rank's rows, the losses sum their normalizers over the BatchNorms' sync
+    group, and between the backward and the update the gradients, metrics
+    and running statistics are reduced over ``group``
+    (``parallel/dp_step.py``); the metrics are then the global batch's and
+    every rank updates ``state`` identically."""
     model, opt = state.model, state.optimizer
+    sync, reduce = None, None
+    if group is not None:
+        from ..parallel.dp_step import make_reduction
+
+        sync, reduce = make_reduction(model, group)
 
     def step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         model.train()
@@ -45,15 +57,44 @@ def make_train_step(state: TrainState, cfg
                                            batch["coord"])
         with record_function("losses"):  # the IoU target included
             total, metrics = compute_losses(cls_logits, reg_deltas, targets,
-                                            cfg)
+                                            cfg, sync_group=sync)
         with record_function("backward"):
             opt.zero_grad(set_to_none=True)
             total.backward()
+        if reduce is not None:
+            with record_function("all_reduce"):
+                metrics = reduce(metrics)
         with record_function("optimizer"):
             apply_update(state, cfg)
         return {k: v.detach() for k, v in metrics.items()}
 
     return step
+
+
+def build_train_step_fn(state: TrainState, cfg, group=None):
+    """The train step for the ranks of ``group``, as
+    ``rangedet_tpu/train/train_step.py:build_train_step_fn`` picks it for
+    data-only meshes: the plain step for one rank (no group, or a group of
+    one), else the data-parallel step (``make_train_step`` with the
+    group), whose BatchNorms must sum over ``group`` exactly when
+    ``cfg.sync_bn`` (``layers.set_sync_group``; the train CLI sets it).
+    Returns the step tagged with ``.bn_semantics``, "sync" or "local"."""
+    import torch.distributed as tdist
+
+    from ..models.layers import sync_groups
+
+    if group is not None and tdist.get_world_size(group) == 1:
+        group = None
+    want = group if cfg.sync_bn else None
+    if group is not None and sync_groups(state.model) != {want}:
+        raise ValueError(
+            "data-parallel step: call layers.set_sync_group(model, "
+            f"{'group' if cfg.sync_bn else 'None'}) so the BatchNorm "
+            f"statistics follow cfg.sync_bn={cfg.sync_bn} (tools/train.py "
+            f"does this)")
+    fn = make_train_step(state, cfg, group)
+    fn.bn_semantics = "sync" if cfg.sync_bn else "local"
+    return fn
 
 
 def apply_update(state: TrainState, cfg) -> None:

@@ -16,8 +16,10 @@ from typing import Dict, Optional
 LOGGER = "rangedet_tpu_torch"
 
 
-def config_logger(experiment_dir: str, name: str) -> logging.Logger:
-    """The package's logger, writing ``<experiment_dir>/<name>/log.txt`` and
+def config_logger(experiment_dir: str, name: str,
+                  log_file: bool = True) -> logging.Logger:
+    """The package's logger, writing ``<experiment_dir>/<name>/log.txt``
+    (unless not ``log_file``: the ranks but 0 of a data-parallel run) and
     the console (standard output, where the port's CLIs print) in the JAX
     package's format. Each call replaces the handlers of the last."""
     log_dir = os.path.join(experiment_dir, name)
@@ -29,11 +31,12 @@ def config_logger(experiment_dir: str, name: str) -> logging.Logger:
         h.close()
     logger.handlers.clear()
     fmt = logging.Formatter("%(asctime)s %(levelname)s %(message)s")
-    fh = logging.FileHandler(os.path.join(log_dir, "log.txt"))
-    fh.setFormatter(fmt)
+    if log_file:
+        fh = logging.FileHandler(os.path.join(log_dir, "log.txt"))
+        fh.setFormatter(fmt)
+        logger.addHandler(fh)
     sh = logging.StreamHandler(sys.stdout)
     sh.setFormatter(fmt)
-    logger.addHandler(fh)
     logger.addHandler(sh)
     return logger
 

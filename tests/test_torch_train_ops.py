@@ -417,11 +417,12 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     assert len(files) > 20
     covered = {f.parent.name for f in files}
     assert {"configs", "eval", "data", "ops", "tools", "train",
-            "utils"} <= covered, covered
+            "utils", "parallel"} <= covered, covered
     assert REPO / "rangedet_tpu_torch" / "data" / "augment.py" in files
     for new in ("data/device_cache.py", "data/synthetic_device.py",
                 "tools/quality_probe.py", "tools/overfit_probe.py",
-                "tools/flops.py", "tools/train.py"):
+                "tools/flops.py", "tools/train.py", "parallel/dist.py",
+                "parallel/dp_step.py"):
         assert REPO / "rangedet_tpu_torch" / new in files, new
     banned = {"jax", "flax", "optax", "rangedet_tpu"}
     bad = [(str(f.relative_to(REPO)), m) for f in files for m in _imports(f)

@@ -27,7 +27,7 @@ ORDER_GAP = 1e-6
 SKIPPED_FIELDS = {
     "layout", "use_pallas_conv", "use_pallas_iou",
     "topk_method", "iou_chunk", "width_axis", "bn_sync_axis",
-    "mesh_shape", "wnms_prefilter_topm",
+    "wnms_prefilter_topm",
 }
 DTYPES = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
 
