@@ -173,17 +173,43 @@ Phases, one line of output each (or a table), failing on the first error:
    median step ms and peak memory; (d) ``tools.train`` from 16 files, an
    epoch of 2 steps, then ``--resume``, and ``tools.test`` from 2
    validation files, each under ``python -m torch.distributed.run
-   --standalone --nproc_per_node 1`` with ``--multihost`` (NCCL).
+   --standalone --nproc_per_node 1`` with ``--multihost`` (NCCL);
+13. width sharding of ``rangedet_veh_wo_aug_4_18e`` at 64x2656 (a "model"
+   mesh axis, ``parallel/halo.py``): (a) the width ops in a width group of
+   one against the unsharded ops (the conv and deconv outputs and input
+   gradients bit-equal), one width step on 64x1328 (the first frame from
+   SEED on with a box across the seam) with every launch through phase
+   5's correctness gates and kernel 7's (speed printed, not gated), and
+   the floor: the width step in a group of one on the whole frame against
+   the plain step; (b) two gloo ranks on the one card, --mesh model=2,
+   each 64x1328 of that frame, 2 steps from [12]'s weights against the
+   plain step on the frame: losses and updates within the W_* gates,
+   step 1's targets on the ranks' columns bit-equal to the frame's, the
+   width ops on the ranks' columns against the unsharded ops (W_OP_TOL),
+   both ranks bit-equal, the collectives a step as the model implies them,
+   three planted faults (the forward's halos zero, the backward dropping
+   the returned halo gradient, the point counts not summed over the width
+   group) rejected by those gates, each rank's launches, median and peak,
+   and near the seam the outputs' and feature gradients' spread, printed;
+   (c) ``tools.train --mesh data=2,model=2`` on four gloo ranks on
+   the card under ``python -m torch.distributed.run`` from 16 files: an
+   epoch of 2 steps with --gspmd-width, --resume --eval-every 1; the
+   ranks of a data group on the same frames, all ranks bit-equal; a mesh
+   whose shards are not phase-aligned refused.
 
-With ``--rank-worker SPEC`` the script is one rank of [12](c)
-(``rank_main``), started by ``start_ranks``; the CPU tests start it too.
+With ``--rank-worker SPEC`` the script is one rank of [12](c) or [13](b)
+(``rank_main``), started by ``start_ranks``; with ``--cli-rank OUT CLI
+ARGS`` one rank of ``tools.train`` or ``tools.test`` under a launcher
+([13](c), ``cli_rank_main``); the CPU tests start both.
 
 It prints a JSON line of the kernels, one entry per kernel and path (the
 serving forward of phases 2-3 and 7, the train step of phases 5-6, the IoU
 target on the multiclass step of phase 8 as ``"train_multiclass"``, the
 Meta-Kernel kernels at C=128 of phase 9 as ``"train_tpuopt"`` and
 ``"serve_tpuopt"``, the train kernels at B=1 of phase 12 as
-``"train_b1"``, their launches a rank's step of [12](c)), with
+``"train_b1"``, their launches a rank's step of [12](c); rows 1, 1b, 2,
+6 and 7 at [13](a)'s width shapes as ``"train_width"``, their launches a
+rank's step of [13](b)), with
 the card's name and power limit on the line before it, then as its last
 line ``{"ok": true, "device": {...}}``. Every kernel, plain and
 cuDNN time in it is the median of 5 timings of 10 calls by CUDA events
@@ -1125,10 +1151,11 @@ def phase5(torch, conv3x3, iou_mod, layers, meta, taps, recorded, H, dev,
             fail(f"deconv backward kernel vs plain {max(rels)} > {FN_TOL}")
 
     phase5_iou(torch, iou_mod, iou, totals["iou"], tag, speed_gates)
-    totals.update(meta_block_checks(torch, meta, taps, metas, tag, {
-        "meta_block_bwd": META_BWD_BOUND_MAX,
-        "meta_agg": META_AGG_BOUND_MAX, "meta_stats": META_STATS_BOUND_MAX}
-        if speed_gates else None))
+    if any(metas.values()):  # none where the block is not fused ([13])
+        totals.update(meta_block_checks(torch, meta, taps, metas, tag, {
+            "meta_block_bwd": META_BWD_BOUND_MAX,
+            "meta_agg": META_AGG_BOUND_MAX,
+            "meta_stats": META_STATS_BOUND_MAX} if speed_gates else None))
     for name, t in totals.items():
         lib = (f"cuDNN {t.library_ms:.3f} ms" if name in ("fwd", "dgrad",
                                                           "wgrad")
@@ -3121,26 +3148,71 @@ def planted_detached_sum(kept=0.0):
     return lambda x, group: Detached.apply(x, group)
 
 
-def rank_main(spec_path):
-    """One rank of a data-parallel run (``start_ranks``): join the group the
-    spec names, take this rank's rows of the spec's global batch, run
-    ``steps`` steps of ``train_step.build_train_step_fn``'s step from the
-    spec's weights (``mode`` "sync" or "local"; ``fault``: the planted
-    fault, keeping ``kept`` of the other ranks' cotangent), counting each step's kernel launches and collectives, then on
-    the card time ``timed`` more steps; save the metrics, the state after
-    each counted step, the counts, the median step ms and the peak memory
-    to ``out``."""
+def planted_halo(kind):
+    """The width halo's Function with a planted fault: "halo_zeros", the
+    forward receiving zeros for the neighbours' columns (its backward
+    unchanged); "halo_grad", the backward dropping the gradient the
+    neighbours return (its forward unchanged). The planted faults of [13]
+    and of the CPU tests."""
     import torch
 
-    from rangedet_tpu_torch.models import RangeDet, layers
-    from rangedet_tpu_torch.ops import conv3x3, iou_target, meta_block
-    from rangedet_tpu_torch.ops import meta_kernel
+    from rangedet_tpu_torch.parallel.halo import WidthHalo
+
+    class Zeros(WidthHalo):
+        @staticmethod
+        def forward(ctx, x, h, group):
+            ctx.h, ctx.group = h, group
+            pad = x.new_zeros(x.shape[:-1] + (h,))
+            return torch.cat([pad, x, pad], dim=-1)
+
+    class DropGrad(WidthHalo):
+        @staticmethod
+        def backward(ctx, g):
+            return g[..., ctx.h:-ctx.h].contiguous(), None, None
+
+    return {"halo_zeros": Zeros, "halo_grad": DropGrad}[kind]
+
+
+def planted(spec):
+    """The context of a run's planted fault: ``fault`` (the BatchNorms'
+    all-reduce with its backward keeping ``kept`` of the other ranks'
+    cotangent, [12]) or ``plant`` ("halo_zeros", "halo_grad", or "counts":
+    the targets' per-box point counts not summed over the width group,
+    [13])."""
+    from rangedet_tpu_torch.models import layers
+    from rangedet_tpu_torch.ops import targets
+    from rangedet_tpu_torch.parallel import halo
+
+    if spec.get("fault"):
+        return mock.patch.object(layers, "all_reduce_sum",
+                                 planted_detached_sum(spec.get("kept", 0.0)))
+    kind = spec.get("plant")
+    if kind == "counts":
+        return mock.patch.object(targets, "all_reduce_sum", lambda x, g: x)
+    if kind:
+        return mock.patch.object(halo, "WidthHalo", planted_halo(kind))
+    return contextlib.nullcontext()
+
+
+def rank_main(spec_path):
+    """One rank of a multi-process run (``start_ranks``): join the group the
+    spec names and place it on the spec's ``mesh`` ({"data": D, "model":
+    M}, default all on data), then with ``mode`` "ops" run
+    ``width_op_runs``; else for each of the spec's ``runs`` (a dict of spec
+    keys each, or the
+    spec alone) take this rank's rows (and columns) of the spec's global
+    batch and run ``steps`` steps of ``train_step.build_train_step_fn``'s
+    step from the spec's weights (``mode`` "sync" or "local"; a planted
+    fault, ``planted``), counting each step's kernel launches and
+    collectives (with ``keep_step1``, keeping step 1's targets, forward
+    outputs and feature gradients), then on the card time ``timed`` more
+    steps; save the metrics, the state after each counted step, the
+    counts, what was kept, the median step ms and the peak memory (by run
+    name with ``runs``; with ``op_seed`` also ``width_op_runs``' under
+    "ops") to ``out``."""
+    import torch
+
     from rangedet_tpu_torch.parallel import dist as pd
-    from rangedet_tpu_torch.train.state import create_train_state
-    from rangedet_tpu_torch.train.train_step import (
-        batch_to_device,
-        build_train_step_fn,
-    )
 
     spec = torch.load(spec_path, weights_only=False)
     if spec["device"] == "cpu":
@@ -3148,27 +3220,95 @@ def rank_main(spec_path):
     ranks = pd.join(spec["device"], backend=spec["backend"],
                     rank=spec["rank"], world_size=spec["world"],
                     init_method=spec["init_method"], always=True)
+    mesh = spec.get("mesh") or {"data": ranks.world, "model": 1}
+    ranks = pd.with_mesh(ranks, mesh["data"], mesh["model"])
+    if spec["mode"] == "ops":
+        out = width_op_runs(torch, spec, ranks)
+    elif "runs" in spec:
+        out = {run["name"]: rank_run(torch, dict(spec, **run), ranks)
+               for run in spec["runs"]}
+        if spec.get("op_seed") is not None:
+            out["ops"] = width_op_runs(torch, spec, ranks)
+    else:
+        out = rank_run(torch, spec, ranks)
+    torch.save(out, spec["out"])
+    pd.leave(ranks)
+
+
+def keep_step1(model, out):
+    """Hooks that keep step 1's logits and deltas (``out["outputs"]``, one
+    tensor a level each) and the gradients of the backbone's features
+    (``out["grads"]``), on the host in f32. -> the hooks."""
+    out["outputs"], out["grads"] = None, {}
+
+    def outputs(module, args, result):
+        if out["outputs"] is None:
+            out["outputs"] = [t.detach().float().cpu()
+                              for t in result[0] + result[1]]
+
+    def features(module, args, result):
+        if out["grads"]:
+            return
+        for i, t in enumerate(result):
+            out["grads"][i] = None
+
+            def keep(g, i=i):
+                if out["grads"][i] is None:
+                    out["grads"][i] = g.detach().float().cpu()
+
+            t.register_hook(keep)
+
+    return [model.register_forward_hook(outputs),
+            model.backbone.register_forward_hook(features)]
+
+
+def rank_run(torch, spec, ranks):
+    """One run of ``rank_main`` in the group ``ranks`` joined."""
+    from rangedet_tpu_torch.models import RangeDet, layers
+    from rangedet_tpu_torch.ops import conv3x3, iou_target, meta_block
+    from rangedet_tpu_torch.ops import meta_kernel
+    from rangedet_tpu_torch.parallel import dist as pd
+    from rangedet_tpu_torch.train import train_step
+    from rangedet_tpu_torch.train.state import create_train_state
+    from rangedet_tpu_torch.train.train_step import (
+        batch_to_device,
+        build_train_step_fn,
+    )
+
     dev = ranks.device
     cuda = dev.type == "cuda"
-    cfg = spec["cfg"].replace(sync_bn=spec["mode"] == "sync")
+    width = ranks.width_group
+    cfg = spec["cfg"].replace(sync_bn=spec["mode"] == "sync",
+                              width_axis="model" if width else None)
     model = RangeDet(**cfg.model_kwargs())
     model.load_state_dict(spec["state"])
     model = model.to(dev)
     layers.set_sync_group(model, ranks.group if cfg.sync_bn else None)
+    layers.set_width_group(model, width)
     state = create_train_state(model, cfg, STEPS_PER_EPOCH, seed=None)
-    step = build_train_step_fn(state, cfg, ranks.group)
-    batch = batch_to_device(
-        pd.local_rows(spec["batch"], ranks.rank, ranks.world), dev)
+    step = build_train_step_fn(state, cfg, ranks.group, width)
+    batch = batch_to_device(pd.local_rows(
+        spec["batch"], ranks.data_index, ranks.n_data, ranks.width_index,
+        ranks.n_width), dev)
     mods = dict(conv3x3=conv3x3, iou=iou_target, meta=meta_block,
                 taps=meta_kernel)
     out = dict(bn_semantics=step.bn_semantics, metrics=[], states=[],
                launches=[], collectives=[])
-    planted = (mock.patch.object(layers, "all_reduce_sum",
-                                 planted_detached_sum(spec.get("kept", 0.0)))
-               if spec.get("fault") else contextlib.nullcontext())
+
+    hooks, real_targets = [], train_step.build_train_targets
+
+    def targets(*args):
+        t = real_targets(*args)
+        out.setdefault("targets", {k: v.cpu() for k, v in t.items()})
+        return t
+
+    keep = contextlib.nullcontext()
+    if spec.get("keep_step1"):
+        hooks = keep_step1(model, out)
+        keep = mock.patch.object(train_step, "build_train_targets", targets)
     if cuda:
         torch.cuda.reset_peak_memory_stats(dev)
-    with planted:
+    with planted(spec), keep:
         for _ in range(spec["steps"]):
             if cuda:
                 torch.cuda.synchronize(dev)
@@ -3182,12 +3322,91 @@ def rank_main(spec_path):
             out["metrics"].append({k: float(v) for k, v in metrics.items()})
             out["states"].append({k: v.detach().cpu().clone()
                                   for k, v in model.state_dict().items()})
+        for h in hooks:
+            h.remove()
         if cuda and spec.get("timed"):
             out["step_ms"] = _median_ms(lambda: step(batch),
                                         iters=spec["timed"], warmup=1)
             out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
-    torch.save(out, spec["out"])
-    pd.leave(ranks)
+    return out
+
+
+def seam_boxes(torch, batch, n_width):
+    """The boxes of a host batch whose assigned points (the full frame's
+    assignment, ``ops/assigner.py``) lie on both sides of a seam between
+    width shards, columns k*W/M: -> [(frame, box, points left of the seam,
+    points right of it)]. Only such a box's 1/N weights tell a count summed
+    over the width group from one that is not."""
+    from rangedet_tpu_torch.ops.assigner import assign_points_to_boxes
+    from rangedet_tpu_torch.ops.boxes import csa_to_corners3d
+
+    B, H, W = batch["pc"].shape[:3]
+    cols = torch.arange(W).repeat(H)
+    found = []
+    for b in range(B):
+        pc = torch.as_tensor(batch["pc"][b]).float()
+        gt = torch.as_tensor(batch["gt_csa"][b]).float()
+        nlz = batch.get("is_in_nlz")
+        a = assign_points_to_boxes(
+            pc.reshape(-1, 3), csa_to_corners3d(gt),
+            torch.as_tensor(batch["mask"][b]).float().reshape(-1),
+            box_valid=torch.as_tensor(batch["gt_valid"][b]),
+            is_in_nlz=(torch.full((H * W,), -1.0) if nlz is None else
+                       torch.as_tensor(nlz[b]).float().reshape(-1)))
+        for k in range(1, n_width):
+            seam = k * W // n_width
+            for box in a[a >= 0].unique().tolist():
+                c = cols[a == box]
+                left, right = int((c < seam).sum()), int((c >= seam).sum())
+                if left and right:
+                    found.append((b, box, left, right))
+    return found
+
+
+def _columns(t, ranks):
+    """Rank m's columns [m*W/M, (m+1)*W/M) of t's last axis."""
+    w = t.shape[-1] // ranks.n_width
+    return t[..., ranks.width_index * w:(ranks.width_index + 1) * w]
+
+
+def width_op_case(torch, kind, cols, whole, stride, group, dev):
+    """One width op of the port on ``dev`` with the width group ``group``
+    (None: the unsharded op): "conv" (``layers.conv3x3_width``, x and the
+    cotangent r in ``cols``, the (Co, Ci, 3, 3) weight in ``whole``),
+    "deconv" (``layers.deconv_width``, weight (Ci, Co, 3, 2s) in x's dtype)
+    or "meta" (the ``MetaKernel`` module, kernel 7 on the card: feat,
+    coords (B, H, 3, W) and r in ``cols``, its MLP in ``whole``). ->
+    (output, {name: gradient of sum(output * r)}) on the host."""
+    from rangedet_tpu_torch.models import layers
+    from rangedet_tpu_torch.models.meta_kernel import MetaKernel
+
+    c = {k: v.to(dev).clone().requires_grad_(k not in ("r", "coords"))
+         for k, v in cols.items()}
+    w = {k: v.to(dev).clone().requires_grad_(True) for k, v in whole.items()}
+    dtype = c["x" if "x" in c else "feat"].dtype
+    if kind == "conv":
+        y = (layers.conv3x3_consume(c["x"], w["weight"], stride, dtype)[0]
+             if group is None else layers.conv3x3_width(
+                 c["x"], w["weight"], stride, dtype, group))
+    elif kind == "deconv":
+        y = (layers.deconv_bhcw(c["x"], w["weight"], stride)
+             if group is None else layers.deconv_width(
+                 c["x"], w["weight"], stride, group))
+    else:
+        mk = MetaKernel((w["w0"].shape[0], c["feat"].shape[2]), dtype,
+                        use_pallas_meta=True).to(dev)
+        with torch.no_grad():
+            for name, t in (("mlp0.weight", "w0"), ("mlp0.bias", "b0"),
+                            ("mlp1.weight", "w1"), ("mlp1.bias", "b1")):
+                mk.get_parameter(name).copy_(w[t])
+        mk.width_group = group
+        y = mk(c["feat"], c["coords"].permute(0, 1, 3, 2))
+        w = dict(w0=mk.mlp0.weight, b0=mk.mlp0.bias, w1=mk.mlp1.weight,
+                 b1=mk.mlp1.bias)
+    (y.float() * c["r"].float()).sum().backward()
+    grads = {k: t.grad.detach().cpu() for k, t in list(c.items())
+             + list(w.items()) if t.grad is not None}
+    return y.detach().cpu(), grads
 
 
 def start_ranks(spec, world, tmp, name):
@@ -3313,20 +3532,29 @@ def perturb_bn(torch, layers, model, seed):
                 bn.running_var.mul_(uniform(bn.running_var, 0.5, 1.5))
 
 
-def plain_steps(torch, m, cfg, dev, init_sd, batch):
-    """DP_STEPS plain steps from ``init_sd`` on ``batch``: -> (metrics as
-    floats, state dicts on the host), a step each."""
+def plain_steps(torch, m, cfg, dev, init_sd, batch, group=None,
+                width_group=None, keep=False):
+    """DP_STEPS steps of ``make_train_step`` (with the groups given, on the
+    model's BatchNorms and width layers) from ``init_sd`` on ``batch``: ->
+    {metrics (floats), states (on the host)} a step, and with ``keep``
+    step 1's outputs and feature gradients (``keep_step1``)."""
+    layers = m["layers"]
     model = m["RangeDet"](**cfg.model_kwargs())
     model.load_state_dict(init_sd)
     model = model.to(dev)
+    layers.set_sync_group(model, group)
+    layers.set_width_group(model, width_group)
     state = m["create_train_state"](model, cfg, STEPS_PER_EPOCH, seed=None)
-    step = m["make_train_step"](state, cfg)
-    metrics, states = [], []
+    step = m["make_train_step"](state, cfg, group, width_group)
+    out = dict(metrics=[], states=[])
+    hooks = keep_step1(model, out) if keep else []
     for _ in range(DP_STEPS):
-        metrics.append({k: float(v) for k, v in step(batch).items()})
-        states.append({k: v.detach().cpu().clone()
-                       for k, v in model.state_dict().items()})
-    return metrics, states
+        out["metrics"].append({k: float(v) for k, v in step(batch).items()})
+        out["states"].append({k: v.detach().cpu().clone()
+                              for k, v in model.state_dict().items()})
+    for h in hooks:
+        h.remove()
+    return out
 
 
 def world1_check(torch, m, cfg, dev, init_sd, batch, backend):
@@ -3509,8 +3737,9 @@ def phase12(torch, m, cfg, dev, per_step):
     # only reorders the sums
     swapped = plain_steps(torch, m, cfg, dev, dp_sd,
                           {k: v.flip(0) for k, v in batch.items()})
-    stat = {"swapped frames": dp_spread(*swapped, ref_metrics, ref_states,
-                                        init_host)}
+    stat = {"swapped frames": dp_spread(swapped["metrics"],
+                                        swapped["states"], ref_metrics,
+                                        ref_states, init_host)}
     for name, o in (("sync", outs), ("fault", faults),
                     ("half fault", halves)):
         stat[name] = dp_spread(o[0]["metrics"], o[0]["states"],
@@ -3626,6 +3855,606 @@ def phase12(torch, m, cfg, dev, per_step):
             fail("(d) malformed detections")
     print(f"[12] phase 12 in {time.perf_counter() - t_phase:.1f} s")
     return totals, outs[0]["launches"][-1]
+
+
+# ----------------------------------------------------------- phase 13
+WIDTH = 2  # ranks of [13](b): --mesh model=2, both on the one card, gloo
+CLI_MESH = {"data": 2, "model": 2}  # [13](c): four gloo ranks on the card
+WIDTH_TIMED = 5  # more steps of (b)'s honest run, timed
+SEAM_COLS = 8  # columns of each level either side of the seam, [13](b)
+# gates of [13](b), two ranks of 64x1328 against one process of 64x2656,
+# B=1, bf16. (1) The step, after each of DP_STEPS steps (``dp_spread``):
+# the losses' max relative difference, the update's median and max per
+# tensor. On an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md section 6) the
+# floor (the width step in a group of one on the whole frame, the same
+# sums in another order) read after steps 1 / 2 losses 0.0020 / 0.0216,
+# median 0.206 / 0.255, max 1.75 / 1.99; two ranks 0.0008 / 0.0065, 0.198
+# / 0.241, 2.14 / 2.13. At random weights in bf16 that spread covers the
+# seam faults: the dropped halo gradient read 0.0008 / 0.0079, 0.197 /
+# 0.244, 2.08 / 1.85, the unsummed counts 0.0012 / 0.0091, 0.242 / 0.261.
+# So these gates only bound the step, and two
+# exact gates catch the faults: (2) the targets of step 1, the ranks'
+# columns put together, bit-equal to the whole frame's (the counts are
+# sums of integers); (3) the width ops on the ranks' columns of
+# ``op_inputs`` against the unsharded ops (``ops_on_columns``): outputs
+# bit-equal, gradients within W_OP_TOL of max|ref|. On the CPU's plain
+# versions in bf16 (the rehearsal) two ranks read at most 0.0100 (the
+# Meta-Kernel's w1: each rank's bf16 partial rounded before the sum), the
+# faults at least 0.334 (zero halos: the outputs) and 0.369 (the dropped
+# halo gradient: the input gradients).
+W_OP_TOL = 5e-2
+W_LOSS_TOL = 5e-2
+W_UPDATE_MEDIAN_TOL = 0.35
+W_UPDATE_MAX_TOL = 4.0
+W_FAULTS = ("halo_zeros", "halo_grad", "counts")
+
+
+def seam_frame(torch, m, cfg, seed):
+    """The first B=1 synthetic frame (20 boxes) from ``seed`` on that has a
+    box across the seam of a WIDTH split (``seam_boxes``): -> (its seed,
+    the host batch, the boxes)."""
+    for s in range(seed, seed + 100):
+        b = m["make_batch"](cfg, 1, seed=s, num_boxes=20)
+        found = seam_boxes(torch, b, WIDTH)
+        if found:
+            return s, b, found
+    raise SystemExit("[13] no frame with a box across the seam")
+
+
+def seam_spread(run, ref, ranks=None):
+    """Step 1's logits and deltas (one (B, H, Ws, K) tensor a level each)
+    and the gradients of the backbone's features ((B, H, C, Ws) each) of a
+    run against the reference's: max|a - b| / max|b| within SEAM_COLS
+    columns of each seam (Ws / WIDTH) and over the other columns, the
+    larger of the two kinds. ``ranks``: the run's ranks, whose column
+    shards are put together first."""
+    import torch
+
+    near = far = 0.0
+    for key, dim in (("outputs", 2), ("grads", 3)):
+        got = [run[key]] if ranks is None else [o[key] for o in ranks]
+        for i in range(len(ref[key])):
+            a = torch.cat([g[i] for g in got], dim=dim)
+            b = ref[key][i]
+            mid = b.shape[dim] // WIDTH
+            d = (a.double() - b.double()).abs() / b.double().abs().max()
+            win = d.narrow(dim, mid - SEAM_COLS, 2 * SEAM_COLS)
+            near = max(near, win.max().item())
+            win.zero_()
+            far = max(far, d.max().item())
+    return near, far
+
+
+def width_passes(spread):
+    """Gate (1) of [13](b): every step's losses, update median and max."""
+    return all(x["loss"] <= W_LOSS_TOL and x["median"] <= W_UPDATE_MEDIAN_TOL
+               and x["max"] <= W_UPDATE_MAX_TOL for x in spread)
+
+
+def targets_equal(torch, ranks_targets, want):
+    """Gate (2) of [13](b): the ranks' step-1 targets, the per-level ones
+    (``..._s{stride}``, (B, H, Ws, C)) put together by columns, bit-equal
+    to the whole frame's. -> (equal, the keys that differ)."""
+    bad = []
+    for k, v in want.items():
+        parts = [t[k] for t in ranks_targets]
+        if k.rsplit("_s", 1)[-1].isdigit():
+            same = torch.equal(torch.cat(parts, dim=2), v)
+        else:
+            same = all(torch.equal(p, v) for p in parts)
+        if not same:
+            bad.append(k)
+    return not bad, bad
+
+
+def width_collectives(cfg, layers, model, frames):
+    """Collectives of one width step that the model implies, and how they
+    add up: each BatchNorm's means forward and their cotangent backward;
+    a halo exchange a 3x3 conv, deconv and (features, coordinates) the
+    Meta-Kernel forward, the same backward but for the data's first conv
+    and the coordinates; the per-box point counts of each frame; two loss
+    normalizers a level; two flat buffers (gradients with the metrics,
+    running statistics)."""
+    n_bn = sum(isinstance(x, layers.BatchNormFold) for x in model.modules())
+    convs = sum(isinstance(x, layers.ConvNormRelu) and x.kernel == 3
+                or isinstance(x, layers.DeconvNormRelu)
+                or hasattr(x, "conv2_weight") for x in model.modules())
+    metas = sum(hasattr(x, "mlp0") for x in model.modules())
+    fwd, bwd = convs + 2 * metas, convs + metas - 1
+    levels = len(cfg.fpn_strides)
+    n = 2 * n_bn + fwd + bwd + frames + 2 * levels + 2
+    return n, (f"{n_bn} BatchNorms x 2 + {fwd} halo exchanges forward + "
+               f"{bwd} backward + {frames} point counts + {2 * levels} loss "
+               f"normalizers + 2 flat buffers = {n}")
+
+
+# the width ops of [13](a) and (b): (kind, Ci, Co or Cm, H, W, stride) at
+# shapes of the recipe's step, B=1: the conv at strides 1 and 2 (res1,
+# res2a_unit1), the deconvs of agg1 (s=4) and agg3 (s=2), the Meta-Kernel
+WIDTH_OPS = (("conv", 64, 64, 64, 2656, 1), ("conv", 64, 64, 64, 2656, 2),
+             ("deconv", 128, 64, 64, 664, 4), ("deconv", 64, 64, 64, 1328, 2),
+             ("meta", 64, 32, 64, 2656, 1))
+HALO_FAULTS = ("halo_zeros", "halo_grad")
+
+
+def op_inputs(torch, case, seed, dtype=None):
+    """The whole-width inputs of a width-op case (kind, Ci, Co or Cm, H, W,
+    stride), on the host, drawn from ``seed``: -> (cols: the arrays split
+    by columns, with the cotangent r; whole: the weights). Activations in
+    ``dtype`` (bf16 by default, as the model hands them over), f32
+    weights (the deconv's in ``dtype``), an f32 cotangent."""
+    kind, Ci, Co, H, W, s = case
+    dtype = dtype or torch.bfloat16
+    g = torch.Generator().manual_seed(seed)
+
+    def rn(*shape, scale=1.0):
+        return scale * torch.randn(*shape, generator=g)
+
+    if kind == "meta":
+        C, Cm = Ci, Co
+        cols = dict(feat=rn(1, H, C, W).to(dtype), coords=rn(1, H, 3, W),
+                    r=rn(1, H, 9 * C, W))
+        whole = dict(w0=rn(Cm, 3, scale=0.5), b0=rn(Cm, scale=0.1),
+                     w1=rn(C, Cm, scale=0.3), b1=rn(C, scale=0.1))
+        return cols, whole
+    Wo = W // s if kind == "conv" else W * s
+    cols = dict(x=rn(1, H, Ci, W).to(dtype), r=rn(1, H, Co, Wo))
+    wt = (rn(Co, Ci, 3, 3) if kind == "conv" else
+          rn(Ci, Co, 3, 2 * s)) / (3.0 * Ci ** 0.5)
+    return cols, dict(weight=wt if kind == "conv" else wt.to(dtype))
+
+
+def op_diff(torch, got, want):
+    """A width op's (output, gradients) against the unsharded op's: ->
+    ({name: bit-equal}, {name: max|a - b| / max|b|}), "out" the output."""
+    same = {"out": torch.equal(got[0], want[0])}
+    rels = {"out": _rel(got[0], want[0])}
+    for k in want[1]:
+        same[k] = torch.equal(got[1][k], want[1][k])
+        rels[k] = _rel(got[1][k], want[1][k])
+    return same, rels
+
+
+def op_line(same, rels):
+    return ", ".join(f"{k} {'bit-equal' if same[k] else f'{rels[k]:.3g}'}"
+                     for k in same)
+
+
+def width_ops_check(torch, dev, group, fail):
+    """[13](a): the width ops in a width group of one (the exchange is the
+    zero pad) against the unsharded ops at WIDTH_OPS' shapes, B=1, bf16:
+    outputs and gradients. Predicted (written before the first run): the
+    conv and deconv outputs and input gradients bit-equal (the kernels
+    accumulate each pixel in one order, and a zero column read is the
+    zero TMA fills out of bounds), the Meta-Kernel's output bit-equal
+    (kernel 7, pixel by pixel); the weight gradients, f32 sums over the
+    pixels in 64-pixel chunks that the extra column shifts, within
+    FN_TOL but not bit-equal; the Meta-Kernel's feature gradient (the
+    plain bf16 VJP, torch's own GEMMs at another width) within FN_TOL."""
+    for i, case in enumerate(WIDTH_OPS):
+        kind, Ci, Co, _, W, s = case
+        cols, whole = op_inputs(torch, case, SEED + 13 + i)
+        same, rels = op_diff(
+            torch, width_op_case(torch, kind, cols, whole, s, group, dev),
+            width_op_case(torch, kind, cols, whole, s, None, dev))
+        print(f"[13] (a) {kind} Ci={Ci} Co={Co} W={W} s={s}, width group "
+              f"of one vs unsharded: {op_line(same, rels)}")
+        if kind != "meta" and not (same["out"] and same["x"]):
+            fail(f"(a) {kind} s={s}: the width op in a group of one is not "
+                 f"the unsharded op bit for bit")
+        if not (same["out"] and max(rels.values()) <= FN_TOL):
+            fail(f"(a) {kind} s={s}: width op vs unsharded {rels}")
+
+
+def width_op_runs(torch, spec, ranks):
+    """The width ops of the spec's ``op_cases`` (default WIDTH_OPS) on
+    this rank's columns of ``op_inputs`` drawn from ``op_seed`` (in
+    ``op_dtype``), honestly and under each of the spec's ``op_faults``
+    (default HALO_FAULTS, ``planted``): -> {variant: [(output, gradients)
+    a case]}."""
+    out = {}
+    for variant in ("honest",) + tuple(spec.get("op_faults", HALO_FAULTS)):
+        out[variant] = []
+        with planted({} if variant == "honest" else {"plant": variant}):
+            for i, case in enumerate(spec.get("op_cases", WIDTH_OPS)):
+                cols, whole = op_inputs(torch, case, spec["op_seed"] + i,
+                                        spec.get("op_dtype"))
+                cols = {k: _columns(v, ranks) for k, v in cols.items()}
+                out[variant].append(width_op_case(
+                    torch, case[0], cols, whole, case[5], ranks.width_group,
+                    ranks.device))
+    return out
+
+
+def ops_on_columns(torch, ranks_ops, dev, seed):
+    """[13](b)'s op gate: the WIDTH_OPS of the ranks (``width_op_runs``),
+    their columns put together and their weights' gradients summed,
+    against the unsharded ops on the whole inputs. Honest, the outputs are
+    bit-equal and the gradients within W_OP_TOL (an edge column adds the
+    neighbour's returned halo gradient in bf16, and each rank's weight
+    gradient is rounded before the sum: a rounding more). -> 
+    {variant: passes}, printing each case."""
+    want = []
+    for i, case in enumerate(WIDTH_OPS):
+        cols, whole = op_inputs(torch, case, seed + i)
+        want.append(width_op_case(torch, case[0], cols, whole, case[5], None,
+                                  dev))
+    verdict = {}
+    for variant in ranks_ops[0]:
+        ok = True
+        for i, case in enumerate(WIDTH_OPS):
+            parts = [r[variant][i] for r in ranks_ops]
+            y = torch.cat([p[0] for p in parts], dim=-1)
+            grads = {}
+            for k in parts[0][1]:
+                g = [p[1][k] for p in parts]
+                grads[k] = (torch.cat(g, dim=-1) if k in ("x", "feat")
+                            else sum(x.float() for x in g).to(g[0].dtype))
+            same, rels = op_diff(torch, (y, grads), want[i])
+            good = same["out"] and max(rels.values()) <= W_OP_TOL
+            ok &= good
+            print(f"[13] (b) ops, {variant}: {case[0]} Ci={case[1]} "
+                  f"Co={case[2]} W={case[4]} s={case[5]} on {len(parts)} "
+                  f"ranks' columns vs unsharded: {op_line(same, rels)}: "
+                  f"{'pass' if good else 'reject'}")
+        verdict[variant] = ok
+    return verdict
+
+
+def phase13(torch, m, cfg, dev, per_step):
+    """Width sharding of the recipe at 64x2656 (``parallel/halo.py``, the
+    width paths of ``models/``): (a) the width ops in a width group of one
+    against the unsharded ops; one width step in a group of one on rank
+    0's columns (64x1328) of a frame with a box across the seam, every
+    launch of it through phase 5's correctness gates (its speed printed,
+    not gated) and kernel 7's; the floor: the width step in a group of one
+    on the whole frame against the plain step; (b) WIDTH gloo ranks on the
+    one card (--mesh model=2), each 64x1328 of that frame, from [12]'s
+    weights (BatchNorms perturbed), against the plain step on the frame:
+    gates (1) losses and updates (``width_passes``), (2) step 1's targets
+    (``targets_equal``), (3) the width ops on the ranks' columns
+    (``ops_on_columns``); both ranks bit-equal, the collectives a step as
+    the model implies them, three planted faults each rejected by a gate,
+    each rank's launches, median and peak; (c) the train CLI under the launcher on data=2,model=2 (four
+    gloo ranks on the card) from CACHE_FRAMES files: an epoch of 2 steps
+    with --gspmd-width, a checkpoint, --resume --eval-every 1; the ranks
+    of a data group on the same frames, all ranks bit-equal; a mesh whose
+    shards are not phase-aligned refused. -> (KernelTotals of (a), the
+    launches of a rank's step)."""
+    pd, layers = m["pdist"], m["layers"]
+    t_phase = time.perf_counter()
+
+    def fail(msg):
+        raise SystemExit(f"[13] {msg}")
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    H, W = cfg.pad_field  # the batch's width, a shard's twice
+    init = m["RangeDet"](**cfg.model_kwargs())
+    init.init_from(torch.Generator().manual_seed(SEED))
+    init_sd = {k: v.clone() for k, v in init.state_dict().items()}
+    perturb_bn(torch, layers, init, SEED)  # [12]'s weights of (b) and (c)
+    dp_sd = {k: v.clone() for k, v in init.state_dict().items()}
+    del init
+    seed, batch_np, boxes = seam_frame(torch, m, cfg, SEED)
+    print(f"[13] the frame of seed {seed} (the first from {SEED} with a box "
+          f"across the seam at column {W // WIDTH}): boxes (frame, box, "
+          f"points left, right) {boxes}")
+    batch = m["batch_to_device"](batch_np, dev)
+    half = m["batch_to_device"](pd.local_rows(batch_np, 0, 1, 0, WIDTH), dev)
+
+    # (a) a width group of one
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    one = pd.join(str(dev), backend=backend, rank=0, world_size=1,
+                  init_method=f"tcp://127.0.0.1:{free_port()}", always=True)
+    try:
+        width_ops_check(torch, dev, one.group, fail)
+
+        model = m["RangeDet"](**cfg.model_kwargs())
+        model.load_state_dict(init_sd)
+        model = model.to(dev)
+        layers.set_sync_group(model, one.group)
+        layers.set_width_group(model, one.group)
+        state = m["create_train_state"](model, cfg, STEPS_PER_EPOCH,
+                                        seed=None)
+        step = m["make_train_step"](state, cfg, one.group, one.group)
+        taps_args = []
+        real_taps = m["taps"].meta_kernel_taps
+
+        def rec_taps(*args):
+            taps_args.append(tuple(a.detach().clone() for a in args))
+            return real_taps(*args)
+
+        sync()
+        reset_counts(m)
+        with mock.patch.object(m["taps"], "meta_kernel_taps", rec_taps):
+            recorded = record_train_step(step, half, m["conv3x3"], m["iou"],
+                                         layers, m["meta"])
+        sync()
+        launches = read_counts(m)
+        want = dict(per_step, meta_stats=0, meta_agg=0, meta_block_bwd=0,
+                    meta_kernel_taps=meta_units(cfg))
+        print(f"[13] (a) one width step in a group of one on 64x{W // WIDTH}:"
+              f" launches {launches} (phase 6's step with the materialized "
+              f"block: its taps from kernel 7, no fused launch)")
+        if launches != want:
+            fail(f"(a) launches {launches}, expected {want}")
+        del model, state, step
+        totals = phase5(torch, m["conv3x3"], m["iou"], layers, m["meta"],
+                        m["taps"], recorded, H, dev, tag="13",
+                        speed_gates=False)
+        del recorded
+        taps_t = totals["meta_kernel_taps"] = KernelTotals()
+        for args in taps_args:
+            t = check_taps(torch, m["taps"], args, "13")
+            taps_t.add(1, t.ms, t.plain_ms, (t.bound_ms, t.bound_by()), None,
+                       t.err)
+            taps_t.f32_bound_ms += t.f32_bound_ms
+        del taps_args
+
+        # the floor: the width step in a group of one on the whole frame
+        # against the plain step, the same arithmetic summed in other orders
+        ref = plain_steps(torch, m, cfg, dev, dp_sd, batch, keep=True)
+        w1 = plain_steps(torch, m, cfg, dev, dp_sd, batch, one.group,
+                         one.group, keep=True)
+    finally:
+        pd.leave(one)
+    init_host = {k: v.cpu() for k, v in dp_sd.items()}
+    floor = dp_spread(w1["metrics"], w1["states"], ref["metrics"],
+                      ref["states"], init_host)
+    floor_seam = seam_spread(w1, ref)
+    del w1
+
+    # (b) two ranks over gloo on the card, --mesh model=2
+    runs = [dict(name="honest", timed=WIDTH_TIMED)] + [
+        dict(name=f, plant=f) for f in W_FAULTS]
+    spec = dict(cfg=cfg, state=init_host, batch=batch_np, steps=DP_STEPS,
+                device=str(dev), backend="gloo", mode="sync",
+                mesh={"data": 1, "model": WIDTH}, runs=runs,
+                keep_step1=True, op_seed=SEED + 31)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        outs = wait_ranks(start_ranks(spec, WIDTH, tmp, "width"))
+        t1 = time.perf_counter()
+    print(f"[13] (b) {WIDTH} ranks over gloo on {spec['device']}, "
+          f"--mesh model={WIDTH}, 64x{W // WIDTH} each: the honest run and "
+          f"the {len(W_FAULTS)} faults' in {t1 - t0:.1f} s")
+    n_coll, how = width_collectives(cfg, layers,
+                                    m["RangeDet"](**cfg.model_kwargs()), 1)
+    print(f"[13] (b) expected collectives a step: {how}")
+    rank_launches = outs[0]["honest"]["launches"][-1]
+    for r, o in enumerate(outs):
+        h = o["honest"]
+        print(f"[13] (b) rank {r}: launches a step {h['launches'][-1]}, "
+              f"collectives a step {h['collectives']}, step median "
+              f"{h.get('step_ms', 'not measured')} ms over {WIDTH_TIMED} "
+              f"steps, peak memory {h.get('peak_gib', 'not measured')} GiB")
+        if h["launches"] != [want] * DP_STEPS:
+            fail(f"(b) rank {r} launches {h['launches']}, (a)'s {want}")
+        if h["collectives"] != [n_coll] * DP_STEPS:
+            fail(f"(b) rank {r} collectives {h['collectives']}, expected "
+                 f"{n_coll}")
+    for name in ("honest",) + W_FAULTS:
+        a, b = (o[name] for o in outs)
+        same = a["metrics"] == b["metrics"] and all(
+            torch.equal(x[k], y[k]) for x, y in zip(a["states"], b["states"])
+            for k in x)
+        print(f"[13] (b) {name}: both ranks' metrics and states bit-equal: "
+              f"{same}")
+        if not same:
+            fail(f"(b) {name}: the ranks differ")
+    stat = {"floor (width step, group of one, whole frame)": (
+        floor, floor_seam)}
+    for name in ("honest",) + W_FAULTS:
+        o = outs[0][name]
+        stat[name] = (dp_spread(o["metrics"], o["states"], ref["metrics"],
+                                ref["states"], init_host),
+                      seam_spread(None, ref, [x[name] for x in outs]))
+    step_ok = {}
+    for name, (sp, (near, far)) in stat.items():
+        step_ok[name] = width_passes(sp)
+        print(f"[13] (b) {name} vs one process on 64x{W} (total_loss "
+              + " ".join(f"{x['total_loss']:.6f}" for x in ref["metrics"])
+              + f"): {dp_line(sp)}; step 1's outputs and feature gradients "
+              f"max|a-b|/max|b| within {SEAM_COLS} columns of the seam "
+              f"{near:.4g}, elsewhere {far:.4g} (printed); gate (1), every "
+              f"step: losses <= {W_LOSS_TOL}, update median <= "
+              f"{W_UPDATE_MEDIAN_TOL}, max <= {W_UPDATE_MAX_TOL}: "
+              f"{'pass' if step_ok[name] else 'reject'}")
+    want_t = {k: v.cpu() for k, v in m["build_train_targets"](
+        batch, cfg).items()}
+    targets_ok = {}
+    for name in ("honest",) + W_FAULTS:
+        targets_ok[name], bad = targets_equal(
+            torch, [o[name]["targets"] for o in outs], want_t)
+        print(f"[13] (b) {name}: gate (2), step 1's targets on the ranks' "
+              f"columns bit-equal to the whole frame's: "
+              f"{targets_ok[name]}{f' (differ: {bad})' if bad else ''}")
+    ops_ok = ops_on_columns(torch, [o["ops"] for o in outs], dev, spec[
+        "op_seed"])
+    verdict = {name: step_ok[name] and targets_ok[name] and ops_ok[
+        "honest" if name in ("honest", "counts") else name]
+        for name in ("honest",) + W_FAULTS}
+    print(f"[13] (b) gates (1)-(3) pass: " + ", ".join(
+        f"{k} {v}" for k, v in verdict.items()))
+    if not (verdict["honest"] and step_ok[next(iter(stat))]):
+        fail("(b) two ranks (or the floor) vs one process outside the gates")
+    passed = [f for f in W_FAULTS if verdict[f]]
+    if passed:
+        fail(f"(b) the gates pass the planted faults {passed}")
+    del outs, ref
+
+    # (c) the train CLI under the launcher, data=2,model=2
+    phase13_cli(torch, m, cfg, dev, fail)
+    print(f"[13] phase 13 in {time.perf_counter() - t_phase:.1f} s")
+    return totals, rank_launches
+
+
+def phase13_cli(torch, m, cfg, dev, fail):
+    """[13](c): ``tools.train`` on data=2,model=2, four gloo ranks on the
+    card under ``python -m torch.distributed.run`` (each rank
+    ``cli_rank_main``), from CACHE_FRAMES files: an epoch of 2 steps with
+    --gspmd-width into checkpoint 0, then --epochs 2 --resume --eval-every
+    1; and a mesh whose shards are not phase-aligned refused."""
+    import numpy as np
+
+    H, W = cfg.feat_size
+    world = CLI_MESH["data"] * CLI_MESH["model"]
+    mesh = ",".join(f"{k}={v}" for k, v in CLI_MESH.items())
+    # every rank on the one card (cuda:LOCAL_RANK would name four)
+    card = (f"cuda:{torch.cuda.current_device()}" if dev.type == "cuda"
+            else "cpu")
+    with tempfile.TemporaryDirectory() as tmp:
+        data, exp = os.path.join(tmp, "data"), os.path.join(tmp, "exp")
+        m["write_waymo_files"](data, CACHE_FRAMES, H=H, W=W, seed=SEED + 3,
+                               image_set="training", num_boxes=20)
+        m["write_waymo_files"](data, VAL_FRAMES, H=H, W=W, seed=SEED + 4,
+                               image_set="validation", num_boxes=20)
+        train = ["--config", RECIPE, "--data-root", data, "--sampling-rate",
+                 "1", "--batch", "1", "--num-workers", "2",
+                 "--steps-per-epoch", "2", "--experiment-dir", exp,
+                 "--device", card, "--mesh", mesh]
+        t0 = time.perf_counter()
+        first, log1 = launch_cli_ranks(
+            tmp, "first", world, train + ["--epochs", "1", "--gspmd-width"])
+        t1 = time.perf_counter()
+        second, log2 = launch_cli_ranks(
+            tmp, "second", world, train + ["--epochs", "2", "--resume",
+                                           "--eval-every", "1",
+                                           "--eval-frames", "2"])
+        t2 = time.perf_counter()
+    print(f"[13] (c) tools.train --mesh {mesh} under torch.distributed.run "
+          f"--nproc_per_node {world} (gloo, one card): an epoch of 2 steps "
+          f"with --gspmd-width {t1 - t0:.1f} s, --resume --eval-every 1 "
+          f"{t2 - t1:.1f} s")
+    for name, runs, log in (("first", first, log1), ("resumed", second,
+                                                       log2)):
+        for o in runs:
+            d, mm = divmod(o["rank"], CLI_MESH["model"])
+            peer = runs[d * CLI_MESH["model"]]
+            frames = [u for u in o["mapped"] if "/training/" in u]
+            print(f"[13] (c) {name} rank {o['rank']} (d, m) = ({d}, {mm}): "
+                  f"steps {[h['step'] for h in o['hist']]}, total_loss "
+                  + " ".join(f"{h['total_loss']:.6f}" for h in o["hist"])
+                  + f"; training frames mapped {len(frames)}, batches "
+                  f"received {len(o['shared'])}, the same as rank "
+                  f"{peer['rank']}'s: {o['shared'] == peer['shared']}; "
+                  f"checkpoints saved {o['saved']}")
+            if o["shared"] != peer["shared"] or len(o["shared"]) != 2:
+                fail(f"(c) {name}: rank {o['rank']} trained on other frames "
+                     f"than rank {peer['rank']}")
+            if mm and frames:
+                fail(f"(c) {name}: rank {o['rank']} (m = {mm}) loaded frames")
+        a = runs[0]
+        if runs[0]["shared"] == runs[CLI_MESH["model"]]["shared"]:
+            fail(f"(c) {name}: data indices 0 and 1 trained on one batch")
+        same = all(all(torch.equal(v, o["state"][k])
+                       for k, v in a["state"].items()) for o in runs)
+        print(f"[13] (c) {name}: all {world} ranks' states bit-equal: {same}")
+        if not same:
+            fail(f"(c) {name}: the ranks' states differ")
+    gspmd = "--gspmd-width: no auto-partitioner" in log1
+    resumed = "resumed from epoch 0" in log2
+    val = second[0]["val"]
+    print(f"[13] (c) --gspmd-width logged its line: {gspmd}; resumed from "
+          f"epoch 0: {resumed}; step count {second[0]['step']}; checkpoints "
+          f"saved {first[0]['saved']} + {second[0]['saved']}; validation "
+          f"(every rank, whole frames) {val}")
+    if not (gspmd and resumed and second[0]["step"] == 4
+            and first[0]["saved"] == [0] and second[0]["saved"] == [1]):
+        fail(f"(c) the CLI's runs:\n{log1[-2000:]}\n{log2[-2000:]}")
+    if sorted(val) != [1] or not all(
+            np.isfinite(x) for res in val[1].values() for x in res.values()):
+        fail(f"(c) validation {val}")
+    args = m["train_cli"].parse_args(["--config", RECIPE, "--mesh",
+                                      "model=4"])
+    try:
+        m["train_cli"].check_jax_flags(args, cfg, 4)
+    except SystemExit as e:
+        print(f"[13] (c) --mesh model=4 over 4 processes refused: {e}")
+        if not ("phase-aligned" in str(e) or "halo" in str(e)):
+            fail(f"(c) refused for another reason: {e}")
+    else:
+        fail("(c) --mesh model=4 (shards of 664 columns) was not refused")
+
+
+def launch_cli_ranks(tmp, name, world, argv):
+    """``tools.train``'s main with ``argv`` on ``world`` ranks under
+    ``python -m torch.distributed.run --standalone``, each rank
+    ``cli_rank_main``. -> (each rank's record by rank, the launcher's
+    output)."""
+    import torch
+
+    out = os.path.join(tmp, f"{name}_rank")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    p = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", str(world), os.path.abspath(__file__),
+         "--cli-rank", out, "train"] + argv, cwd=repo, capture_output=True,
+        text=True,
+        timeout=RANK_TIMEOUT,
+        env=dict(os.environ, PYTHONPATH=repo, OMP_NUM_THREADS="1"))
+    log = p.stdout + p.stderr
+    if p.returncode:
+        raise SystemExit(f"[13] tools.train {' '.join(argv)}: exit "
+                         f"{p.returncode}\n{log[-4000:]}")
+    return [torch.load(f"{out}{r}.pt", weights_only=False)
+            for r in range(world)], log
+
+
+def cli_rank_main(out, cli, argv):
+    """One rank of a CLI (``cli``: "train" or "test") under a launcher
+    (``launch_cli_ranks``, the CPU tests' ``torch_dp.cli_ranks``): its
+    main on ``argv``. For "train" it records the roidb records the loader
+    maps (their ``pc_url``), the checkpoints saved and a hash of each whole
+    batch the width group shares (``dist.share_batch``), and saves them
+    with the history, the state, the step count and the validations to
+    ``out<RANK>.pt``; for "test", the pickle's path (None off rank 0)."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from rangedet_tpu_torch.data import waymo
+    from rangedet_tpu_torch.parallel import dist as pd
+    from rangedet_tpu_torch.tools import test, train
+    from rangedet_tpu_torch.train import checkpoint
+
+    rank = int(os.environ.get("RANK", 0))
+    if cli == "test":
+        torch.save(dict(path=test.main(argv)), f"{out}{rank}.pt")
+        return
+    mapped, saved, shared = [], [], []
+    real_map, real_save = waymo.record_to_inputs, checkpoint.save_checkpoint
+    real_share = pd.share_batch
+
+    def mapping(rec, *a, **k):
+        mapped.append(rec["pc_url"])
+        return real_map(rec, *a, **k)
+
+    def saving(state, cfg, epoch):
+        saved.append(epoch)
+        return real_save(state, cfg, epoch)
+
+    def sharing(batch, ranks):
+        whole = real_share(batch, ranks)
+        h = hashlib.sha1()
+        for k in sorted(whole):
+            h.update(np.ascontiguousarray(whole[k]).tobytes())
+        shared.append(h.hexdigest())
+        return whole
+
+    with mock.patch.object(waymo, "record_to_inputs", mapping), \
+            mock.patch.object(checkpoint, "save_checkpoint", saving), \
+            mock.patch.object(pd, "share_batch", sharing):
+        hist, state, val = train.main(argv)
+    torch.save(dict(rank=rank, hist=hist, step=state.step, val=val,
+                    state={k: v.detach().cpu() for k, v in
+                           state.model.state_dict().items()},
+                    mapped=mapped, saved=saved, shared=shared),
+               f"{out}{rank}.pt")
 
 
 def main():
@@ -3938,6 +4767,9 @@ def main():
     mods.update(pdist=pdist)
     b1, b1_launches = phase12(torch, mods, tcfg, dev, launches)
 
+    # ----------------------------------------------------------- phase 13
+    wide_w, width_launches = phase13(torch, mods, tcfg, dev, launches)
+
     # one entry per kernel and path: the serving forward (launches of the
     # B=1 eval step of phase 3, times of one B=1 forward in phases 2 and
     # 7), then the B=2 train step (phases 6 and 5)
@@ -3996,6 +4828,17 @@ def main():
                "rangedet_tpu/ops/meta_block_pallas.py:368"),
               ("meta_block_bwd", "meta_block_bwd", meta_src,
                "rangedet_tpu/ops/meta_block_pallas.py:411"))),
+        *(("train_width", name, wide_w[key], width_launches[key], source,
+           replaces) for name, key, source, replaces in (
+              ("conv3x3_bhcw_train", "fwd", conv_src, conv_tpu),
+              ("conv3x3_dgrad", "dgrad", conv_src, conv_tpu),
+              ("conv3x3_wgrad", "wgrad",
+               "rangedet_tpu_torch/csrc/conv3x3_wgrad.cu",
+               "rangedet_tpu/ops/conv_pallas.py:452"),
+              ("iou_target", "iou", "rangedet_tpu_torch/csrc/iou_target.cu",
+               "rangedet_tpu/ops/iou_target_pallas.py:193"),
+              ("meta_kernel_taps", "meta_kernel_taps", meta_src,
+               "rangedet_tpu/ops/meta_kernel_pallas.py:138"))),
     ):
         entries.append({
             "name": name, "path": path, "route": "cuda", "source": source,
@@ -4010,6 +4853,7 @@ def main():
         if name == "iou_target":  # its prep and clip kernels, the old path
             entries[-1].update(t.extra, prep_launches={
                 "train_multiclass": mc_launches, "train_b1": b1_launches,
+                "train_width": width_launches,
             }.get(path, launches)["iou_prep"])
     print(_smi())  # the card beside the numbers of the line below
     print(json.dumps({"kernels": entries}))
@@ -4021,5 +4865,7 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--rank-worker"]:
         rank_main(sys.argv[2])
+    elif sys.argv[1:2] == ["--cli-rank"]:
+        cli_rank_main(sys.argv[2], sys.argv[3], sys.argv[4:])
     else:
         main()

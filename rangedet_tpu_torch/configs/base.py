@@ -8,13 +8,15 @@ in eval (``ops/meta_kernel.py``).
 ``remat`` and ``remat_meta`` keep theirs: ``torch.utils.checkpoint`` over
 every backbone stage, and over the materialized Meta-Kernel block.
 
-``mesh_shape`` is the data-parallel mesh, data only (``{"data": N}``, N
-the number of processes; the train CLI's ``--mesh``); a "model" axis, width
-sharding, is not ported (ROADMAP #16 part 2).
+``mesh_shape`` is the mesh, ``{"data": D, "model": M}`` over D*M
+processes (the train CLI's ``--mesh``); a "model" axis shards the range
+image's width. ``width_axis`` keeps its name and meaning: "model" where
+the train CLI trains on a width mesh (it then gives the model its width
+group, ``models/layers.py:set_width_group``), None otherwise.
 
 Left out are the JAX package's TPU-only knobs: ``layout``,
 ``use_pallas_conv``, ``use_pallas_iou``, ``topk_method``, ``iou_chunk``,
-``width_axis``, ``bn_sync_axis`` (the train CLI sets the BatchNorms' sync
+``bn_sync_axis`` (the train CLI sets the BatchNorms' sync
 group instead, ``models/layers.py:set_sync_group``), and
 ``wnms_prefilter_topm``, which only the serial WNMS form reads (the port
 runs the blocked form, ``wnms_block > 0``).
@@ -136,8 +138,12 @@ class RangeDetConfig:
     augment: Sequence[str] = ()
 
     # ------------------------------------------------------------- parallel
-    mesh_shape: Optional[Dict[str, int]] = None  # {"data": N}; None: all
+    # {"data": D, "model": M}; None: all ranks on "data"
+    mesh_shape: Optional[Dict[str, int]] = None
     sync_bn: bool = True  # global BN; False = per-rank ("localbn") stats
+    # "model": the width is sharded over the mesh's model axis (set by the
+    # train CLI for width meshes, with sync_bn forced); None: unsharded
+    width_axis: Any = None
 
     # ------------------------------------------------------------- io
     experiment_dir: str = "experiments"

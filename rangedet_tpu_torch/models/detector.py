@@ -66,8 +66,8 @@ class RangeDet(nn.Module):
 
 
 @torch.no_grad()
-def build_train_targets(batch: Dict[str, torch.Tensor], cfg
-                        ) -> Dict[str, torch.Tensor]:
+def build_train_targets(batch: Dict[str, torch.Tensor], cfg,
+                        count_group=None) -> Dict[str, torch.Tensor]:
     """Raw batch -> per-stride dense targets, on the batch's device
     (reference host pipeline rangedet/core/input.py:276-607).
 
@@ -78,7 +78,11 @@ def build_train_targets(batch: Dict[str, torch.Tensor], cfg
 
     Returns, per stride s: reg_target_s, reg_weight_s, reg_norm_weight_s,
     mask_s (valid and in the range interval), pc_s; and gt_corners_cls{k},
-    the class-k GT BEV corners (other rows zero-size, so IoU 0)."""
+    the class-k GT BEV corners (other rows zero-size, so IoU 0).
+
+    ``count_group``: the width group of a width-sharded batch (its columns
+    of each frame); the per-box point counts are summed over it
+    (``ops/targets.py``)."""
     strides = tuple(cfg.fpn_strides)
     nlz = batch.get("is_in_nlz")
     if nlz is None:  # synthetic/legacy batches: nothing is in an NLZ
@@ -96,6 +100,7 @@ def build_train_targets(batch: Dict[str, torch.Tensor], cfg
             pc, gt_csa, batch["gt_class"][b], assignment,
             label_set=tuple(cfg.label_set),
             reg_dim_weights=tuple(cfg.reg_dim_weights),
+            count_group=count_group,
         )
         imasks = ops_targets.interval_masks(batch["unnorm_range"][b],
                                             cfg.fpn_intervals, strides)

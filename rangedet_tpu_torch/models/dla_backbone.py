@@ -39,6 +39,7 @@ from .layers import (
     DeconvNormRelu,
     conv1x1_bhcw,
     conv3x3_consume,
+    conv3x3_width,
     frozen_stats,
     lecun_normal_,
 )
@@ -63,6 +64,9 @@ AGG_NODES = (
     ("agg3", "agg1", "agg2a", (3, 4), 2),
 )
 LEVELS = {1: "agg3", 2: "agg2a", 4: "agg2", 16: "res3"}  # stride -> output
+WIDTH_STRIDE = 16  # res2a, res2, res3a and res3 each halve the width
+# the widest halo a deconv exchanges under width sharding, J + 2 columns
+DECONV_HALO = max(k[1] // s + 2 for _, _, _, k, s in AGG_NODES)
 
 
 def checkpointed(module: nn.Module, *args):
@@ -102,7 +106,10 @@ class MetaBlock(nn.Module):
 
     @property
     def fused(self) -> bool:
-        return self.training and self.use_pallas_meta
+        """Training in the fused form: with ``use_pallas_meta``, not under
+        width sharding (``dla_backbone.py:96-99``)."""
+        return (self.training and self.use_pallas_meta
+                and self.meta_kernel.width_group is None)
 
     def forward(self, x: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
         with record_function("meta_block"):
@@ -129,7 +136,8 @@ class BasicBlock(nn.Module):
     """Residual basic block. A unit1 projects the shortcut with a 1x1 conv
     and carries the stage's stride on conv2 (conv1 is stride 1). conv1's BN
     apply + relu is deferred into conv2's kernel input load. With
-    ``remat_meta`` the materialized Meta-Kernel block is checkpointed."""
+    ``remat_meta`` the materialized Meta-Kernel block is checkpointed. With
+    a ``width_group`` conv2 is ``layers.conv3x3_width``."""
 
     def __init__(self, in_channels: int, features: int, stride_w: int = 1,
                  proj: bool = False,
@@ -153,6 +161,7 @@ class BasicBlock(nn.Module):
             self.sc_weight = nn.Parameter(
                 torch.empty(features, in_channels, 1, 1))
             self.sc_bn = BatchNorm(features, dtype)
+        self.width_group = None
 
     def init_from(self, g: torch.Generator) -> None:
         lecun_normal_(self.conv2_weight, self.conv2_weight[0].numel(), g)
@@ -168,8 +177,12 @@ class BasicBlock(nn.Module):
                 y = self.meta_block(x, coords)
         else:
             y = self.conv1(x)
-        y, sums = conv3x3_consume(y, self.conv2_weight, self.stride_w,
-                                  self.dtype, want_stats=self.training)
+        if self.width_group is not None:
+            y, sums = conv3x3_width(y, self.conv2_weight, self.stride_w,
+                                    self.dtype, self.width_group), None
+        else:
+            y, sums = conv3x3_consume(y, self.conv2_weight, self.stride_w,
+                                      self.dtype, want_stats=self.training)
         y = self.bn2(y, sums)
         if self.proj:
             sc = conv1x1_bhcw(x.to(self.dtype),

@@ -15,6 +15,19 @@ statistics over the group's ranks, as JAX's BatchNorm psums them over
 global sync-BN over the per-rank batches, the sums still the producer
 kernel's.
 
+With a width group (``set_width_group``; width sharding, the counterpart
+of JAX's ``width_axis``) a 3x3 conv or a deconv exchanges halo columns with
+its neighbours (``parallel/halo.py``), runs the unmodified op on the
+extended slice and keeps the interior (``conv3x3_width``,
+``rangedet_tpu/models/layers.py:464-506``; ``DeconvNormRelu``,
+``:785-820``). A PendingBN input is materialized before the exchange, and
+the conv's in-kernel statistics are not asked for (they would count the
+halo columns): the BatchNorm takes them from the exact-width tensor, as
+means over the ranks of the sync group, which must then be the whole
+world. Every rank holds the same number of pixels (equal shards,
+``parallel/dist.py:check_width_split``), so those means are the global
+batch's.
+
 Parameter layouts are PyTorch's: conv weights (Co, Ci, kh, kw) as in
 ``nn.Conv2d``, deconv weights (Ci, Co, kh, kw) as in ``nn.ConvTranspose2d``.
 """
@@ -30,6 +43,7 @@ from torch import nn
 
 from ..ops import conv3x3 as _conv
 from ..parallel.dist import all_reduce_sum
+from ..parallel.halo import width_halo
 
 BN_EPSILON = 1e-3
 BN_MOMENTUM = 0.9
@@ -172,6 +186,39 @@ def sync_groups(module: nn.Module) -> set:
             if isinstance(m, BatchNormFold)}
 
 
+def set_width_group(module: nn.Module, group) -> None:
+    """Every width-aware layer of ``module`` (those with a ``width_group``:
+    the 3x3 ConvNormRelu, DeconvNormRelu, the BasicBlock's conv2, the
+    Meta-Kernel) exchanges its halos over ``group`` (None: the unsharded
+    ops), the counterpart of building the JAX model with
+    ``width_axis="model"``."""
+    for m in module.modules():
+        if hasattr(m, "width_group"):
+            m.width_group = group
+
+
+def width_groups(module: nn.Module) -> set:
+    """The width groups of ``module``'s width-aware layers."""
+    return {m.width_group for m in module.modules()
+            if hasattr(m, "width_group")}
+
+
+@contextlib.contextmanager
+def without_width(module: nn.Module):
+    """Within it, ``module`` runs the unsharded ops (the full frame on every
+    rank, as the train CLI's validation runs it); the width groups come
+    back after."""
+    saved = [(m, m.width_group) for m in module.modules()
+             if hasattr(m, "width_group")]
+    for m, _ in saved:
+        m.width_group = None
+    try:
+        yield
+    finally:
+        for m, g in saved:
+            m.width_group = g
+
+
 @contextlib.contextmanager
 def frozen_stats(module: nn.Module):
     """Within it, no BatchNorm of ``module`` moves its running statistics.
@@ -260,6 +307,28 @@ def conv3x3_consume(x: MaybePending, weight: torch.Tensor, stride_w: int,
     return out, None
 
 
+def conv3x3_width(x: MaybePending, weight: torch.Tensor, stride_w: int,
+                  dtype: torch.dtype, group) -> torch.Tensor:
+    """``conv3x3_consume`` on a width shard (``conv3x3_bhcw_width_sharded``):
+    the halo from the neighbours in ``group``, the conv kernel on the
+    extended slice, the interior. Stride 1: a 1-column halo, the conv on
+    W+2, columns [1, W+1). Stride 2 (SAME pads 0 left and 1 right at an
+    even width): [x, right halo, one zero column], an even W+2 as the
+    kernel's stride-2 path needs, and the first W/2 outputs: y[u] reads
+    columns 2u .. 2u+2 <= W, so the zero column is never read. A PendingBN
+    input is materialized first (the halo lives in the activated domain);
+    no in-kernel statistics."""
+    x = materialize(x).to(dtype)
+    W = x.shape[-1]
+    xe = width_halo(x, 1, group)
+    if stride_w == 1:
+        y, _ = conv3x3_consume(xe, weight, 1, dtype)
+        return y[..., 1:-1]
+    xe = torch.nn.functional.pad(xe[..., 1:], (0, 1))
+    y, _ = conv3x3_consume(xe, weight, 2, dtype)
+    return y[..., :W // 2]
+
+
 def conv1x1_bhcw(x: torch.Tensor, weight: torch.Tensor, stride_w: int = 1
                  ) -> torch.Tensor:
     """1x1 conv on (B, H, Ci, W); weight (Co, Ci) in x's dtype. A strided
@@ -270,7 +339,9 @@ def conv1x1_bhcw(x: torch.Tensor, weight: torch.Tensor, stride_w: int = 1
 
 
 class ConvNormRelu(nn.Module):
-    """3x3 or 1x1 conv (stride 1) + BN + relu."""
+    """3x3 or 1x1 conv (stride 1) + BN + relu. With a ``width_group`` the
+    3x3 conv is ``conv3x3_width`` and its BatchNorm takes the statistics
+    from the tensor."""
 
     def __init__(self, in_channels: int, features: int, kernel: int = 3,
                  dtype: torch.dtype = torch.bfloat16,
@@ -283,6 +354,7 @@ class ConvNormRelu(nn.Module):
         self.weight = nn.Parameter(
             torch.empty(features, in_channels, kernel, kernel))
         self.bn = BatchNorm(features, dtype, affine_out=emit_pending)
+        self.width_group = None
 
     def init_from(self, g: torch.Generator) -> None:
         if self.init_std is None:
@@ -295,6 +367,9 @@ class ConvNormRelu(nn.Module):
             x = materialize(x).to(self.dtype)
             y = conv1x1_bhcw(x, self.weight[:, :, 0, 0].to(self.dtype))
             out = self.bn(y)
+        elif self.width_group is not None:
+            out = self.bn(conv3x3_width(x, self.weight, 1, self.dtype,
+                                        self.width_group))
         else:
             y, sums = conv3x3_consume(x, self.weight, 1, self.dtype,
                                       want_stats=self.training)
@@ -331,7 +406,9 @@ class DeconvNormRelu(nn.Module):
     """Transposed conv with stride (1, s) and SAME padding + BN + relu, the
     FPN aggregation upsampler (reference deconvs (3,8)/(1,4)/pad (1,2) and
     (3,4)/(1,2)/pad (1,1), i.e. ``F.conv_transpose2d`` with those paddings).
-    Runs as the phase-packed 3x3 conv on the kernel, then an interleave."""
+    Runs as the phase-packed 3x3 conv on the kernel, then an interleave.
+
+    With a ``width_group`` it runs ``deconv_width``."""
 
     def __init__(self, in_channels: int, features: int,
                  kernel: Tuple[int, int], stride_w: int,
@@ -340,14 +417,18 @@ class DeconvNormRelu(nn.Module):
         self.stride_w, self.dtype = stride_w, dtype
         self.weight = nn.Parameter(torch.empty(in_channels, features, *kernel))
         self.bn = BatchNorm(features, dtype)
+        self.width_group = None
 
     def init_from(self, g: torch.Generator) -> None:
         kh, kw = self.weight.shape[2:]
         lecun_normal_(self.weight, kh * kw * self.weight.shape[0], g)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = deconv_bhcw(x.to(self.dtype).contiguous(),
-                        self.weight.to(self.dtype), self.stride_w)
+        x, w = x.to(self.dtype), self.weight.to(self.dtype)
+        if self.width_group is not None:
+            y = deconv_width(x, w, self.stride_w, self.width_group)
+        else:
+            y = deconv_bhcw(x.contiguous(), w, self.stride_w)
         return torch.relu(self.bn(y))
 
 
@@ -366,3 +447,16 @@ def deconv_bhcw(x: torch.Tensor, weight: torch.Tensor, stride_w: int
     y2 = _conv.conv3x3(x, kp)  # (B, H, s*Co, W)
     y = y2.reshape(B, H, s, Co, W).permute(0, 1, 3, 4, 2)
     return y.reshape(B, H, Co, W * s)
+
+
+def deconv_width(x: torch.Tensor, weight: torch.Tensor, stride_w: int,
+                 group) -> torch.Tensor:
+    """``deconv_bhcw`` on a width shard (``rangedet_tpu/models/
+    layers.py:808-818``): a halo of J+2 = kw // s + 2 columns from the
+    neighbours in ``group`` (the phase decomposition's own zero margin in
+    JAX's ``deconv_bhcw``), the deconv on the extended slice, and the
+    interior: s*W columns from s*(J+2) on."""
+    s = stride_w
+    halo = weight.shape[3] // s + 2
+    y = deconv_bhcw(width_halo(x, halo, group).contiguous(), weight, s)
+    return y[..., s * halo:-s * halo]

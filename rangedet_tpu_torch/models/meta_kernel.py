@@ -10,6 +10,12 @@ and features are zero-padded, so a border tap's relative coordinate is
 ``-centre``. The op is ``ops/meta_kernel.py``: with ``use_pallas_meta`` its
 kernel (``MetaKernelTaps``, the JAX ``use_pallas=True`` path), otherwise
 its plain version (the XLA form).
+
+With a ``width_group`` (width sharding, ``rangedet_tpu/models/
+meta_kernel.py:55-67``) the features and the coordinates both take a
+1-column halo from the neighbours (a neighbour tap and its relative
+coordinate cross the shard's edge), the unmodified op runs on the extended
+slice, and the interior is kept.
 """
 from __future__ import annotations
 
@@ -19,6 +25,7 @@ import torch
 from torch import nn
 
 from ..ops import meta_kernel as ops_mk
+from ..parallel.halo import width_halo
 from .layers import lecun_normal_
 
 
@@ -34,6 +41,7 @@ class MetaKernel(nn.Module):
         self.use_pallas_meta = use_pallas_meta
         self.mlp0 = nn.Linear(3, c_mid)
         self.mlp1 = nn.Linear(c_mid, c_out)
+        self.width_group = None
 
     def init_from(self, g: torch.Generator) -> None:
         for lin in (self.mlp0, self.mlp1):
@@ -50,9 +58,15 @@ class MetaKernel(nn.Module):
                 f"MetaKernel MLP ends at {self.mlp1.out_features}, "
                 f"features have {C} channels"
             )
-        args = (feat.to(self.dtype), coords.permute(0, 1, 3, 2),
-                self.mlp0.weight.t(), self.mlp0.bias, self.mlp1.weight.t(),
+        feat, cb = feat.to(self.dtype), coords.permute(0, 1, 3, 2)
+        group = self.width_group
+        if group is not None:
+            feat, cb = width_halo(feat, 1, group), width_halo(cb, 1, group)
+        args = (feat, cb, self.mlp0.weight.t(), self.mlp0.bias,
+                self.mlp1.weight.t(),
                 self.mlp1.bias)  # the JAX layout: (3, Cm), (Cm,), (Cm, C)
         if self.use_pallas_meta:
-            return ops_mk.MetaKernelTaps.apply(*args)
-        return ops_mk.meta_kernel_taps_plain(*args)
+            out = ops_mk.MetaKernelTaps.apply(*args)
+        else:
+            out = ops_mk.meta_kernel_taps_plain(*args)
+        return out if group is None else out[..., 1:-1]

@@ -17,6 +17,7 @@ from typing import Dict, Sequence
 
 import torch
 
+from ..parallel.dist import all_reduce_sum
 from .assigner import points_per_box
 
 
@@ -125,10 +126,17 @@ def generate_dense_targets(
     assignment: torch.Tensor,
     label_set: Sequence[int],
     reg_dim_weights: Sequence[float],
+    count_group=None,
 ) -> Dict[str, torch.Tensor]:
     """Full-resolution dense targets of one frame, channels last (H, W, C):
     reg targets, per-dim weights, 1/N normalization weights and the
     class-aware expansion (input.py:346-393).
+
+    ``count_group``: the width group of a width-sharded frame (JAX's
+    ``count_sync_axis``, ``rangedet_tpu/ops/targets.py:170-203``); the
+    per-box point counts, the 1/N weights' denominators, are summed over
+    it, so a box that spans a shard's edge is normalized by its global
+    count.
 
     The per-box lookups (box row, class id, points in the box) are index
     gathers. The JAX package runs them as one one-hot matmul at
@@ -142,6 +150,8 @@ def generate_dense_targets(
     assigned = assignment >= 0
     idx = assignment.clamp(min=0).long()
     counts = points_per_box(assignment, M)
+    if count_group is not None:
+        counts = all_reduce_sum(counts, count_group)
     gt_mapped = _label_mapping(label_set, pts.device)[
         gt_class.long().clamp(0, 7)]
 

@@ -1,4 +1,4 @@
-"""Data-parallel training over processes, one per card: the counterpart of
-``rangedet_tpu/parallel/`` for data-only meshes (``dist.py``: the group,
-the batch rows, the collectives; ``dp_step.py``: the train step's
-reduction)."""
+"""Data- and width-parallel training over processes, one per card: the
+counterpart of ``rangedet_tpu/parallel/`` (``dist.py``: the group, the
+mesh, a rank's rows and columns, the collectives; ``halo.py``: the width
+halo exchange; ``dp_step.py``: the train step's reduction)."""

@@ -10,13 +10,15 @@ one process per card:
     python -m rangedet_tpu_torch.tools.train --config ... --synthetic \
         --steps-per-epoch 50 --epochs 2
     torchrun --nproc_per_node N -m rangedet_tpu_torch.tools.train \
-        --config ... [--mesh data=N] [--multihost]
+        --config ... [--mesh data=D[,model=M]] [--gspmd-width] [--multihost]
 
 Data parallel (``parallel/``): under a launcher that starts N > 1
 processes (``torchrun`` / ``python -m torch.distributed.run``; several
 nodes with ``--nnodes`` and a rendezvous, or with ``--multihost``, which
 joins from the launcher's environment even at one process), each process
-joins the group (nccl on the card ``cuda:LOCAL_RANK``, gloo on the CPU),
+joins the group (nccl on the card ``cuda:LOCAL_RANK``, gloo on the CPU;
+``--device cuda:N`` puts every rank on card N, over gloo where the node
+has fewer cards than ranks),
 trains ``--batch`` frames a step on its own card and the ranks reduce
 their gradients before each update (``parallel/dp_step.py``): the global
 batch is ``batch * N``, and ``auto_scale_lr`` scales to it. The recipe's
@@ -28,10 +30,28 @@ Files: rank r loads its own ``1/N`` of the split (``BatchLoader``'s
 covers the split once. Rank 0's parameters are broadcast after the init
 and after ``--resume`` (every rank restores); only rank 0 writes
 checkpoints (the others wait for it), ``log.txt``, TensorBoard and the
-profiler's trace; every rank runs the validation. ``--mesh data=N`` must
-name the number of processes; a "model" axis and ``--gspmd-width`` (width
-sharding, ROADMAP #16 part 2) and ``--device-cache`` over several
-processes are refused.
+profiler's trace; every rank runs the validation.
+
+Width sharding (``tools/train.py:165-193``): ``--mesh data=D,model=M`` over
+D*M processes, data-major (rank r = d*M + m). The M ranks of data index d
+train on the same ``--batch`` frames, each on its columns ``[m*W/M,
+(m+1)*W/M)`` of the range image; every 3x3 conv, deconv and the
+Meta-Kernel exchange halo columns with the neighbours (``parallel/
+halo.py``), the targets sum their per-box point counts over the width
+group, and sync BatchNorm over all D*M ranks is forced (``sync_bn=False``
+is overridden, with a line in the log). The global batch is ``batch * D``.
+The shard width must be a multiple of the largest FPN stride and of the
+backbone's width stride 16, and hold the deconv's halo
+(``dist.check_width_split``); a mesh that is not is refused. Synthetic
+data: every rank draws the global batch and takes its rows and columns.
+Files: the loader of data index d's first rank (m = 0) loads its ``1/D``
+of the split and augments, and broadcasts each batch over the width group
+(``dist.share_batch``), so the group's ranks see the same frames.
+``--gspmd-width`` (JAX's GSPMD width path, which JAX's tests hold equal to
+the explicit-halo step) runs the same explicit-halo step here, the port
+having no auto-partitioner, and says so in the log. Validation runs the
+full frames on every rank, the width ops off. ``--mesh`` must cover the
+number of processes; ``--device-cache`` over several processes is refused.
 
 The weights are a seeded random init (``--seed``). Frames come from the
 roidb files of the recipe's ``image_set`` under ``--data-root`` (subsampled
@@ -151,15 +171,17 @@ def parse_args(argv=None):
     jax_flags = p.add_argument_group(
         "JAX command-line parity",
         "accepted as tools/train.py takes them; the launcher's WORLD_SIZE "
-        "sets the ranks, so none of them changes what runs")
+        "sets the number of ranks")
     jax_flags.add_argument(
         "--mesh", default=None,
-        help="'data=N': checked against the number of processes (default: "
-             "the recipe's mesh_shape); a 'model' axis (width sharding, "
-             "ROADMAP #16 part 2) is refused")
+        help="'data=D[,model=M]' with D*M the number of processes (default: "
+             "the recipe's mesh_shape, else all on data); a 'model' axis "
+             "shards the range image's width over M ranks")
     jax_flags.add_argument(
         "--gspmd-width", action="store_true",
-        help="refused: width sharding is not ported (ROADMAP #16 part 2)")
+        help="JAX's GSPMD width path; the port has no auto-partitioner and "
+             "runs the explicit-halo width step, which JAX's tests hold "
+             "equal to it")
     jax_flags.add_argument(
         "--multihost", action="store_true",
         help="join the process group from the launcher's environment; the "
@@ -167,14 +189,15 @@ def parse_args(argv=None):
              "card), so at one process this changes nothing but the join: "
              "a group of one runs the plain step")
     p.add_argument("--device", default="cuda",
-                   help="cuda (the card cuda:LOCAL_RANK) or cpu")
+                   help="cuda (the card cuda:LOCAL_RANK), cuda:N (every "
+                        "rank on card N) or cpu")
     return p.parse_args(argv)
 
 
 def apply_overrides(cfg, args, world: int = 1):
     """The recipe with the command line's overrides, as ``tools/train.py``
     applies them, and its LR scaled to the global batch, ``batch_image``
-    frames on each of ``world`` ranks."""
+    frames on each of ``world`` data ranks."""
     if args.data_root:
         cfg = cfg.replace(data_root=args.data_root)
     if args.sampling_rate is not None:
@@ -197,32 +220,37 @@ def apply_overrides(cfg, args, world: int = 1):
     return cfg
 
 
-def synthetic_batch(cfg, epoch: int, i: int, rank: int = 0,
-                    world: int = 1):
-    """The host batch of step i of ``epoch`` on ``rank``: its rows of
-    ``tools/train.py``'s synthetic draw, a fresh global batch of
-    ``batch_image * world`` raytraced vehicle scenes per step."""
+def synthetic_batch(cfg, epoch: int, i: int, d: int = 0, n_data: int = 1,
+                    m: int = 0, n_width: int = 1):
+    """The host batch of step i of ``epoch`` on mesh place (d, m): its rows
+    (and columns) of ``tools/train.py``'s synthetic draw, a fresh global
+    batch of ``batch_image * n_data`` raytraced vehicle scenes per step."""
     from rangedet_tpu_torch.data.synthetic import make_batch
     from rangedet_tpu_torch.parallel.dist import local_rows
 
-    return local_rows(make_batch(cfg, cfg.batch_image * world,
+    return local_rows(make_batch(cfg, cfg.batch_image * n_data,
                                  seed=epoch * 10000 + i, style="vehicles"),
-                      rank, world)
+                      d, n_data, m, n_width)
 
 
-def epoch_source(cfg, args, logger, rank: int = 0, world: int = 1):
+def epoch_source(cfg, args, logger, ranks):
     """-> (steps per epoch, epoch_batches(epoch) -> iterator of host
-    batches), rank ``rank``'s of ``world``, from the files of
-    ``cfg.data_root`` or synthetic scenes."""
+    batches, shared), the batches of mesh place ``ranks`` from the files
+    of ``cfg.data_root`` or synthetic scenes. ``shared``: the batches are
+    data index d's whole frames, loaded on its first width rank alone
+    (the others' iterators give empty dicts in their place), for the loop
+    to share (``dist.share_batch``) and split by columns."""
+    d, n_data = ranks.data_index, ranks.n_data
+    m, n_width = ranks.width_index, ranks.n_width
     if args.synthetic or not cfg.data_root:
         spe = args.steps_per_epoch or STEPS_PER_EPOCH
         logger.info("training on synthetic data")
 
         def epoch_batches(epoch):
-            return (synthetic_batch(cfg, epoch, i, rank, world)
+            return (synthetic_batch(cfg, epoch, i, d, n_data, m, n_width)
                     for i in range(spe))
 
-        return spe, epoch_batches
+        return spe, epoch_batches, False
 
     from rangedet_tpu_torch.data.loader import BatchLoader
     from rangedet_tpu_torch.data.waymo import load_roidbs, record_to_inputs
@@ -235,9 +263,12 @@ def epoch_source(cfg, args, logger, rank: int = 0, world: int = 1):
         lambda rec: record_to_inputs(rec, cfg.pad_field, cfg.max_gt_boxes,
                                      augment=cfg.augment),
         batch_size=cfg.batch_image, num_workers=args.num_workers,
-        seed=LOADER_SEED, host_id=rank, num_hosts=world)
+        seed=LOADER_SEED, host_id=d, num_hosts=n_data)
+    spe = args.steps_per_epoch or len(loader)
+    if m:  # the width group's first rank loads; this one receives
+        return spe, lambda epoch: iter([{}] * len(loader)), True
     loader.skip_epoch()  # the shuffle tools/train.py's sample batch spends
-    return args.steps_per_epoch or len(loader), lambda epoch: loader.epoch()
+    return spe, lambda epoch: loader.epoch(), n_width > 1
 
 
 def augment_generator(seed: int, step: int, device) -> torch.Generator:
@@ -337,20 +368,28 @@ def hyperparams(opt):
                          else group["momentum"])
 
 
-def check_jax_flags(args, cfg, world: int) -> None:
-    """The flags kept for JAX's command line: ``--gspmd-width`` exits, and
-    the mesh (``--mesh``, else the recipe's ``mesh_shape``) must be
-    data-only over ``world`` processes."""
+def check_jax_flags(args, cfg, world: int):
+    """The mesh (``--mesh``, else the recipe's ``mesh_shape``) over
+    ``world`` processes, as ``tools/train.py:165-193`` takes it: -> (D, M).
+    A width mesh's shards must stay phase-aligned. Exits on a mesh that
+    does not fit."""
+    from rangedet_tpu_torch.models.dla_backbone import (
+        DECONV_HALO,
+        WIDTH_STRIDE,
+    )
     from rangedet_tpu_torch.parallel import dist as pdist
 
-    if args.gspmd_width:
-        raise SystemExit("--gspmd-width: width sharding is not ported "
-                         "(ROADMAP #16 part 2)")
     try:
-        pdist.check_mesh(pdist.parse_mesh(args.mesh) if args.mesh
-                         else cfg.mesh_shape, world)
+        n_data, n_width = pdist.check_mesh(
+            pdist.parse_mesh(args.mesh) if args.mesh else cfg.mesh_shape,
+            world)
+        if n_width > 1:
+            pdist.check_width_split(cfg.pad_field[1], n_width,
+                                    cfg.fpn_strides, WIDTH_STRIDE,
+                                    DECONV_HALO)
     except ValueError as e:
         raise SystemExit(str(e)) from None
+    return n_data, n_width
 
 
 def main(argv=None):
@@ -374,22 +413,28 @@ def main(argv=None):
                          f"with --device-cache; got {args.device_augment!r}")
     cfg = load_config(args.config, is_train=True)
     world = int(os.environ.get("WORLD_SIZE", 1))
-    check_jax_flags(args, cfg, world)
+    mesh = check_jax_flags(args, cfg, world)
     if args.device_cache and world > 1:
         raise SystemExit("--device-cache is single-process only "
                          "(tools/train.py:222)")
     ranks = pdist.join(args.device, always=args.multihost)
     try:
+        if ranks.group is not None:
+            ranks = pdist.with_mesh(ranks, *mesh)
         return _train(args, cfg, ranks)
     finally:
         pdist.leave(ranks)
 
 
 def _train(args, cfg, ranks):
-    """main's run, in the process group ``ranks`` joined."""
+    """main's run, in the process group ``ranks`` joined and placed on the
+    mesh."""
     from rangedet_tpu_torch.data.prefetch import threaded_prefetch
     from rangedet_tpu_torch.models import RangeDet
-    from rangedet_tpu_torch.models.layers import set_sync_group
+    from rangedet_tpu_torch.models.layers import (
+        set_sync_group,
+        set_width_group,
+    )
     from rangedet_tpu_torch.parallel import dist as pdist
     from rangedet_tpu_torch.train.checkpoint import (
         restore_checkpoint,
@@ -408,15 +453,30 @@ def _train(args, cfg, ranks):
     )
 
     device, rank, world = ranks.device, ranks.rank, ranks.world
+    n_data, n_width = ranks.n_data, ranks.n_width
     lead = rank == 0  # writes checkpoints, log.txt, TensorBoard, the trace
-    cfg = apply_overrides(cfg, args, world)
+    cfg = apply_overrides(cfg, args, n_data)
     run_dir = os.path.join(cfg.experiment_dir, cfg.name)
     logger = config_logger(cfg.experiment_dir, cfg.name, log_file=lead)
+    if n_width > 1:
+        if not cfg.sync_bn:
+            logger.info("width sharding forces sync-BN semantics")
+        cfg = cfg.replace(width_axis="model", sync_bn=True)
+        H, W = cfg.pad_field
+        logger.info(f"width sharding: mesh data={n_data},model={n_width}; "
+                    f"rank {rank} is (d, m) = ({ranks.data_index}, "
+                    f"{ranks.width_index}), columns "
+                    f"[{ranks.width_index * W // n_width}, "
+                    f"{(ranks.width_index + 1) * W // n_width}) of {H}x{W}")
+        if args.gspmd_width:
+            logger.info("--gspmd-width: no auto-partitioner in the port; "
+                        "running the explicit-halo width step, which JAX's "
+                        "tests hold equal to the GSPMD step")
     backend = (torch.distributed.get_backend(ranks.group)
                if ranks.group is not None else "no group")
     logger.info(f"data parallel: {world} rank(s), {backend}; rank {rank} "
                 f"on {device}, {cfg.batch_image} frames a step, global "
-                f"batch {cfg.batch_image * world}, BatchNorm "
+                f"batch {cfg.batch_image * n_data}, BatchNorm "
                 f"{'sync' if cfg.sync_bn else 'local'}")
     # tools/train.py: synthetic data (or no data root) wins over the cache
     cached = args.device_cache and not args.synthetic and bool(cfg.data_root)
@@ -431,9 +491,12 @@ def _train(args, cfg, ranks):
         spe, epoch_batches, to_batch = device_cache_source(cfg, args, logger,
                                                            device)
     else:
-        spe, epoch_batches = epoch_source(cfg, args, logger, rank, world)
+        spe, epoch_batches, shared = epoch_source(cfg, args, logger, ranks)
 
         def to_batch(batch, step):
+            if shared:  # the width group's frames, this rank's columns
+                batch = pdist.local_rows(pdist.share_batch(batch, ranks), 0,
+                                         1, ranks.width_index, n_width)
             return batch_to_device(batch, device)
 
     model = RangeDet(**cfg.model_kwargs())
@@ -448,7 +511,8 @@ def _train(args, cfg, ranks):
     if world > 1:
         pdist.replicate_state(state.model, ranks.group)
         set_sync_group(state.model, ranks.group if cfg.sync_bn else None)
-    step = build_train_step_fn(state, cfg, ranks.group)
+        set_width_group(state.model, ranks.width_group)
+    step = build_train_step_fn(state, cfg, ranks.group, ranks.width_group)
     logger.info(
         f"{args.config}: batch {cfg.batch_image}, lr {cfg.base_lr:.5f} "
         f"({cfg.lr_mode}), {cfg.optimizer}, clip {cfg.clip_mode}, remat "
@@ -458,7 +522,7 @@ def _train(args, cfg, ranks):
 
     tb = (ScalarWriter(os.path.join(run_dir, "tb"), logger)
           if args.tensorboard and lead else None)
-    speedometer = DetailSpeedometer(cfg.batch_image * world,
+    speedometer = DetailSpeedometer(cfg.batch_image * n_data,
                                     cfg.log_frequency, logger, tb=tb)
     profiler = ProfilerHook(os.path.join(run_dir, "traces"), PROFILE_START,
                             args.profile_steps if lead else 0)
@@ -560,6 +624,7 @@ def build_validation(model, cfg, synthetic: bool, data_root: str = "",
     eval rebuilds them there, as the train step does."""
     from rangedet_tpu_torch.eval.evaluator import evaluate
     from rangedet_tpu_torch.infer import make_eval_step
+    from rangedet_tpu_torch.models.layers import without_width
 
     cfg_t = cfg.replace(is_train=False, data_root=data_root or cfg.data_root)
     eval_step = make_eval_step(model, cfg_t)
@@ -619,9 +684,10 @@ def build_validation(model, cfg, synthetic: bool, data_root: str = "",
         was_training = model.training
         model.eval()
         try:
-            return evaluate(model, cfg_t, frames(),
-                            iou_thresh=cfg.eval_iou_thresh,
-                            mode=cfg.eval_iou_mode, eval_step=eval_step)
+            with without_width(model):
+                return evaluate(model, cfg_t, frames(),
+                                iou_thresh=cfg.eval_iou_thresh,
+                                mode=cfg.eval_iou_mode, eval_step=eval_step)
         finally:
             model.train(was_training)
 

@@ -26,7 +26,7 @@ from .schedule import clip_gradients, set_hyperparams, standardize_
 from .state import TrainState
 
 
-def make_train_step(state: TrainState, cfg, group=None
+def make_train_step(state: TrainState, cfg, group=None, width_group=None
                     ) -> Callable[[Dict[str, torch.Tensor]],
                                   Dict[str, torch.Tensor]]:
     """Returns step(batch) -> metrics {cls_loss_s{s}, reg_loss_s{s},
@@ -40,7 +40,14 @@ def make_train_step(state: TrainState, cfg, group=None
     group, and between the backward and the update the gradients, metrics
     and running statistics are reduced over ``group``
     (``parallel/dp_step.py``); the metrics are then the global batch's and
-    every rank updates ``state`` identically."""
+    every rank updates ``state`` identically.
+
+    With a ``width_group`` too, batch holds this rank's columns of its
+    frames (``parallel/dist.py:local_rows``), the model exchanges halos
+    over it (``layers.set_width_group``) and the targets sum their per-box
+    point counts over it; ``group`` is then the whole world, over which the
+    BatchNorms, the loss normalizers and the reduction sum
+    (``rangedet_tpu/parallel/shard_map_step.py:31-99``)."""
     model, opt = state.model, state.optimizer
     sync, reduce = None, None
     if group is not None:
@@ -51,7 +58,7 @@ def make_train_step(state: TrainState, cfg, group=None
     def step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         model.train()
         with record_function("targets"):
-            targets = build_train_targets(batch, cfg)
+            targets = build_train_targets(batch, cfg, width_group)
         with record_function("forward"):
             cls_logits, reg_deltas = model(batch["input_data"],
                                            batch["coord"])
@@ -71,18 +78,45 @@ def make_train_step(state: TrainState, cfg, group=None
     return step
 
 
-def build_train_step_fn(state: TrainState, cfg, group=None):
+def build_train_step_fn(state: TrainState, cfg, group=None,
+                        width_group=None):
     """The train step for the ranks of ``group``, as
-    ``rangedet_tpu/train/train_step.py:build_train_step_fn`` picks it for
-    data-only meshes: the plain step for one rank (no group, or a group of
-    one), else the data-parallel step (``make_train_step`` with the
-    group), whose BatchNorms must sum over ``group`` exactly when
-    ``cfg.sync_bn`` (``layers.set_sync_group``; the train CLI sets it).
+    ``rangedet_tpu/train/train_step.py:build_train_step_fn`` picks it:
+
+    * a width group of two or more ranks (a "model" mesh axis): the width
+      step, ``make_train_step`` with both groups; it needs
+      ``cfg.width_axis``, sync BatchNorm (``cfg.sync_bn``) over the whole
+      world ``group`` and the model's width layers on ``width_group``
+      (``layers.set_sync_group`` / ``set_width_group``; the train CLI sets
+      them);
+    * else the plain step for one rank (no group, or a group of one), or
+      the data-parallel step (``make_train_step`` with the group), whose
+      BatchNorms must sum over ``group`` exactly when ``cfg.sync_bn``.
+
     Returns the step tagged with ``.bn_semantics``, "sync" or "local"."""
     import torch.distributed as tdist
 
-    from ..models.layers import sync_groups
+    from ..models.layers import sync_groups, width_groups
 
+    if width_group is not None and tdist.get_world_size(width_group) > 1:
+        if not (cfg.width_axis and cfg.sync_bn):
+            raise ValueError(
+                "width-sharded step: it needs cfg.width_axis set and sync "
+                "BatchNorm (cfg.sync_bn; per-rank statistics over a part "
+                "of a frame are not the reference's localbn)")
+        if group is None or sync_groups(state.model) != {group}:
+            raise ValueError(
+                "width-sharded step: call layers.set_sync_group(model, "
+                "the world group), the group the step reduces over, so "
+                "every BatchNorm sums over the whole world (tools/train.py "
+                "does this)")
+        if width_groups(state.model) != {width_group}:
+            raise ValueError(
+                "width-sharded step: call layers.set_width_group(model, "
+                "width_group) (tools/train.py does this)")
+        fn = make_train_step(state, cfg, group, width_group)
+        fn.bn_semantics = "sync"
+        return fn
     if group is not None and tdist.get_world_size(group) == 1:
         group = None
     want = group if cfg.sync_bn else None

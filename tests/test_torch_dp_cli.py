@@ -2,14 +2,19 @@
 rank a process with the environment a launcher gives it): on synthetic
 data at --batch 1 a rank, step 1's losses are those of one process at
 --batch 2, only rank 0 writes the checkpoint and log.txt, --resume
-restores every rank; --mesh model=2, --gspmd-width and --device-cache over
-two processes are refused."""
+restores every rank; meshes that do not cover two processes (or name
+another axis) and --device-cache over two processes are refused. Width
+sharding from files, --mesh model=2 --gspmd-width under the launcher
+(``chip_smoke.launch_cli_ranks``): both ranks train on the frames the
+first one loads, end bit-equal, and validate on whole frames."""
 import os
 
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
+from rangedet_tpu_torch.data.synthetic import write_waymo_files
 from rangedet_tpu_torch.tools import train as train_cli
 from test_torch_train import LOSS_TOL
 from torch_dp import cli_ranks, tiny_recipe
@@ -74,9 +79,9 @@ def test_resume_restores_every_rank(synthetic):
 
 
 @pytest.mark.parametrize("flags,message", [
-    (["--mesh", "model=2"], "ROADMAP #16 part 2"),
-    (["--mesh", "data=2,model=2"], "ROADMAP #16 part 2"),
-    (["--gspmd-width"], "ROADMAP #16 part 2"),
+    (["--mesh", "model=4"], "world size"),
+    (["--mesh", "data=2,model=2"], "world size"),
+    (["--gspmd-width", "--mesh", "data=1,pipe=2"], "axes"),
     (["--mesh", "data=4"], "world size"),
     (["--device-cache", "--data-root", "x"], "single-process"),
 ])
@@ -85,3 +90,38 @@ def test_refused_over_two_processes(recipe, monkeypatch, flags, message):
     with pytest.raises(SystemExit, match=message):
         train_cli.main(["--config", str(recipe), "--device", "cpu"]
                        + flags)
+
+
+@pytest.fixture(scope="module")
+def width_run(recipe, tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("width_cli")
+    data = str(tmp / "data")
+    write_waymo_files(data, 4, H=16, W=128, image_set="training")
+    write_waymo_files(data, 1, H=16, W=128, image_set="validation")
+    return chip_smoke.launch_cli_ranks(str(tmp), "width", 2, [
+        "--config", str(recipe), "--data-root", data, "--sampling-rate", "1",
+        "--batch", "1", "--steps-per-epoch", "2", "--epochs", "1",
+        "--num-workers", "1", "--device", "cpu", "--experiment-dir",
+        str(tmp / "exp"), "--mesh", "model=2", "--gspmd-width",
+        "--eval-every", "1", "--eval-frames", "1"])
+
+
+def test_width_ranks_train_on_the_first_ranks_frames(width_run):
+    (a, b), log = width_run
+    assert len(a["shared"]) == 2 and a["shared"] == b["shared"]
+    frames = [[u for u in o["mapped"] if "/training/" in u] for o in (a, b)]
+    assert frames[0] and not frames[1]  # rank 1 receives, loads none
+    assert [h["step"] for h in a["hist"]] == [0, 1]
+    for ha, hb in zip(a["hist"], b["hist"]):  # the losses are the world's
+        assert {k: v for k, v in ha.items() if "loss" in k} == {
+            k: v for k, v in hb.items() if "loss" in k}
+    assert all(torch.equal(v, b["state"][k]) for k, v in a["state"].items())
+    assert a["saved"] == [0] and b["saved"] == []
+    assert "width sharding: mesh data=1,model=2" in log
+    assert "--gspmd-width: no auto-partitioner" in log
+
+
+def test_width_ranks_validate_whole_frames(width_run):
+    (a, b), _ = width_run
+    assert a["val"] == b["val"] and sorted(a["val"]) == [0]
+    assert all(np.isfinite(x) for x in a["val"][0]["veh"].values())

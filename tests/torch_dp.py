@@ -143,41 +143,10 @@ def tiny_recipe(tmp):
     return path
 
 
-# a rank of cli_ranks: runs a CLI's main, recording the frames it maps and the
-# checkpoints it saves, and saves what it returned
-RANK = """
-import sys
-import torch
-torch.set_num_threads(1)
-from rangedet_tpu_torch.data import waymo
-from rangedet_tpu_torch.tools import test, train
-from rangedet_tpu_torch.train import checkpoint
-
-out, cli, argv = sys.argv[1], sys.argv[2], sys.argv[3:]
-mapped, saved = [], []
-real_map, real_save = waymo.record_to_inputs, checkpoint.save_checkpoint
-
-def mapping(rec, *a, **k):
-    mapped.append(rec["pc_url"])
-    return real_map(rec, *a, **k)
-
-def saving(state, cfg, epoch):
-    saved.append(epoch)
-    return real_save(state, cfg, epoch)
-
-waymo.record_to_inputs, checkpoint.save_checkpoint = mapping, saving
-if cli == "train":
-    hist, state, _ = train.main(argv)
-    torch.save(dict(hist=hist, state=state.model.state_dict(),
-                    step=state.step, mapped=mapped, saved=saved), out)
-else:
-    torch.save(dict(path=test.main(argv)), out)
-"""
-
-
 def cli_ranks(tmp, name, cli, argv, world=2):
-    """Run ``cli``'s main over ``world`` ranks, as a launcher starts them.
-    -> each rank's saved output and its console output."""
+    """Run ``cli``'s main over ``world`` ranks, as a launcher starts them
+    (each ``chip_smoke.cli_rank_main``). -> each rank's saved output and
+    its console output."""
     port = chip_smoke.free_port()
     procs = []
     for r in range(world):
@@ -186,9 +155,9 @@ def cli_ranks(tmp, name, cli, argv, world=2):
                    MASTER_PORT=str(port), OMP_NUM_THREADS="1",
                    PYTHONPATH=REPO)
         procs.append(subprocess.Popen(
-            [sys.executable, "-c", RANK, str(tmp / f"{name}{r}.pt"), cli]
-            + argv, env=env, cwd=REPO, stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True))
+            [sys.executable, chip_smoke.__file__, "--cli-rank",
+             str(tmp / name), cli] + argv, env=env, cwd=REPO,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     outs = []
     try:
         for p in procs:

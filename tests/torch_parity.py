@@ -26,7 +26,7 @@ ORDER_GAP = 1e-6
 # sharding, and the serial-WNMS prefilter the blocked form never reads)
 SKIPPED_FIELDS = {
     "layout", "use_pallas_conv", "use_pallas_iou",
-    "topk_method", "iou_chunk", "width_axis", "bn_sync_axis",
+    "topk_method", "iou_chunk", "bn_sync_axis",
     "wnms_prefilter_topm",
 }
 DTYPES = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
