@@ -197,6 +197,32 @@ Phases, one line of output each (or a table), failing on the first error:
    ranks of a data group on the same frames, all ranks bit-equal; a mesh
    whose shards are not phase-aligned refused.
 
+14. the user's chain from raw frames on ``rangedet_veh_wo_aug_4_18e`` at
+   64x2650: (a) 2 training segments and 1 validation segment of 4
+   duck-typed Waymo frames (``waymo_frames``: vehicles placed in the
+   vehicle frame, raytraced in the sensor frame of a lidar with a yaw of
+   BUILD_YAW and a roof mount, in Waymo's column convention) through
+   ``data/waymo_builder.py`` on the card and on the CPU: range image,
+   inclination, azimuth and roidb equal, pc_vehicle_frame within
+   BUILD_PC_ULPS, every rendered box pixel back within BOX_TOL of its box
+   in the vehicle frame, the builder's ms a frame with the npz write
+   apart; then ``tools.train --data-root <built> --epochs 1`` (4 steps of
+   B=2, launches 4 x [6]'s per step, the ``params:`` line), ``--epochs 2
+   --resume --eval-every 1``, ``tools.test`` on the 4 validation frames,
+   ``create_prediction_bin_3d`` (every detection exported) and
+   ``evaluate_pred`` (finite, 4 frames); (b) 4 synthesized KITTI scans of
+   120,000 points through ``tools.create_range_image_in_kitti`` on the
+   card and the CPU: the images equal but at pixels of points within
+   EDGE_BAND of a row or column boundary (counted), the ties at the
+   nearest range counted, a farther point planted last on an occupied
+   pixel losing it, points-in-box counts equal but for points within
+   FACE_BAND of a face, the range image's ms a scan; one train step
+   ([6]'s launches) and one eval step on two KITTI records padded to the
+   pad field; (c) the train CLI's device prefetch: epoch 0's metrics
+   bit-equal to the same steps on the same batches after a synchronous
+   copy, and under torch.profiler the batch copies on a stream other
+   than the step's, overlapping its kernels; data_ms and step_ms.
+
 With ``--rank-worker SPEC`` the script is one rank of [12](c) or [13](b)
 (``rank_main``), started by ``start_ranks``; with ``--cli-rank OUT CLI
 ARGS`` one rank of ``tools.train`` or ``tools.test`` under a launcher
@@ -4329,6 +4355,9 @@ def phase13_cli(torch, m, cfg, dev, fail):
           f"--nproc_per_node {world} (gloo, one card): an epoch of 2 steps "
           f"with --gspmd-width {t1 - t0:.1f} s, --resume --eval-every 1 "
           f"{t2 - t1:.1f} s")
+    # the epoch's 2 batches and the PREFETCH_DEPTH - 1 the loop puts (and
+    # so shares) ahead of its last step
+    n_shared = 2 + m["train_cli"].PREFETCH_DEPTH - 1
     for name, runs, log in (("first", first, log1), ("resumed", second,
                                                        log2)):
         for o in runs:
@@ -4339,10 +4368,12 @@ def phase13_cli(torch, m, cfg, dev, fail):
                   f"steps {[h['step'] for h in o['hist']]}, total_loss "
                   + " ".join(f"{h['total_loss']:.6f}" for h in o["hist"])
                   + f"; training frames mapped {len(frames)}, batches "
-                  f"received {len(o['shared'])}, the same as rank "
+                  f"received {len(o['shared'])} (want {n_shared}), the same "
+                  f"as rank "
                   f"{peer['rank']}'s: {o['shared'] == peer['shared']}; "
                   f"checkpoints saved {o['saved']}")
-            if o["shared"] != peer["shared"] or len(o["shared"]) != 2:
+            if o["shared"] != peer["shared"] or \
+                    len(o["shared"]) != n_shared:
                 fail(f"(c) {name}: rank {o['rank']} trained on other frames "
                      f"than rank {peer['rank']}")
             if mm and frames:
@@ -4455,6 +4486,637 @@ def cli_rank_main(out, cli, argv):
                            state.model.state_dict().items()},
                     mapped=mapped, saved=saved, shared=shared),
                f"{out}{rank}.pt")
+
+
+# ----------------------------------------------------------- phase 14
+BUILD_SEGMENTS = 2  # training segments of [14](a); one validation segment
+BUILD_FRAMES = 4  # frames a segment
+BUILD_BOXES = 8  # vehicles a frame
+BUILD_YAW = 0.05  # rad: the lidar extrinsic's yaw, a few degrees
+BUILD_MOUNT = (1.4, 0.0, 2.2)  # m: the roof mount, forward and up
+# pc_vehicle_frame of the card's build against the CPU's, in f32 ulps of
+# the point's largest coordinate (cos / sin / the 3x3 product differ)
+BUILD_PC_ULPS = 4
+BOX_TOL = 0.01  # m: a rendered pixel's point from its box, vehicle frame
+KITTI_SCANS = 4
+KITTI_POINTS = 120_000
+KITTI_BOXES = 3  # cars a scan, KITTI_BOX_POINTS returns inside each
+KITTI_BOX_POINTS = 400
+KITTI_W = 2048
+# rad: a point this near a row or a column boundary (of elevation error,
+# of azimuth) may fall on the other side on the card (atan2's ulps)
+EDGE_BAND = 1e-4
+FACE_BAND = 1e-5  # m: a point this near a box face may flip its count
+
+
+def lidar_extrinsic(theta, mount):
+    """4x4 f32 lidar-to-vehicle transform: a yaw ``theta`` about z and the
+    translation ``mount``."""
+    import numpy as np
+
+    c, s = math.cos(theta), math.sin(theta)
+    return np.array([[c, -s, 0, mount[0]], [s, c, 0, mount[1]],
+                     [0, 0, 1, mount[2]], [0, 0, 0, 1]], np.float32)
+
+
+def waymo_frames(torch, seed, n, H, W, theta, mount, seg, dev,
+                 num_boxes=BUILD_BOXES, boxes=None):
+    """``n`` duck-typed Waymo Frames of segment ``seg`` (SimpleNamespace
+    with the proto's attribute surface, as tests/test_waymo_pipeline.py
+    builds them) from a lidar of extrinsic yaw ``theta`` mounted at
+    ``mount``: ``num_boxes`` vehicles placed in the vehicle frame (or the
+    (K, 7) vehicle-frame csa ``boxes``), moved into the sensor frame and
+    raytraced there on ``dev`` (``synthetic_device.raytrace_boxes``) in
+    Waymo's column convention (range_image_utils.compute_range_image_polar:
+    column i looks along the vehicle-frame azimuth pi - (i + 1/2) 2 pi / W,
+    so along that less ``theta`` in the sensor frame), before a background
+    wall, 5% of the pixels without a return. -> (frames,
+    parse_range_images, owners: per frame the (H, W) box each pixel's
+    return hit, -1 for none, and the vehicle-frame csa (K, 7))."""
+    from types import SimpleNamespace as NS
+
+    import numpy as np
+
+    from rangedet_tpu_torch.data.synthetic_device import (
+        VEHICLE_DIMS,
+        inclinations,
+        raytrace_boxes,
+    )
+
+    rng = np.random.RandomState(seed)
+    ext = lidar_extrinsic(theta, mount)
+    R, t = ext[:3, :3].astype(np.float64), ext[:3, 3].astype(np.float64)
+    incl = inclinations(H)  # top row first; the proto stores bottom-up
+    az = math.pi - (np.arange(W) + 0.5) * (2 * math.pi / W) - theta
+    incl_t = torch.from_numpy(incl).to(dev)
+    az_t = torch.from_numpy(az.astype(np.float32)).to(dev)
+    calib = NS(name=1, beam_inclinations=incl[::-1].tolist(),
+               extrinsic=NS(transform=ext.ravel().tolist()))
+    frames, images, owners = [], [], []
+    for i in range(n):
+        csa = boxes
+        if csa is None:
+            placed = []
+            while len(placed) < num_boxes:
+                r, a = rng.uniform(7.0, 40.0), rng.uniform(-math.pi, math.pi)
+                cx, cy = t[0] + r * math.cos(a), t[1] + r * math.sin(a)
+                if any(math.hypot(cx - p[0], cy - p[1]) < 7.0
+                       for p in placed):
+                    continue
+                lwh = [rng.uniform(*d) for d in VEHICLE_DIMS]
+                placed.append([cx, cy, lwh[2] / 2, *lwh,
+                               rng.uniform(-math.pi / 2, math.pi / 2)])
+            csa = np.array(placed)
+        csa = np.asarray(csa, np.float64).reshape(-1, 7)
+        sensor = csa.copy()
+        sensor[:, :3] = (csa[:, :3] - t) @ R  # R^T (c - t), row-wise
+        sensor[:, 6] = csa[:, 6] - theta
+        hit, owner = raytrace_boxes(
+            torch.from_numpy(sensor.astype(np.float32)).to(dev), incl_t,
+            az_t)
+        hit, owner = hit.cpu().numpy(), owner.cpu().numpy()
+        bg = (rng.uniform(25.0, 75.0, (H, 1))
+              + rng.uniform(-2.0, 2.0, (H, W))).astype(np.float32)
+        obj = np.isfinite(hit) & (hit < bg)
+        hole = rng.uniform(size=(H, W)) < 0.05
+        rng_img = np.where(hole, -1.0, np.where(obj, hit, bg))
+        owner = np.where(obj & ~hole, owner, -1)
+        ri = np.stack([rng_img, rng.uniform(0, 1, (H, W)),
+                       rng.uniform(0, 0.3, (H, W)), -np.ones((H, W))],
+                      -1).astype(np.float32)
+        counts = np.bincount(owner[owner >= 0], minlength=len(csa))
+        labels = [NS(box=NS(center_x=b[0], center_y=b[1], center_z=b[2],
+                            length=b[3], width=b[4], height=b[5],
+                            heading=b[6]),
+                     type=1, num_lidar_points_in_box=int(counts[k]),
+                     metadata=NS(speed_x=float(rng.uniform(-5, 5)),
+                                 speed_y=float(rng.uniform(-5, 5)),
+                                 accel_x=0.0, accel_y=0.0))
+                  for k, b in enumerate(csa.astype(np.float32).tolist())]
+        frames.append(NS(context=NS(name=seg, laser_calibrations=[calib]),
+                         laser_labels=labels, timestamp_micros=1000 * i))
+        images.append(ri)
+        owners.append((owner, csa.astype(np.float32)))
+
+    def parse(frame):
+        ri = images[frames.index(frame)]
+        return {1: [NS(data=ri.ravel(), shape=NS(dims=list(ri.shape)))]}
+
+    return frames, parse, owners
+
+
+def box_excess(pc, owner, csa):
+    """The largest distance (m) from a pixel's point pc (H, W, 3) to the box
+    ``owner`` says its return hit (csa (K, 7), the same frame), 0 inside,
+    and the number of such pixels."""
+    import numpy as np
+
+    sel = owner >= 0
+    p = pc[sel].astype(np.float64)
+    b = csa[owner[sel]].astype(np.float64)
+    d = p - b[:, :3]
+    c, s = np.cos(b[:, 6]), np.sin(b[:, 6])
+    local = np.stack([d[:, 0] * c + d[:, 1] * s,
+                      -d[:, 0] * s + d[:, 1] * c, d[:, 2]], 1)
+    out = np.maximum(np.abs(local) - b[:, 3:6] / 2, 0.0)
+    return float(np.sqrt((out ** 2).sum(1)).max(initial=0.0)), int(sel.sum())
+
+
+KITTI_CALIB = ("P2: 7.2e2 0 6e2 0 0 7.2e2 1.8e2 0 0 0 1 0\n"
+               "R0_rect: 1 0 0 0 1 0 0 0 1\n"
+               "Tr_velo_to_cam: 0 -1 0 0 0 0 -1 0 1 0 0 0\n")
+
+
+def kitti_root(root, seed, n_scans, n_points, width=KITTI_W):
+    """A KITTI object root (velodyne/, calib/, label_2/) of ``n_scans``
+    synthesized scans of ``n_points`` returns each: returns on the
+    HDL-64E's lasers at ranges of 3-70 m, and KITTI_BOXES cars a scan (a
+    label row each, KITTI_BOX_POINTS returns inside each); the calib maps
+    lidar axes to camera axes (R0 = I). -> the scans (N, 4) and their
+    lidar-frame csa (KITTI_BOXES, 7)."""
+    import numpy as np
+
+    from rangedet_tpu_torch.data.kitti import KITTI_INCLINATION
+
+    rng = np.random.RandomState(seed)
+    for d in ("velodyne", "calib", "label_2"):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+    scans, boxes = [], []
+    for i in range(n_scans):
+        n_bg = n_points - KITTI_BOXES * KITTI_BOX_POINTS
+        azi = rng.uniform(-np.pi, np.pi, n_bg)
+        incl = rng.choice(KITTI_INCLINATION, n_bg) + rng.normal(0, 1e-3, n_bg)
+        r = rng.uniform(3, 70, n_bg)
+        bg = np.stack([r * np.cos(incl) * np.cos(azi),
+                       r * np.cos(incl) * np.sin(azi),
+                       r * np.sin(incl) + 0.16, rng.uniform(0, 1, n_bg)], 1)
+        csa, rows, inside = [], [], []
+        for k in range(KITTI_BOXES):
+            a = (k - 1) * 0.8 + rng.uniform(-0.2, 0.2)
+            rr = rng.uniform(8, 30)
+            l, w, h = rng.uniform(3.6, 4.8), rng.uniform(1.6, 1.9), \
+                rng.uniform(1.4, 1.7)
+            b = [rr * np.cos(a), rr * np.sin(a), -1.73 + h / 2, l, w, h,
+                 rng.uniform(-np.pi / 2, np.pi / 2)]
+            csa.append(b)
+            u = rng.uniform(-0.5, 0.5, (KITTI_BOX_POINTS, 3)) * [l, w, h]
+            c, s = np.cos(b[6]), np.sin(b[6])
+            inside.append(np.stack([b[0] + u[:, 0] * c - u[:, 1] * s,
+                                    b[1] + u[:, 0] * s + u[:, 1] * c,
+                                    b[2] + u[:, 2],
+                                    rng.uniform(0, 1, KITTI_BOX_POINTS)], 1))
+            # camera rect frame, bottom centre: x = -y, y = -z, z = x
+            rows.append(f"Car 0 0 0 0 0 50 50 {h} {w} {l} {-b[1]} "
+                        f"{-(b[2] - h / 2)} {b[0]} {-b[6] - np.pi / 2}")
+        rows.append("DontCare -1 -1 -10 0 0 10 10 -1 -1 -1 -1000 -1000 "
+                    "-1000 -10")
+        scan = np.concatenate([bg] + inside).astype(np.float32)
+        scan = scan[rng.permutation(len(scan))]
+        name = f"{i:06d}"
+        scan.tofile(os.path.join(root, "velodyne", f"{name}.bin"))
+        with open(os.path.join(root, "calib", f"{name}.txt"), "w") as f:
+            f.write(KITTI_CALIB)
+        with open(os.path.join(root, "label_2", f"{name}.txt"), "w") as f:
+            f.write("\n".join(rows) + "\n")
+        scans.append(scan)
+        boxes.append(np.array(csa, np.float32))
+    return scans, boxes
+
+
+def edge_points(torch, pc, width, band=EDGE_BAND):
+    """(N,) bool: the points of ``pc`` (N, 3+) whose row or column decision
+    lies within ``band`` of a boundary (CPU float32, as the builder)."""
+    from rangedet_tpu_torch.data import kitti
+
+    p = torch.from_numpy(pc)
+    _, _, col_f = kitti.pixel_indices(p, width)
+    to_col = (col_f - torch.floor(col_f) - 0.5).abs() * (2 * math.pi / width)
+    elev = torch.atan2(torch.from_numpy(kitti.KITTI_LASER_HEIGHT)[None, :]
+                       - p[:, 2:3], kitti._norm(p[:, :2])[:, None])
+    err = torch.abs(torch.from_numpy(kitti.KITTI_INCLINATION)[None, :]
+                    - elev).sort(dim=1).values
+    return ((to_col < band) | (err[:, 1] - err[:, 0] < band)).numpy()
+
+
+def face_points(pc, csa, band=FACE_BAND):
+    """(M, N) bool: point n lies within ``band`` m of a face plane of box m
+    (float64), where its count may flip."""
+    import numpy as np
+
+    d = pc[None, :, :3].astype(np.float64) - csa[:, None, :3]
+    c, s = np.cos(csa[:, 6:7]), np.sin(csa[:, 6:7])
+    local = np.stack([d[..., 0] * c + d[..., 1] * s,
+                      -d[..., 0] * s + d[..., 1] * c, d[..., 2]], -1)
+    gap = np.abs(np.abs(local) - csa[:, None, 3:6] / 2)
+    return (gap < band).any(-1)
+
+
+def overlap_check(trace, sizes):
+    """The torch.profiler trace of a train CLI run: -> (the step's stream
+    (the one with the most kernel time), the batch copies (host-to-device
+    copies of one of the byte ``sizes`` of the batches' tensors of 1 MB
+    or more) on each stream, the copies that overlap a kernel on the
+    step's stream)."""
+    kernels, copies = {}, []
+    for e in trace:
+        if e.get("cat") == "kernel":
+            s = e.get("args", {}).get("stream")
+            kernels.setdefault(s, []).append((e["ts"], e["ts"] + e["dur"]))
+        elif (e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", "")
+              and e.get("args", {}).get("bytes") in sizes):
+            copies.append((e["args"].get("stream"), e["ts"],
+                           e["ts"] + e["dur"]))
+    if not kernels:
+        return None, {}, 0
+    step = max(kernels, key=lambda s: sum(b - a for a, b in kernels[s]))
+    spans = sorted(kernels[step])
+    by_stream = {}
+    n_over = 0
+    for s, a, b in copies:
+        by_stream[s] = by_stream.get(s, 0) + 1
+        if any(ka < b and a < kb for ka, kb in spans):
+            n_over += 1
+    return step, by_stream, n_over
+
+
+def phase14(torch, m, cfg, dev, per_step):
+    """The user's chain from raw frames on ``RECIPE``: (a) Waymo frames
+    through the port's builder on the card and on the CPU, then train,
+    resume, test, export and AP on the built files; (b) KITTI scans
+    through the port's KITTI CLI on the card and the CPU, one train step
+    and one eval step on the records; (c) the loader's device prefetch:
+    no race, and its copies overlap the steps."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from rangedet_tpu_torch.data import kitti
+    from rangedet_tpu_torch.data import waymo_builder as wb
+    from rangedet_tpu_torch.tools import create_range_image_in_kitti as kcli
+
+    train_cli = m["train_cli"]
+    cpu = torch.device("cpu")
+
+    def fail(msg):
+        raise SystemExit(f"[14] {msg}")
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    H, W = cfg.feat_size
+    # an eval forward: the conv kernel's launches and the taps kernel's
+    n_fwd, n_meta = conv_launches(cfg)[0], meta_units(cfg)
+    per_frame = dict.fromkeys(per_step, 0)
+    per_frame.update(fwd=n_fwd, meta_kernel_taps=n_meta)
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        # ------------------------------------------------ (a) the builder
+        npz_s = [0.0]
+        geometry_ms = {"card": [], "cpu": []}
+        building = ["card"]
+        real_write, real_geometry = wb.write_npz, wb.frame_geometry
+
+        def timed_write(path, **arrays):
+            t0 = time.perf_counter()
+            real_write(path, **arrays)
+            npz_s[0] += time.perf_counter() - t0
+
+        def timed_geometry(ri, calib, device):
+            t0 = time.perf_counter()
+            out = real_geometry(ri, calib, device)  # numpy: synchronized
+            geometry_ms[building[0]].append(1e3 * (time.perf_counter() - t0))
+            return out
+
+        spent = {"card": [0.0, 0.0], "cpu": [0.0, 0.0]}  # build s, npz s
+        worst_ulps = worst_box = 0.0
+        n_px = n_frames = 0
+        segs = [(f"seg_train_{s}", "training", SEED + 140 + s)
+                for s in range(BUILD_SEGMENTS)] + [
+            ("seg_val", "validation", SEED + 149)]
+        for seg, split, seed in segs:
+            frames, parse, owners = waymo_frames(
+                torch, seed, BUILD_FRAMES, H, W, BUILD_YAW, BUILD_MOUNT, seg,
+                dev)
+            built = {}
+            for where, d in (("card", dev), ("cpu", cpu)):
+                npz_s[0], building[0] = 0.0, where
+                sync()
+                t0 = time.perf_counter()
+                with mock.patch.object(wb, "write_npz", timed_write), \
+                        mock.patch.object(wb, "frame_geometry",
+                                          timed_geometry):
+                    built[where] = wb.build_segment_from_frames(
+                        iter(frames), parse, os.path.join(tmp, where), split,
+                        seg, device=d)
+                spent[where][0] += time.perf_counter() - t0
+                spent[where][1] += npz_s[0]
+            for i, (a, b) in enumerate(zip(built["card"], built["cpu"])):
+                na, nb = np.load(a["pc_url"]), np.load(b["pc_url"])
+                for k in ("range_image", "inclination", "azimuth"):
+                    if not np.array_equal(na[k], nb[k]):
+                        fail(f"{seg} frame {i}: {k} differs, card vs CPU")
+                for k in a:
+                    same = (a[k] == b[k] if k in ("pc_url", "rec_id",
+                                                  "meta_info")
+                            else np.array_equal(a[k], b[k]))
+                    if k != "pc_url" and not same:
+                        fail(f"{seg} frame {i}: roidb {k} differs")
+                pa, pb = na["pc_vehicle_frame"], nb["pc_vehicle_frame"]
+                scale = np.spacing(np.abs(pb).max(-1, keepdims=True))
+                worst_ulps = max(worst_ulps,
+                                 float((np.abs(pa - pb) / scale).max()))
+                owner, csa = owners[i]
+                if not np.array_equal(a["gt_bbox_csa"], csa):
+                    fail(f"{seg} frame {i}: roidb boxes are not the labels")
+                ex, n = box_excess(pa, owner, csa)
+                worst_box, n_px = max(worst_box, ex), n_px + n
+                n_frames += 1
+        print(f"[14] (a) the Waymo builder on {n_frames} raytraced frames of "
+              f"{H}x{W} ({BUILD_SEGMENTS} training segments and one "
+              f"validation segment of {BUILD_FRAMES}; lidar yaw {BUILD_YAW} "
+              f"rad, mount {BUILD_MOUNT} m): range image, inclination, "
+              f"azimuth and roidb card = CPU; pc_vehicle_frame card vs CPU "
+              f"at most {worst_ulps:.3g} ulps (gate {BUILD_PC_ULPS}); "
+              f"{n_px} rendered box pixels back in the vehicle frame at "
+              f"most {worst_box * 100:.4f} cm from their box (gate "
+              f"{BOX_TOL * 100:g} cm)")
+        if worst_ulps > BUILD_PC_ULPS:
+            fail(f"pc_vehicle_frame {worst_ulps} ulps off the CPU's")
+        if not n_px or worst_box > BOX_TOL:
+            fail(f"a rendered pixel lands {worst_box} m from its box")
+        ms = {w: [1e3 * (s - z) / n_frames, 1e3 * z / n_frames]
+              for w, (s, z) in spent.items()}
+        geo = {w: statistics.median(v) for w, v in geometry_ms.items()}
+        print(f"[14] (a) builder ms a {H}x{W} frame (mean of {n_frames}): "
+              f"card {ms['card'][0]:.2f} + npz write {ms['card'][1]:.2f}; "
+              f"CPU {ms['cpu'][0]:.2f} + npz write {ms['cpu'][1]:.2f}; of "
+              f"which the geometry (frame_geometry, median): card "
+              f"{geo['card']:.2f} (first frame {geometry_ms['card'][0]:.2f}),"
+              f" CPU {geo['cpu']:.2f}")
+
+        # ------------------------------------------ (a) the chain, (c)
+        data, exp = os.path.join(tmp, "card"), os.path.join(tmp, "exp")
+        argv = ["--config", RECIPE, "--data-root", data, "--sampling-rate",
+                "1", "--batch", "2", "--num-workers", "2",
+                "--experiment-dir", exp, "--device", dev.type]
+        n_steps = BUILD_SEGMENTS * BUILD_FRAMES // 2
+        puts = []
+        real_put = m["train_step"].batch_to_device
+
+        def recorded_put(batch, device):
+            puts.append({k: np.array(v, copy=True) for k, v in
+                         batch.items()})
+            return real_put(batch, device)
+
+        def run(*extra, recording=False):
+            out = io.StringIO()
+            sync()
+            reset_counts(m)
+            with contextlib.ExitStack() as st:
+                st.enter_context(contextlib.redirect_stdout(out))
+                if recording:
+                    st.enter_context(mock.patch.object(
+                        m["train_step"], "batch_to_device", recorded_put))
+                hist, state, val = train_cli.main(argv + list(extra))
+            sync()
+            return hist, state, val, out.getvalue(), read_counts(m)
+
+        acts = [ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+        with profile(activities=acts) as prof:
+            hist0, _, _, text0, got0 = run("--epochs", "1", recording=True)
+        trace_path = os.path.join(tmp, "prefetch.json")
+        prof.export_chrome_trace(trace_path)
+        with open(trace_path) as f:
+            trace = json.load(f)["traceEvents"]
+        sizes = {v.nbytes for b in puts for v in b.values()
+                 if v.nbytes >= 2 ** 20}
+        step_stream, copies, n_over = overlap_check(trace, sizes)
+        del trace, prof
+        want = {k: n_steps * v for k, v in per_step.items()}
+        if len(hist0) != n_steps or got0 != want:
+            fail(f"tools.train --epochs 1: {len(hist0)} steps, launches "
+                 f"{got0}, expected {n_steps} steps and {want}")
+        hist1, state, val, text1, got1 = run(
+            "--epochs", "2", "--resume", "--eval-every", "1",
+            "--eval-frames", str(BUILD_FRAMES))
+        resumed = "resumed from epoch 0" in text1
+        steps = [h["step"] for h in hist0 + hist1]
+        vals = [v for mt in val.get(1, {}).values() for v in mt.values()]
+        if not resumed or steps != list(range(2 * n_steps)) or \
+                state.step != 2 * n_steps:
+            fail(f"tools.train --resume: resumed {resumed}, steps {steps}")
+        if list(val) != [1] or not vals or not all(map(math.isfinite,
+                                                       vals)):
+            fail(f"validation {val}")
+        params = [ln.split("INFO ")[-1] for ln in text0.splitlines()
+                  if "params: " in ln]
+        print(f"[14] (a) tools.train --data-root <built> --epochs 1 "
+              f"({n_steps} steps of B=2, {params[0] if params else 'no params line'}"
+              f"), then --epochs 2 --resume --eval-every 1: resumed from "
+              f"epoch 0 at step {hist1[0]['step']}, validation on "
+              f"{BUILD_FRAMES} frames {json.dumps(val[1])}; launches of "
+              f"epoch 0's steps {n_steps} x [6]'s per step: {got0 == want}; "
+              f"total_loss "
+              + " ".join(f"{h['total_loss']:.4f}" for h in hist0 + hist1))
+        if not params:
+            fail("no params line in the log")
+        steady = hist0[1:] + hist1[1:]
+        print(f"[14] (c) tools.train per step at {H}x{W}, B=2, from the "
+              f"built files (device prefetch depth "
+              f"{train_cli.PREFETCH_DEPTH}): data_ms "
+              + " ".join(f"{h['data_ms']:.2f}" for h in hist0 + hist1)
+              + "; step_ms "
+              + " ".join(f"{h['step_ms']:.2f}" for h in hist0 + hist1)
+              + f"; medians without each epoch's first step: data_ms "
+              f"{statistics.median(h['data_ms'] for h in steady):.2f}, "
+              f"step_ms "
+              f"{statistics.median(h['step_ms'] for h in steady):.2f}")
+
+        # no race: the same steps on the same batches, copied synchronously
+        args = train_cli.parse_args(argv + ["--epochs", "1"])
+        scfg = train_cli.apply_overrides(
+            m["load_config"](RECIPE, is_train=True), args, 1)
+        model = m["RangeDet"](**scfg.model_kwargs())
+        model.init_from(torch.Generator().manual_seed(args.seed))
+        ref = m["create_train_state"](model.to(dev), scfg, n_steps,
+                                      seed=None)
+        ref_step = m["train_step"].build_train_step_fn(ref, scfg)
+        if len(puts) != n_steps:
+            fail(f"{len(puts)} batches put for {n_steps} steps")
+        same = []
+        for host, h in zip(puts, hist0):
+            b = {k: torch.as_tensor(v, device=dev) for k, v in host.items()}
+            sync()
+            mt = ref_step(b)
+            same.append(all(float(v) == h[k] for k, v in mt.items()))
+        del ref, ref_step, model
+        print(f"[14] (c) no race: epoch 0's {n_steps} steps' metrics from "
+              f"the CLI (put on a side stream by the prefetch thread) "
+              f"bit-equal to the same "
+              f"steps on the same batches after a synchronous copy: {same}")
+        if not all(same):
+            fail("the prefetched steps differ from synchronous copies")
+        print(f"[14] (c) overlap: under torch.profiler, batch copies "
+              f"(host-to-device, a batch tensor's size of >= 1 MB) by "
+              f"stream {copies}, the step's stream {step_stream}; {n_over} "
+              f"of them overlap a kernel on the step's stream")
+        if dev.type == "cuda" and (not copies or step_stream in copies
+                                   or not n_over):
+            fail("the batch copies do not run beside the steps")
+
+        # test -> export -> AP
+        reset_counts(m)
+        pred = os.path.join(tmp, "pred.pkl")
+        with contextlib.redirect_stdout(io.StringIO()):
+            path = m["test_cli"].main([
+                "--config", RECIPE, "--data-root", data, "--image-set",
+                "validation", "--batch", "2", "--experiment-dir", exp,
+                "--epoch", "1", "--device", dev.type, "--output", pred])
+        sync()
+        tgot = read_counts(m)
+        twant = {k: BUILD_FRAMES // 2 * v for k, v in per_frame.items()}
+        with open(path, "rb") as f:
+            anno, outputs = pickle.load(f), pickle.load(f)
+        if len(outputs) != BUILD_FRAMES or sorted(anno) != sorted(outputs):
+            fail(f"tools.test: predictions for {sorted(outputs)}")
+        if tgot != twant:
+            fail(f"tools.test: launches {tgot}, expected {twant}")
+        n_det = sum(len(o["det_xyzlwhyaws"]["veh"]) for o in outputs.values())
+        with contextlib.redirect_stdout(io.StringIO()):
+            n_out = m["bin_cli"].main(["--pred", path, "--out",
+                                       os.path.join(tmp, "pred.json")])
+        with contextlib.redirect_stdout(io.StringIO()):
+            records = m["evaluate_pred"].main(["--config", RECIPE, "--pred",
+                                               path])
+        veh = [r for r in records if r["class"] == "veh"]
+        finite = all(math.isfinite(v) for r in veh for v in r.values()
+                     if isinstance(v, float))
+        print(f"[14] (a) tools.test on the built validation split at epoch "
+              f"1: {len(outputs)} frames in {BUILD_FRAMES // 2} steps of B=2 "
+              f"({tgot['fwd']} conv3x3 and {tgot['meta_kernel_taps']} taps "
+              f"launches), {n_det} detections; "
+              f"create_prediction_bin_3d: {n_out} objects; evaluate_pred: "
+              f"{json.dumps(veh)}")
+        if n_out != n_det or len(veh) != 1 or veh[0]["frames"] != \
+                BUILD_FRAMES or not finite:
+            fail(f"export {n_out} of {n_det} detections, AP {records}")
+
+        # --------------------------------------------------- (b) KITTI
+        kroot = os.path.join(tmp, "kitti")
+        scans, kboxes = kitti_root(kroot, SEED + 141, KITTI_SCANS,
+                                   KITTI_POINTS)
+        kout = {}
+        for where, d in (("card", dev), ("cpu", cpu)):
+            with contextlib.redirect_stdout(io.StringIO()):
+                kout[where] = kcli.main([
+                    "--kitti-root", kroot, "--out-dir",
+                    os.path.join(tmp, f"kitti_{where}"), "--split",
+                    "training", "--width", str(KITTI_W), "--device",
+                    d.type])
+        n_diff = n_band_px = n_band = n_face = n_count_diff = 0
+        for scan, csa, a, b in zip(scans, kboxes, kout["card"],
+                                   kout["cpu"]):
+            ia = np.load(a["pc_url"])["range_image"]
+            ib = np.load(b["pc_url"])["range_image"]
+            band = edge_points(torch, scan, KITTI_W)
+            row, col, _ = kitti.pixel_indices(torch.from_numpy(scan), KITTI_W)
+            near = set((row.numpy()[band] * KITTI_W
+                        + col.numpy()[band]).tolist())
+            rc, cc, _ = kitti.pixel_indices(
+                torch.from_numpy(scan).to(dev), KITTI_W)
+            near |= set((rc.cpu().numpy()[band] * KITTI_W
+                         + cc.cpu().numpy()[band]).tolist())
+            diff = np.nonzero((ia != ib).any(-1).ravel())[0]
+            n_diff += len(diff)
+            n_band += int(band.sum())
+            n_band_px += len(near)
+            if not set(diff.tolist()) <= near:
+                fail("the card's KITTI image differs from the CPU's away "
+                     "from the row and column boundaries")
+            if not np.array_equal(a["gt_bbox_csa"], b["gt_bbox_csa"]):
+                fail("KITTI boxes differ, card vs CPU")
+            faces = face_points(scan, a["gt_bbox_csa"])
+            n_face += int(faces.sum())
+            dc = np.abs(a["points_in_box"] - b["points_in_box"])
+            n_count_diff += int(dc.sum())
+            if (dc > faces.sum(1)).any() or (a["points_in_box"]
+                                             < KITTI_BOX_POINTS).any():
+                fail(f"points in box: card {a['points_in_box']}, CPU "
+                     f"{b['points_in_box']}")
+        # a farther point planted last on an occupied pixel loses (a
+        # last-writer-wins scatter would keep it); intensity 2 marks it
+        p = scans[0][:1]
+        far = np.concatenate([p[:, :3] * 1.0005, [[2.0]]], 1).astype(
+            np.float32)
+        r2, c2, _ = kitti.pixel_indices(
+            torch.from_numpy(np.concatenate([p, far])).to(dev), KITTI_W)
+        img = kitti.build_range_image(np.concatenate([scans[0], far]),
+                                      KITTI_W, device=dev)
+        won = img[r2[0], c2[0]].cpu().numpy()
+        if bool(r2[0] != r2[1]) or bool(c2[0] != c2[1]) or won[4] == 2.0 \
+                or won[0] > np.linalg.norm(p[0, :3]):
+            fail(f"the planted far point: pixels {r2.tolist()} "
+                 f"{c2.tolist()}, winner {won}")
+        t_ms = {}
+        for where, d in (("card", dev), ("cpu", cpu)):
+            kitti.build_range_image(scans[0], KITTI_W, device=d)
+            sync()
+            t0 = time.perf_counter()
+            for s in scans:
+                kitti.build_range_image(s, KITTI_W, device=d).cpu()
+            t_ms[where] = 1e3 * (time.perf_counter() - t0) / len(scans)
+        print(f"[14] (b) KITTI: {KITTI_SCANS} scans of {KITTI_POINTS} "
+              f"points through tools.create_range_image_in_kitti on the "
+              f"card and the CPU: {n_diff} of {KITTI_SCANS}x64x{KITTI_W} "
+              f"pixels differ, all at pixels of the {n_band} points within "
+              f"{EDGE_BAND} of a row or column boundary ({n_band_px} "
+              f"pixels); ties at the nearest range: "
+              f"{sum(kitti.range_image_ties(s, KITTI_W, dev) for s in scans)}"
+              f"; points in box equal but {n_count_diff} ({n_face} points "
+              f"within {FACE_BAND} m of a face); the planted farther point "
+              f"loses its pixel; range image ms a scan: card "
+              f"{t_ms['card']:.2f}, CPU {t_ms['cpu']:.2f}")
+
+        # one train step and one eval step on the KITTI records
+        kcfg = m["load_config"](RECIPE, is_train=True).replace(
+            base_lr=0.01, warmup_epochs=0)
+        host = [m["record_to_inputs"](r, kcfg.pad_field, kcfg.max_gt_boxes)
+                for r in kout["card"][:2]]
+        kb = {k: np.stack([h[k] for h in host]) for k in host[0]}
+        model = m["RangeDet"](**kcfg.model_kwargs())
+        model.init_from(torch.Generator().manual_seed(SEED))
+        kstate = m["create_train_state"](model.to(dev), kcfg, 100, seed=None)
+        sync()
+        reset_counts(m)
+        km = m["make_train_step"](kstate, kcfg)(
+            m["batch_to_device"](kb, dev))
+        sync()
+        got = read_counts(m)
+        ecfg = m["load_config"](RECIPE, is_train=False)
+        einputs = m["build_eval_inputs"](kb, ecfg, dev)
+        sync()
+        reset_counts(m)
+        eout = m["make_eval_step"](kstate.model.eval(), ecfg)(einputs)
+        sync()
+        egot = read_counts(m)
+        boxes = eout["veh"]["boxes"][eout["veh"]["valid"]]
+        print(f"[14] (b) one train step on 2 KITTI records (64x{KITTI_W} "
+              f"padded to {kcfg.pad_field[1]}): launches = [6]'s per step: "
+              f"{got == per_step}, total_loss "
+              f"{float(km['total_loss']):.4f}; one B=2 eval step: "
+              f"{egot['fwd']} conv3x3 and {egot['meta_kernel_taps']} taps "
+              f"launches (want {n_fwd}, {n_meta}), "
+              f"{int(eout['veh']['valid'].sum())} boxes, finite "
+              f"{bool(torch.isfinite(boxes).all())}")
+        if got != per_step or not math.isfinite(float(km["total_loss"])) \
+                or not bool(torch.isfinite(boxes).all()) \
+                or egot != dict(per_frame):
+            fail(f"KITTI steps: launches {got} and {egot}, expected "
+                 f"{per_step} and {per_frame}")
+        del kstate, model
+    print(f"[14] the chain from raw frames in "
+          f"{time.perf_counter() - t_phase:.1f} s")
 
 
 def main():
@@ -4769,6 +5431,9 @@ def main():
 
     # ----------------------------------------------------------- phase 13
     wide_w, width_launches = phase13(torch, mods, tcfg, dev, launches)
+
+    # ----------------------------------------------------------- phase 14
+    phase14(torch, mods, tcfg, dev, launches)
 
     # one entry per kernel and path: the serving forward (launches of the
     # B=1 eval step of phase 3, times of one B=1 forward in phases 2 and

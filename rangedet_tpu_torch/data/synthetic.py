@@ -126,9 +126,9 @@ def make_frame_vehicles(
     Returns the same dict as make_frame plus ``gt_num_points`` (pixels owned
     per box — feeds the WOD L1/L2 difficulty rule, eval/ap.py:gt_difficulty).
     """
-    # explicit tables let callers render with an exact sensor convention —
-    # e.g. the Waymo builder's half-pixel-centered azimuth_table
-    # (data/waymo_builder.py:20-26) when synthesizing schema-exact tfrecords
+    # explicit tables let callers render with an exact sensor convention,
+    # e.g. the half-pixel-centred column azimuths of the port's builder
+    # (rangedet_tpu_torch/data/waymo_builder.py:azimuth_table)
     if inclination is None:
         inclination = np.linspace(0.03, -0.3, H).astype(np.float32)
     else:

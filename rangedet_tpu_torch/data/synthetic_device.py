@@ -126,6 +126,53 @@ def _slab(o, dd, e):
     return torch.minimum(t1, t2), torch.maximum(t1, t2)
 
 
+def ray_boxes(d, cx, cy, cz, length, width, height, yaw):
+    """Slab ray-OBB intersection of every ray with every box: rays ``d``
+    (H, W, 3) unit directions from the origin, boxes as (..., K) tensors of
+    their centres, extents and yaw -> (box_t, t_exit, hit), each (..., K,
+    H, W): box_t the range of the hit, nudged strictly inside the box (the
+    assigner's containment is strict), inf where the ray misses or enters
+    within 0.5 m; t_exit the range where the ray leaves the box."""
+    # rays and origin rotated into each box frame (rotation by -yaw)
+    cos_y, sin_y = torch.cos(yaw)[..., None, None], torch.sin(yaw)[..., None,
+                                                                    None]
+    dx = cos_y * d[..., 0] + sin_y * d[..., 1]  # (..., K, H, W)
+    dy = -sin_y * d[..., 0] + cos_y * d[..., 1]
+    dz = d[..., 2].expand(dx.shape)
+    cos_b, sin_b = torch.cos(yaw), torch.sin(yaw)
+    ox = -(cos_b * cx + sin_b * cy)
+    oy = -(-sin_b * cx + cos_b * cy)
+    oz = -cz
+
+    n1, f1 = _slab(ox, dx, length / 2)
+    n2, f2 = _slab(oy, dy, width / 2)
+    n3, f3 = _slab(oz, dz, height / 2)
+    t_enter = torch.maximum(torch.maximum(n1, n2), n3)
+    t_exit = torch.minimum(torch.minimum(f1, f2), f3)
+    hit = (t_exit >= t_enter) & (t_enter > 0.5)
+    t_hit = torch.minimum(t_enter + 5e-3, 0.5 * (t_enter + t_exit))
+    return torch.where(hit, t_hit, math.inf), t_exit, hit
+
+
+def raytrace_boxes(csa: torch.Tensor, inclination: torch.Tensor,
+                   azimuth: torch.Tensor):
+    """The render of explicit boxes from a sensor at the origin: csa (K, 7)
+    [cx, cy, cz, l, w, h, yaw] in the sensor frame, the row inclinations
+    (H,) and column azimuths (W,) of the rays -> (range (H, W), inf where
+    no box is hit; owner (H, W) int64, the nearest box hit, -1 where none),
+    on the tensors' device. A hit pixel's point lies 5 mm along its ray
+    inside the face it entered (``ray_boxes``)."""
+    incl = inclination.float()[:, None]
+    az = azimuth.float()[None, :]
+    d = torch.stack(torch.broadcast_tensors(
+        torch.cos(incl) * torch.cos(az), torch.cos(incl) * torch.sin(az),
+        torch.sin(incl)), dim=-1)
+    box_t, _, _ = ray_boxes(d, *csa.float().unbind(-1))
+    t = box_t.amin(dim=0)
+    owner = torch.where(torch.isfinite(t), box_t.argmin(dim=0), -1)
+    return t, owner
+
+
 def render_scenes(draws: Dict[str, torch.Tensor], H: int, W: int,
                   pad_w: int, max_gt: int, num_boxes: int = 10,
                   families=None, dims=VEHICLE_DIMS, r_range=(8.0, 50.0),
@@ -186,27 +233,8 @@ def render_scenes(draws: Dict[str, torch.Tensor], H: int, W: int,
     gt_csa = torch.stack([cx, cy, cz, length, width, height, yaw],
                          dim=-1)[:, :M]
 
-    # slab ray-OBB intersection, all pixels x all boxes: rays and origin
-    # rotated into each box frame (rotation by -yaw)
-    cos_y, sin_y = torch.cos(yaw)[..., None, None], torch.sin(yaw)[..., None,
-                                                                    None]
-    dx = cos_y * d[..., 0] + sin_y * d[..., 1]  # (B, M + C, H, W)
-    dy = -sin_y * d[..., 0] + cos_y * d[..., 1]
-    dz = d[..., 2].expand(dx.shape)
-    cos_b, sin_b = torch.cos(yaw), torch.sin(yaw)
-    ox = -(cos_b * cx + sin_b * cy)
-    oy = -(-sin_b * cx + cos_b * cy)
-    oz = -cz
-
-    n1, f1 = _slab(ox, dx, length / 2)
-    n2, f2 = _slab(oy, dy, width / 2)
-    n3, f3 = _slab(oz, dz, height / 2)
-    t_enter = torch.maximum(torch.maximum(n1, n2), n3)
-    t_exit = torch.minimum(torch.minimum(f1, f2), f3)
-    hit = (t_exit >= t_enter) & (t_enter > 0.5)
-    # nudge strictly inside (the assigner's containment is strict)
-    t_hit = torch.minimum(t_enter + 5e-3, 0.5 * (t_enter + t_exit))
-    box_t = torch.where(hit, t_hit, math.inf)
+    box_t, t_exit, hit = ray_boxes(d, cx, cy, cz, length, width, height,
+                                   yaw)
 
     # background wall a few meters behind each object's silhouette
     wall = torch.where(hit, t_exit, 0.0).amax(dim=(2, 3)) + draws["wall_gap"]

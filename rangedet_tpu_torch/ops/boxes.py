@@ -74,9 +74,34 @@ def box12_to_box8_eval(box12: torch.Tensor) -> torch.Tensor:
     )
 
 
+def box10_to_csa7(box10: torch.Tensor) -> torch.Tensor:
+    """box10 -> csa7 (reference operator_py/batch_rotated_iou.py:51-68
+    to_box_type_7): L = |corner0 - corner1| (the length edge), W = |corner1
+    - corner2|, yaw along corner1 -> corner0."""
+    pts = box10_to_corners_bev(box10)  # (..., 4, 2)
+    center_xy = pts.mean(dim=-2)
+    center_z = box10[..., 8:10].mean(dim=-1, keepdim=True)
+    length = torch.linalg.vector_norm(pts[..., 0, :] - pts[..., 1, :],
+                                      dim=-1, keepdim=True)
+    width = torch.linalg.vector_norm(pts[..., 1, :] - pts[..., 2, :],
+                                     dim=-1, keepdim=True)
+    height = box10[..., 9:10] - box10[..., 8:9]
+    yaw = torch.atan2(pts[..., 0, 1] - pts[..., 1, 1],
+                      pts[..., 0, 0] - pts[..., 1, 0])[..., None]
+    return torch.cat([center_xy, center_z, length, width, height, yaw],
+                     dim=-1)
+
+
 def polygon_area(corners: torch.Tensor) -> torch.Tensor:
     """Signed shoelace area of a polygon (..., K, 2); CCW positive."""
     x, y = corners[..., 0], corners[..., 1]
     x2 = torch.roll(x, -1, dims=-1)
     y2 = torch.roll(y, -1, dims=-1)
     return 0.5 * torch.sum(x * y2 - x2 * y, dim=-1)
+
+
+def canonicalize_ccw(corners: torch.Tensor) -> torch.Tensor:
+    """Quad corners (..., 4, 2) reordered counter-clockwise where needed."""
+    area = polygon_area(corners)
+    return torch.where((area < 0)[..., None, None],
+                       corners[..., [0, 3, 2, 1], :], corners)

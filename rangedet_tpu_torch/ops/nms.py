@@ -180,3 +180,39 @@ def weighted_nms(
     if single:
         return rows[0], row_valid[0]
     return rows, row_valid
+
+
+def nms_3d(boxes10: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
+           iou_thresh: float, max_keep: int
+           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Greedy NMS over box10 dets, the reference's contrib.NMS3D
+    (nms_3d.cu:380-534, used when a config sets wnms=False), as
+    ``rangedet_tpu/ops/nms.py:nms_3d``: max_keep rounds, each keeping the
+    best-scored box still alive and suppressing the alive boxes of BEV IoU
+    >= iou_thresh with it. -> (keep_boxes (max_keep, 10), keep_idx
+    (max_keep,) positions in the input order, -1 past the kept, valid
+    (max_keep,)). The order is a stable sort of the scores, descending."""
+    K = boxes10.shape[0]
+    order = torch.sort(-scores.float().masked_fill(~valid, -float("inf")),
+                       stable=True).indices
+    boxes10 = boxes10[order]
+    svalid = valid[order]
+    corners = boxes10[:, :8].reshape(-1, 4, 2)
+    arange = torch.arange(K, device=boxes10.device)
+    suppressed = ~svalid
+    kept = boxes10.new_zeros((max_keep, 10))
+    keep_idx = torch.full((max_keep,), -1, dtype=torch.long,
+                          device=boxes10.device)
+    row_valid = torch.zeros((max_keep,), dtype=torch.bool,
+                            device=boxes10.device)
+    for r in range(max_keep):
+        alive = svalid & ~suppressed
+        has_any = alive.any()
+        idx = torch.argmax(alive.to(torch.uint8))
+        iou_row = iou_bev_corners(corners[idx][None], corners)
+        new = suppressed | (alive & (iou_row >= iou_thresh)) | (arange == idx)
+        suppressed = torch.where(has_any, new, suppressed)
+        kept[r] = torch.where(has_any, boxes10[idx], kept[r])
+        keep_idx[r] = torch.where(has_any, order[idx], keep_idx[r])
+        row_valid[r] = has_any
+    return kept, keep_idx, row_valid

@@ -78,6 +78,33 @@ def iou_bev_corners(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.where((sa < EPS) | (sb < EPS), torch.zeros_like(iou), iou)
 
 
+def iou_bev_matrix(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """All-pairs BEV IoU: a (N, 4, 2), b (M, 4, 2) -> (N, M), the reference's
+    ``mx.nd.contrib.RotatedIOU`` in 8-point mode."""
+    return iou_bev_corners(a[:, None], b[None, :])
+
+
+def iou_3d_csa(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """3D IoU of csa7 boxes (..., 7), broadcast -> (...): BEV overlap times
+    z overlap (iou_3d, rotated_iou-inl.h:495-507, with the footprint's
+    length along the heading, as ``rangedet_tpu/ops/rotated_iou.py:
+    iou_3d_csa``)."""
+    from .boxes import csa_to_corners_bev
+
+    a, b = a.float(), b.float()
+    sa = a[..., 3] * a[..., 4] * a[..., 5]
+    sb = b[..., 3] * b[..., 4] * b[..., 5]
+    s_overlap = quad_intersection_area(csa_to_corners_bev(a),
+                                       csa_to_corners_bev(b))
+    h_overlap = torch.clamp(
+        torch.minimum(a[..., 2] + a[..., 5] / 2, b[..., 2] + b[..., 5] / 2)
+        - torch.maximum(a[..., 2] - a[..., 5] / 2, b[..., 2] - b[..., 5] / 2),
+        min=0.0)
+    inter = s_overlap * h_overlap
+    iou = inter / torch.clamp(sa + sb - inter, min=EPS)
+    return torch.where((sa < EPS) | (sb < EPS), torch.zeros_like(iou), iou)
+
+
 def max_iou_vs_gt(proposals_corners: torch.Tensor, gt_corners: torch.Tensor,
                   topk_gt: int = 0) -> torch.Tensor:
     """Max BEV IoU of each proposal (N, 4, 2) against a GT set (M, 4, 2) ->

@@ -62,7 +62,15 @@ epoch e trains on ``tools/train.py``'s synthetic draw, a fresh batch of
 raytraced vehicle frames ``make_batch(cfg, batch, seed=e*10000 + i,
 style="vehicles")`` (``synthetic_batch``), and an epoch is 100 steps.
 ``--steps-per-epoch`` sets the epoch's length and cuts it. A background
-thread prepares the next batches while the card runs the step.
+thread prepares the next batches while the card runs the step and puts
+them on the card ``PREFETCH_DEPTH`` batches ahead (tools/train.py:353-367,
+``data/prefetch.py:threaded_device_prefetch``): through pinned memory, on
+a side CUDA stream that the step's stream waits on, so a batch's copy
+overlaps the kernels of the steps dispatched meanwhile. Under width
+sharding the put shares the batch over the width group, a collective, so
+it runs in the main thread (``device_prefetch``, as JAX's loop puts).
+``data_ms`` is the main thread's wait for the next batch (with, under
+width sharding, the put of a later one), ``step_ms`` the step alone.
 
 The run trains epochs ``begin_epoch .. end_epoch`` (``--epochs`` sets
 ``end_epoch``) with the recipe's optimizer (sgd, adamw, adamws), clip
@@ -123,6 +131,7 @@ STEPS_PER_EPOCH = 100  # tools/train.py's default for synthetic data
 LOADER_SEED = 0  # tools/train.py passes no seed to its BatchLoader
 DEVICE_AUGMENTATIONS = ("flip", "rotation")
 PROFILE_START = 10  # tools/train.py's ProfilerHook starts at step 10
+PREFETCH_DEPTH = 2  # batches put on the device ahead (tools/train.py:364)
 
 
 def parse_args(argv=None):
@@ -429,7 +438,11 @@ def main(argv=None):
 def _train(args, cfg, ranks):
     """main's run, in the process group ``ranks`` joined and placed on the
     mesh."""
-    from rangedet_tpu_torch.data.prefetch import threaded_prefetch
+    from rangedet_tpu_torch.data.prefetch import (
+        device_prefetch,
+        threaded_device_prefetch,
+        threaded_prefetch,
+    )
     from rangedet_tpu_torch.models import RangeDet
     from rangedet_tpu_torch.models.layers import (
         set_sync_group,
@@ -440,7 +453,7 @@ def _train(args, cfg, ranks):
         restore_checkpoint,
         save_checkpoint,
     )
-    from rangedet_tpu_torch.train.state import create_train_state
+    from rangedet_tpu_torch.train.state import create_train_state, param_count
     from rangedet_tpu_torch.train.train_step import (
         batch_to_device,
         build_train_step_fn,
@@ -493,7 +506,7 @@ def _train(args, cfg, ranks):
     else:
         spe, epoch_batches, shared = epoch_source(cfg, args, logger, ranks)
 
-        def to_batch(batch, step):
+        def put(batch):  # run PREFETCH_DEPTH batches ahead
             if shared:  # the width group's frames, this rank's columns
                 batch = pdist.local_rows(pdist.share_batch(batch, ranks), 0,
                                          1, ranks.width_index, n_width)
@@ -502,6 +515,7 @@ def _train(args, cfg, ranks):
     model = RangeDet(**cfg.model_kwargs())
     model.init_from(torch.Generator().manual_seed(args.seed))
     state = create_train_state(model.to(device), cfg, spe, seed=None)
+    logger.info(f"params: {param_count(state) / 1e6:.2f}M")
     begin_epoch = cfg.begin_epoch
     if args.resume:  # every rank reads the checkpoint
         state, ep = restore_checkpoint(state, cfg)
@@ -554,9 +568,20 @@ def _train(args, cfg, ranks):
                     history.append(rec)
                 pending.clear()
 
-            # the cache path's batches are index slices already on the card
-            batches = (epoch_batches(epoch) if cached else
-                       threaded_prefetch(iter(epoch_batches(epoch)), depth=2))
+            # the cache path's batches are index slices already on the
+            # card; the loader's are put there PREFETCH_DEPTH ahead, from
+            # the prefetch thread, or in this thread where the put shares
+            # the batch over the width group (a collective, in order)
+            if cached:
+                batches = epoch_batches(epoch)
+            elif shared:
+                batches = device_prefetch(
+                    threaded_prefetch(iter(epoch_batches(epoch)), depth=2),
+                    put, depth=PREFETCH_DEPTH, device=device)
+            else:
+                batches = threaded_device_prefetch(
+                    iter(epoch_batches(epoch)), put, depth=PREFETCH_DEPTH,
+                    device=device)
             try:
                 i = 0
                 while True:
@@ -566,7 +591,8 @@ def _train(args, cfg, ranks):
                         break
                     t1 = time.perf_counter()
                     profiler(state.step)
-                    metrics = step(to_batch(batch, state.step))
+                    metrics = step(to_batch(batch, state.step) if cached
+                                   else batch)
                     t2 = time.perf_counter()
                     speedometer.tick(t1 - t0, t2 - t1)
                     lr, mom = hyperparams(state.optimizer)

@@ -44,3 +44,9 @@ def create_train_state(model: torch.nn.Module, cfg, steps_per_epoch: int,
         momentum_schedule=build_momentum_schedule(cfg, steps_per_epoch),
         standardized=(standardized_params(model)
                       if cfg.optimizer == "adamws" else []))
+
+
+def param_count(state: TrainState) -> int:
+    """The number of trainable values of the model (tools/train.py's
+    ``params: X.XXM`` line)."""
+    return sum(p.numel() for p in state.model.parameters())

@@ -147,5 +147,12 @@ def apply_update(state: TrainState, cfg) -> None:
 
 def batch_to_device(batch: Dict, device: torch.device
                     ) -> Dict[str, torch.Tensor]:
-    """numpy (or tensor) batch -> tensors on ``device``."""
-    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+    """numpy (or tensor) batch -> tensors on ``device``. To a CUDA device
+    the host arrays go through pinned memory and copy without blocking the
+    host, ordered on the current stream (``data/prefetch.py:
+    device_prefetch`` makes that a side stream)."""
+    if torch.device(device).type != "cuda":
+        return {k: torch.as_tensor(v, device=device)
+                for k, v in batch.items()}
+    return {k: torch.as_tensor(v).pin_memory().to(device, non_blocking=True)
+            for k, v in batch.items()}

@@ -108,7 +108,10 @@ def width_run(recipe, tmp_path_factory):
 
 def test_width_ranks_train_on_the_first_ranks_frames(width_run):
     (a, b), log = width_run
-    assert len(a["shared"]) == 2 and a["shared"] == b["shared"]
+    # the put shares each batch it puts: the epoch's 2 steps' and the
+    # PREFETCH_DEPTH - 1 put ahead of them
+    assert len(a["shared"]) == 2 + train_cli.PREFETCH_DEPTH - 1
+    assert a["shared"] == b["shared"]
     frames = [[u for u in o["mapped"] if "/training/" in u] for o in (a, b)]
     assert frames[0] and not frames[1]  # rank 1 receives, loads none
     assert [h["step"] for h in a["hist"]] == [0, 1]

@@ -208,3 +208,56 @@ def test_wnms_batched_frames_equal_single(rng):
         np.testing.assert_array_equal(rv[f].numpy(), v1.numpy())
         np.testing.assert_allclose(rows[f].numpy(), r1.numpy(), atol=1e-6)
     assert not rv[2].any()
+
+
+# ------------------------------------------------ the loose functions
+def _box10(rng, n, center_scale):
+    csa = random_csa(rng, n, center_scale=center_scale)
+    corners = _j(jboxes.csa_to_corners_bev(jnp.asarray(csa))).reshape(n, 8)
+    z = np.stack([csa[:, 2] - csa[:, 5] / 2, csa[:, 2] + csa[:, 5] / 2], 1)
+    return csa, np.concatenate([corners, z], 1).astype(np.float32)
+
+
+def test_box10_to_csa7_and_canonicalize_ccw_match_jax(rng):
+    csa, b10 = _box10(rng, 64, 20.0)
+    got = boxes.box10_to_csa7(T(b10)).numpy()
+    want = _j(jboxes.box10_to_csa7(jnp.asarray(b10)))
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-5)
+    np.testing.assert_allclose(got[:, :6], csa[:, :6], rtol=1e-4, atol=1e-4)
+    quads = b10[:, :8].reshape(-1, 4, 2).copy()
+    quads[::2] = quads[::2, ::-1]  # every other one clockwise
+    got = boxes.canonicalize_ccw(T(quads)).numpy()
+    np.testing.assert_array_equal(
+        got, _j(jboxes.canonicalize_ccw(jnp.asarray(quads))))
+    assert (boxes.polygon_area(T(got)).numpy() > 0).all()
+
+
+def test_iou_bev_matrix_and_iou_3d_csa_match_jax(rng):
+    ca = random_csa(rng, 24, center_scale=4.0)
+    cb = random_csa(rng, 16, center_scale=4.0)
+    cb[:3] = ca[:3]  # identical boxes
+    qa = _j(jboxes.csa_to_corners_bev(jnp.asarray(ca)))
+    qb = _j(jboxes.csa_to_corners_bev(jnp.asarray(cb)))
+    got = rotated_iou.iou_bev_matrix(T(qa), T(qb)).numpy()
+    want = _j(jiou.iou_bev_matrix(jnp.asarray(qa), jnp.asarray(qb)))
+    assert got.shape == (24, 16) and (want > 0.05).sum() > 20
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+    got = rotated_iou.iou_3d_csa(T(ca[:, None]), T(cb[None])).numpy()
+    want = _j(jiou.iou_3d_csa(jnp.asarray(ca[:, None]), jnp.asarray(cb[None])))
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(np.diag(got[:3, :3]), 1.0, atol=1e-5)
+
+
+@pytest.mark.parametrize("max_keep", [1, 10, 40])
+def test_nms_3d_matches_jax(rng, max_keep):
+    _, b10 = _box10(rng, 30, 5.0)
+    scores = rng.uniform(0, 1, 30).astype(np.float32)
+    scores[5] = scores[6]  # a tie keeps the input order
+    valid = rng.uniform(size=30) > 0.15
+    got = nms.nms_3d(T(b10), T(scores), T(valid), 0.2, max_keep)
+    want = jnms.nms_3d(jnp.asarray(b10), jnp.asarray(scores),
+                       jnp.asarray(valid), 0.2, max_keep)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), _j(w))
+    k = int(got[2].sum())
+    assert 0 < k <= max_keep and valid[got[1][:k].numpy()].all()

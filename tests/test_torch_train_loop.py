@@ -10,6 +10,7 @@ import io
 import json
 import os
 import threading
+import types
 from unittest import mock
 
 import jax
@@ -255,7 +256,9 @@ def test_first_trained_batch_and_its_step_are_the_jax_loops(files, tmp_path):
                "--epochs", "1", "--steps-per-epoch", "1", "--num-workers",
                "1", "--checkpoint-every", "0", "--experiment-dir",
                str(tmp_path))
-    assert len(seen) == 1
+    # the prefetch thread puts the epoch's batches ahead of the steps (the
+    # loader's 2 here); the first put is the batch the one step trains on
+    assert len(seen) == 2
     got = seen[0]
 
     # tools/train.py: its loader over the training split; the sample batch
@@ -320,25 +323,33 @@ def test_resumed_run_redraws_the_first_epochs_frames_as_jax_does(
         _, state, _, out = _train(files, "--epochs", "2", "--resume",
                                   *common)
     assert "resumed from epoch 0" in out and state.step == 2
-    assert len(seen) == 2 and sorted(seen[0]) == sorted(seen[1])
-    for k in seen[0]:
-        np.testing.assert_array_equal(seen[0][k], seen[1][k], err_msg=k)
+    # each run's prefetch thread puts the epoch's 2 batches ahead of its
+    # one step, the first of them trained on
+    first = seen[::2]
+    assert len(seen) == 4
+    assert len(first) == 2 and sorted(first[0]) == sorted(first[1])
+    for k in first[0]:
+        np.testing.assert_array_equal(first[0][k], first[1][k], err_msg=k)
 
 
-def test_chain_train_resume_validate_test_bin_ap(files, tmp_path):
+def _chain(recipe, data, val_ids, tmp_path):
+    """train an epoch -> --resume with validation -> test -> bin -> AP, from
+    the splits under ``data``: 4 training frames (2 steps of B=2 an epoch)
+    and the validation frames ``val_ids``."""
     from rangedet_tpu.eval.waymo_bin import load_prediction_pickle
     from rangedet_tpu_torch.tools import create_prediction_bin_3d
     from rangedet_tpu_torch.tools import evaluate_pred
     from rangedet_tpu_torch.tools import test as test_cli
 
     exp = str(tmp_path / "exp")
-    common = ("--data-root", files["data"], "--sampling-rate", "1",
+    files = dict(recipe=recipe)
+    common = ("--data-root", data, "--sampling-rate", "1",
               "--num-workers", "2", "--experiment-dir", exp)
     before = set(threading.enumerate())
-    hist0, _, _, _ = _train(files, "--epochs", "1", *common)
+    hist0, _, _, out0 = _train(files, "--epochs", "1", *common)
     hist, state, val, out = _train(files, "--epochs", "2", "--resume",
                                    "--eval-every", "1", "--eval-frames",
-                                   str(N_VAL), *common)
+                                   str(len(val_ids)), *common)
     assert not set(threading.enumerate()) - before
     # len(loader) steps an epoch: 4 frames at B=2
     assert [r["step"] for r in hist0 + hist] == [0, 1, 2, 3]
@@ -350,19 +361,178 @@ def test_chain_train_resume_validate_test_bin_ap(files, tmp_path):
 
     pred = str(tmp_path / "pred.pkl")
     with contextlib.redirect_stdout(io.StringIO()) as tout:
-        test_cli.main(["--config", files["recipe"], "--data-root",
-                       files["data"], "--image-set", "validation", "--batch",
-                       "2", "--experiment-dir", exp, "--epoch", "1",
+        test_cli.main(["--config", recipe, "--data-root", data,
+                       "--image-set", "validation", "--batch", "2",
+                       "--experiment-dir", exp, "--epoch", "1",
                        "--device", "cpu", "--output", pred])
     assert "checkpoint epoch 1" in tout.getvalue()
     anno, outputs = load_prediction_pickle(pred)
-    ids = sorted(r["rec_id"] for r in files["val"])
-    assert sorted(outputs) == sorted(anno) == ids
+    assert sorted(outputs) == sorted(anno) == sorted(val_ids)
     n = create_prediction_bin_3d.main(["--pred", pred, "--out",
                                        str(tmp_path / "pred.json")])
     with open(tmp_path / "pred.json") as f:
         assert len(json.load(f)) == n == sum(
             len(o["det_xyzlwhyaws"]["veh"]) for o in outputs.values())
-    records = evaluate_pred.main(["--config", files["recipe"], "--pred",
-                                  pred])
-    assert [r["frames"] for r in records if r["class"] == "veh"] == [N_VAL]
+    records = evaluate_pred.main(["--config", recipe, "--pred", pred])
+    assert [r["frames"] for r in records if r["class"] == "veh"] == [
+        len(val_ids)]
+    return out0
+
+
+def test_chain_train_resume_validate_test_bin_ap(files, tmp_path):
+    _chain(files["recipe"], files["data"],
+           [r["rec_id"] for r in files["val"]], tmp_path)
+
+
+def test_chain_from_raw_frames_through_the_builder(files, tmp_path,
+                                                   monkeypatch):
+    """The chain above from raw frames: 2 training segments of 2 frames
+    and a validation segment of 3 (``chip_smoke.waymo_frames`` at the tiny
+    recipe's 16x128, a yawed roof-mounted lidar) as TFRecord files of
+    serialized Frame protos, through the port's builder CLI on the CPU.
+    The files are read by tests/torch_frames.py's TFRecord reader in
+    TensorFlow's place (test_torch_builders.py reads them with
+    TensorFlow)."""
+    import chip_smoke as cs
+    from fake_waymo_protos import install
+    from rangedet_tpu_torch.tools import create_range_image_roidb as cli
+    from torch_frames import (
+        frame_proto,
+        install_frame_utils,
+        install_tfrecord_reader,
+        write_tfrecord,
+    )
+
+    Frame = install(monkeypatch)["Frame"]
+    install_tfrecord_reader(monkeypatch)
+    ris, raw = {}, tmp_path / "raw"
+    for split, segs in (("training", (2, 2)), ("validation", (3,))):
+        (raw / split).mkdir(parents=True)
+        for s, n in enumerate(segs):
+            frames, parse, _ = cs.waymo_frames(
+                torch, 10 * len(ris) + s, n, H, W, cs.BUILD_YAW,
+                cs.BUILD_MOUNT, f"{split}_{s}", torch.device("cpu"),
+                num_boxes=3)
+            blobs = []
+            for frame in frames:
+                ts = len(ris)
+                ris[ts] = parse(frame)[1][0]
+                blobs.append(frame_proto(Frame, frame, ts))
+            write_tfrecord(str(raw / split / f"segment-{s}.tfrecord"),
+                           blobs)
+    install_frame_utils(monkeypatch, ris)
+    data = str(tmp_path / "built")
+    for split in ("training", "validation"):
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.main(["--tfrecord-dir", str(raw / split), "--out-dir", data,
+                      "--split", split, "--workers", "2", "--device",
+                      "cpu"])
+    out0 = _chain(files["recipe"], data,
+                  [f"segment-0_{i}" for i in range(3)], tmp_path)
+    assert "params: 0." in out0  # tools/train.py's line, the tiny recipe
+
+
+# ---------------------------------------------------------------- prefetch
+def test_threaded_device_prefetch_puts_in_its_thread_in_order():
+    from rangedet_tpu_torch.data.prefetch import threaded_device_prefetch
+
+    before = set(threading.enumerate())
+    main, threads, closed = threading.get_ident(), [], []
+
+    def put(x):
+        threads.append(threading.get_ident())
+        return {"x": torch.full((2,), float(x))}
+
+    def source():
+        try:
+            yield from range(10)
+        finally:
+            closed.append(True)
+
+    out = [int(b["x"][0]) for b in threaded_device_prefetch(
+        source(), put, depth=2, device=torch.device("cpu"))]
+    assert out == list(range(10)) and closed == [True]
+    assert len(threads) == 10 and main not in threads
+    gen = threaded_device_prefetch(source(), put, depth=2)
+    assert int(next(gen)["x"][0]) == 0
+    gen.close()  # closes the source and joins the thread
+    assert closed == [True, True]
+    assert not set(threading.enumerate()) - before
+
+
+def test_device_prefetch_order_depth_and_close():
+    from rangedet_tpu.data.prefetch import device_prefetch as jax_prefetch
+    from rangedet_tpu_torch.data.prefetch import device_prefetch
+
+    items = list(range(10))
+    for depth in (1, 2, 3):
+        puts, seen = [], []
+
+        def put(x):
+            puts.append(x)
+            return {"x": torch.full((2,), float(x))}
+
+        for out in device_prefetch(iter(items), put, depth=depth,
+                                   device=torch.device("cpu")):
+            # put runs `depth` items ahead of the consumer
+            assert len(puts) == min(len(seen) + depth, len(items))
+            seen.append(int(out["x"][0]))
+        assert seen == puts == items
+        jax_puts = []
+        assert list(jax_prefetch(iter(items), lambda x: jax_puts.append(x)
+                                 or x, depth=depth)) == items == jax_puts
+
+    closed = []
+
+    def source():
+        try:
+            yield from items
+        finally:
+            closed.append(True)
+
+    gen = device_prefetch(source(), lambda x: x, depth=2)
+    assert next(gen) == 0
+    gen.close()  # closes the source too (a loader epoch ends its workers)
+    assert closed == [True]
+
+
+def test_pool_map_prefetch_order_and_errors():
+    from rangedet_tpu.data.prefetch import pool_map_prefetch as jax_pool
+    from rangedet_tpu_torch.data.prefetch import pool_map_prefetch
+
+    before = set(threading.enumerate())
+    args = list(range(20))
+    got = list(pool_map_prefetch(lambda a: a * a, iter(args), workers=3,
+                                 depth=4))
+    assert got == [a * a for a in args] == list(
+        jax_pool(lambda a: a * a, iter(args), workers=3, depth=4))
+
+    def boom(a):
+        if a == 5:
+            raise ValueError("boom")
+        return a
+
+    with pytest.raises(ValueError, match="boom"):
+        list(pool_map_prefetch(boom, iter(args), workers=2, depth=3))
+    assert not set(threading.enumerate()) - before  # the pool is joined
+
+
+def test_param_count_is_jaxs(files):
+    from rangedet_tpu.train.state import param_count as jax_count
+    from rangedet_tpu_torch.train.state import param_count
+
+    for recipe in ("rangedet_veh_wo_aug_4_18e", files["recipe"]):
+        cfg = load_config(recipe, is_train=True)
+        jcfg = (jax_load_config(recipe, is_train=True)
+                if recipe.startswith("rangedet_") else tiny_config())
+        # the parameters do not depend on the frame size: trace the
+        # recipe's widths on the tiny frame
+        jcfg = jcfg.replace(feat_size=(H, W), pad_field=(H, W))
+        x = jnp.zeros((1, H, W, 8), jnp.float32)
+        variables = jax.eval_shape(
+            lambda: JaxRangeDet(**jcfg.model_kwargs()).init(
+                jax.random.PRNGKey(0), x, x[..., :3], True))
+        state = create_train_state(RangeDet(**cfg.model_kwargs()), cfg, 10)
+        n = param_count(state)
+        assert n == jax_count(types.SimpleNamespace(
+            params=variables["params"])) > 0

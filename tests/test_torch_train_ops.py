@@ -422,7 +422,9 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     for new in ("data/device_cache.py", "data/synthetic_device.py",
                 "tools/quality_probe.py", "tools/overfit_probe.py",
                 "tools/flops.py", "tools/train.py", "parallel/dist.py",
-                "parallel/dp_step.py"):
+                "parallel/dp_step.py", "data/waymo_builder.py",
+                "data/kitti.py", "tools/create_range_image_roidb.py",
+                "tools/create_range_image_in_kitti.py"):
         assert REPO / "rangedet_tpu_torch" / new in files, new
     banned = {"jax", "flax", "optax", "rangedet_tpu"}
     bad = [(str(f.relative_to(REPO)), m) for f in files for m in _imports(f)
