@@ -1,0 +1,7 @@
+"""train.backward_ms: device ms a step of the work launched inside the train
+step's "backward" range (``train/train_step.py``), kernels matched to their
+launches by correlation id."""
+
+
+def read(ctx):
+    return ctx.trace.range_ms("backward") if ctx.trace else None
