@@ -8,6 +8,7 @@ import torch
 
 from .models.detector import run_inference
 from .ops import targets as ops_targets
+from .utils.spans import span
 
 
 def build_eval_inputs(batch: Dict[str, Any], cfg,
@@ -29,13 +30,16 @@ def build_eval_inputs(batch: Dict[str, Any], cfg,
 
 def make_eval_step(model: torch.nn.Module, cfg) -> Callable:
     """Returns eval_step(batch) -> {class: {boxes, valid, truncated}}: the
-    forward, then top-k, decode and weighted NMS, under inference mode.
-    batch comes from build_eval_inputs."""
+    forward, then top-k, decode and weighted NMS, under inference mode, in
+    the profiler ranges ``forward`` and ``postprocess`` (``utils/
+    spans.py``). batch comes from build_eval_inputs."""
 
     def eval_step(batch: Dict[str, torch.Tensor]):
         with torch.inference_mode():
-            cls_logits, reg_deltas = model(batch["input_data"],
-                                           batch["coord"])
-            return run_inference(cls_logits, reg_deltas, batch, cfg)
+            with span("forward"):
+                cls_logits, reg_deltas = model(batch["input_data"],
+                                               batch["coord"])
+            with span("postprocess"):
+                return run_inference(cls_logits, reg_deltas, batch, cfg)
 
     return eval_step

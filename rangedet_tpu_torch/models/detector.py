@@ -15,6 +15,7 @@ from ..ops import decode as ops_decode
 from ..ops import iou_target as ops_iou_target
 from ..ops import nms as ops_nms
 from ..ops import targets as ops_targets
+from ..utils.spans import span
 from . import losses as L
 from .dla_backbone import DLABackbone
 from .head import RangeRpnHead
@@ -190,40 +191,49 @@ def run_inference(
     ``truncated`` flags a frame whose weakest kept candidate still clears
     min_score, i.e. where the cap bound. batch holds pc_s{s} and mask_s{s}.
     Returns {class_name: {"boxes": (B, post_nms, 8), "valid": (B, post_nms),
-    "truncated": (B,)}}.
+    "truncated": (B,)}}. Profiler ranges (``utils/spans.py``): ``topk``
+    once for the levels' scores and once a class, ``decode`` and ``wnms``
+    a class.
     """
     B = cls_logits[0].shape[0]
     K = cfg.num_classes
-    scores = torch.cat(
-        [torch.sigmoid(l).reshape(B, -1, K) for l in cls_logits], dim=1)
-    deltas = torch.cat([d.reshape(B, -1, K, 8) for d in reg_deltas], dim=1)
-    pc = torch.cat(
-        [batch[f"pc_s{s}"].reshape(B, -1, 3) for s in cfg.fpn_strides], 1)
-    mask = torch.cat(
-        [batch[f"mask_s{s}"].reshape(B, -1) for s in cfg.fpn_strides], 1)
+    with span("topk"):
+        scores = torch.cat(
+            [torch.sigmoid(l).reshape(B, -1, K) for l in cls_logits], dim=1)
+        deltas = torch.cat([d.reshape(B, -1, K, 8) for d in reg_deltas],
+                           dim=1)
+        pc = torch.cat(
+            [batch[f"pc_s{s}"].reshape(B, -1, 3) for s in cfg.fpn_strides],
+            1)
+        mask = torch.cat(
+            [batch[f"mask_s{s}"].reshape(B, -1) for s in cfg.fpn_strides], 1)
 
     results = {}
     for k, name in enumerate(cfg.class_names):
         topk = min(cfg.device_topk.get(name, 4096),
                    cfg.pre_nms_top_n.get(name, 50000), scores.shape[1])
         min_score = cfg.min_score[name]
-        masked = torch.where(mask > 0, scores[..., k],
-                             torch.zeros_like(scores[..., k]))
-        idx = torch.sort(-masked, dim=1, stable=True).indices[:, :topk]
-        top_scores = torch.gather(masked, 1, idx)
-        top_deltas = torch.gather(deltas[:, :, k], 1,
-                                  idx[..., None].expand(-1, -1, 8))
-        top_pc = torch.gather(pc, 1, idx[..., None].expand(-1, -1, 3))
-        box11 = ops_boxes.box10_to_box11(
-            ops_decode.decode_boxes(top_deltas, top_pc))
-        valid = top_scores > min_score
-        truncated = top_scores[:, -1] > min_score
-        out12, out_valid = ops_nms.weighted_nms(
-            box11, top_scores, valid,
-            thresh=cfg.wnms_thr_lo, thresh_vote=cfg.wnms_thr_hi,
-            max_keep=cfg.post_nms_top_n[name], iou_3d=cfg.wnms_is_3d,
-            block=cfg.wnms_block,
-        )
-        results[name] = {"boxes": ops_boxes.box12_to_box8_eval(out12),
-                         "valid": out_valid, "truncated": truncated}
+        with span("topk"):
+            masked = torch.where(mask > 0, scores[..., k],
+                                 torch.zeros_like(scores[..., k]))
+            idx = torch.sort(-masked, dim=1, stable=True).indices[:, :topk]
+            top_scores = torch.gather(masked, 1, idx)
+            top_deltas = torch.gather(deltas[:, :, k], 1,
+                                      idx[..., None].expand(-1, -1, 8))
+            top_pc = torch.gather(pc, 1, idx[..., None].expand(-1, -1, 3))
+            valid = top_scores > min_score
+            truncated = top_scores[:, -1] > min_score
+        with span("decode"):
+            box11 = ops_boxes.box10_to_box11(
+                ops_decode.decode_boxes(top_deltas, top_pc))
+        with span("wnms"):
+            out12, out_valid = ops_nms.weighted_nms(
+                box11, top_scores, valid,
+                thresh=cfg.wnms_thr_lo, thresh_vote=cfg.wnms_thr_hi,
+                max_keep=cfg.post_nms_top_n[name], iou_3d=cfg.wnms_is_3d,
+                block=cfg.wnms_block,
+            )
+            boxes = ops_boxes.box12_to_box8_eval(out12)
+        results[name] = {"boxes": boxes, "valid": out_valid,
+                         "truncated": truncated}
     return results

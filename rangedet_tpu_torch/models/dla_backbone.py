@@ -29,10 +29,10 @@ from typing import Dict, List, Mapping, Optional, Sequence
 
 import torch
 from torch import nn
-from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from ..ops import meta_block
+from ..utils.spans import span
 from .layers import (
     BatchNorm,
     ConvNormRelu,
@@ -112,7 +112,7 @@ class MetaBlock(nn.Module):
                 and self.meta_kernel.width_group is None)
 
     def forward(self, x: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
-        with record_function("meta_block"):
+        with span("meta_block"):
             if self.fused:
                 return self._fused(x, coords)
             mk = torch.relu(self.meta_bn(self.meta_kernel(x, coords)))

@@ -38,9 +38,9 @@ import ctypes
 from typing import List, Tuple
 
 import torch
-from torch.profiler import record_function
 
 from .. import _build
+from ..utils.spans import span
 from .boxes import polygon_area
 
 LAUNCHES = 0       # clip launches (the clip kernel and its clean pass)
@@ -322,7 +322,7 @@ def iou_target(deltas: torch.Tensor, pc: torch.Tensor,
         return iou_target_plain(deltas, pc, gt_corners, topk_gt)
     if deltas.device.type != "cuda":
         raise ValueError(f"no IoU-target kernel for device {deltas.device}")
-    with record_function("iou_target"):
+    with span("iou_target"):
         cand, nv, out = candidates(deltas, pc, gt_corners, topk_gt)
         return clip(cand, nv, deltas, pc, out)
 

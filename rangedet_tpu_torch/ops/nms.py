@@ -19,7 +19,10 @@ rows as one batch, resolves the greedy chain inside the block, and votes
 for the whole block at once. It is exact: an IoU row does not depend on the
 suppression state, and a candidate between two block members was already
 dead when the block was selected. Frames run side by side; the host checks
-once per round whether any frame still has work.
+once per round whether any frame still has work. That check is a
+profiler range ``host_sync`` and each round after it ``wnms.round``
+(``utils/spans.py``): a call checks once more than it has rounds, and each
+round's IoU rows wait twice more (``rotated_iou._ccw``'s list index).
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ from typing import Tuple
 
 import torch
 
+from ..utils.spans import span
 from .boxes import polygon_area
 from .rotated_iou import iou_bev_corners
 
@@ -124,57 +128,62 @@ def weighted_nms(
     while True:
         alive0 = valid & ~suppressed
         active = (r < max_keep) & alive0.any(dim=-1)
-        if not bool(active.any()):
+        with span("host_sync"):
+            more = bool(active.any())
+        if not more:
             break
-        # the next Bk alive candidates in score order
-        key = torch.where(alive0, arange, torch.full_like(arange, K))
-        key_sorted, sub = torch.sort(key, dim=-1, stable=True)
-        sub = sub[:, :Bk]
-        sub_ok = (key_sorted[:, :Bk] < K) & active[:, None]
-        one = torch.gather(dets11, 1, sub[..., None].expand(-1, -1, 11))
-        iou_blk = _det_iou(dets11, one, iou_3d)  # (F, Bk, K)
-        is_member = arange == sub[..., None]  # (F, Bk, K)
+        with span("wnms.round"):
+            # the next Bk alive candidates in score order
+            key = torch.where(alive0, arange, torch.full_like(arange, K))
+            key_sorted, sub = torch.sort(key, dim=-1, stable=True)
+            sub = sub[:, :Bk]
+            sub_ok = (key_sorted[:, :Bk] < K) & active[:, None]
+            one = torch.gather(dets11, 1, sub[..., None].expand(-1, -1, 11))
+            iou_blk = _det_iou(dets11, one, iou_3d)  # (F, Bk, K)
+            is_member = arange == sub[..., None]  # (F, Bk, K)
 
-        # pass 1: the in-block greedy chain
-        kill = torch.zeros_like(alive0)
-        surv_l, alive_at_l = [], []
-        for b in range(Bk):
-            alive_b = alive0 & ~kill
-            alive_at_l.append(alive_b)
-            s_b = sub_ok[:, b] & torch.gather(alive_b, 1, sub[:, b:b + 1])[:, 0]
-            surv_l.append(s_b)
-            kill = kill | (
-                s_b[:, None] & ((iou_blk[:, b] >= thresh) | is_member[:, b])
+            # pass 1: the in-block greedy chain
+            kill = torch.zeros_like(alive0)
+            surv_l, alive_at_l = [], []
+            for b in range(Bk):
+                alive_b = alive0 & ~kill
+                alive_at_l.append(alive_b)
+                s_b = sub_ok[:, b] & torch.gather(
+                    alive_b, 1, sub[:, b:b + 1])[:, 0]
+                surv_l.append(s_b)
+                kill = kill | (s_b[:, None] & (
+                    (iou_blk[:, b] >= thresh) | is_member[:, b]))
+            surv = torch.stack(surv_l, dim=1)  # (F, Bk)
+            alive_at = torch.stack(alive_at_l, dim=1)  # (F, Bk, K)
+
+            # pass 2: voting, median yaw and weighted mean for the whole block
+            voters = (alive_at & (iou_blk > thresh_vote)) | is_member
+            yaw_i = torch.gather(yaw, 1, sub)
+            median = _median_yaw_presorted(
+                torch.gather(voters, 2, yaw_order[:, None].expand(-1, Bk, -1)),
+                yaw_sorted[:, None], yaw_i,
             )
-        surv = torch.stack(surv_l, dim=1)  # (F, Bk)
-        alive_at = torch.stack(alive_at_l, dim=1)  # (F, Bk, K)
+            yaw_ok = torch.remainder(
+                (yaw[:, None] - median[..., None]).abs(), TWO_PI
+            ) < YAW_REJECT
+            w = torch.where(voters & yaw_ok, weights[:, None],
+                            torch.zeros_like(iou_blk))
+            wsum = torch.clamp(w.sum(dim=-1), min=1e-12)
+            avg11 = ((w[..., None] * dets11[:, None]).sum(dim=2)
+                     / wsum[..., None])
+            blk_rows = torch.cat(
+                [avg11, torch.gather(scores, 1, sub)[..., None]], dim=-1
+            )
 
-        # pass 2: voting, median yaw and weighted mean for the whole block
-        voters = (alive_at & (iou_blk > thresh_vote)) | is_member
-        yaw_i = torch.gather(yaw, 1, sub)
-        median = _median_yaw_presorted(
-            torch.gather(voters, 2, yaw_order[:, None].expand(-1, Bk, -1)),
-            yaw_sorted[:, None], yaw_i,
-        )
-        yaw_ok = torch.remainder(
-            (yaw[:, None] - median[..., None]).abs(), TWO_PI
-        ) < YAW_REJECT
-        w = torch.where(voters & yaw_ok, weights[:, None],
-                        torch.zeros_like(iou_blk))
-        wsum = torch.clamp(w.sum(dim=-1), min=1e-12)
-        avg11 = (w[..., None] * dets11[:, None]).sum(dim=2) / wsum[..., None]
-        blk_rows = torch.cat(
-            [avg11, torch.gather(scores, 1, sub)[..., None]], dim=-1
-        )
-
-        # emit survivors at their greedy ranks; the rest go to the dump slot
-        ranks = r[:, None] + torch.cumsum(surv.long(), dim=-1) - 1
-        slot = torch.where(surv, ranks, torch.full_like(ranks, max_keep))
-        slot = torch.clamp(slot, max=max_keep)
-        rows.scatter_(1, slot[..., None].expand(-1, -1, 12), blk_rows)
-        row_valid.scatter_(1, slot, torch.ones_like(surv))
-        suppressed = suppressed | kill
-        r = torch.clamp(r + surv.sum(dim=-1), max=max_keep)
+            # emit survivors at their greedy ranks; the rest go to the dump
+            # slot
+            ranks = r[:, None] + torch.cumsum(surv.long(), dim=-1) - 1
+            slot = torch.where(surv, ranks, torch.full_like(ranks, max_keep))
+            slot = torch.clamp(slot, max=max_keep)
+            rows.scatter_(1, slot[..., None].expand(-1, -1, 12), blk_rows)
+            row_valid.scatter_(1, slot, torch.ones_like(surv))
+            suppressed = suppressed | kill
+            r = torch.clamp(r + surv.sum(dim=-1), max=max_keep)
 
     rows, row_valid = rows[:, :max_keep], row_valid[:, :max_keep]
     if single:

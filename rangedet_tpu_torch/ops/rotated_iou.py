@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.spans import span
 from .boxes import polygon_area
 
 EPS = 1e-8
@@ -19,8 +20,12 @@ _REVERSE = [0, 3, 2, 1]
 
 
 def _ccw(p: torch.Tensor) -> torch.Tensor:
-    return torch.where((polygon_area(p) < 0)[..., None, None],
-                       p[..., _REVERSE, :], p)
+    cw = (polygon_area(p) < 0)[..., None, None]
+    # the list index goes to the card from pageable host memory, a copy
+    # that waits for the card's queue: a "host_sync" range (utils/spans.py)
+    with span("host_sync"):
+        rev = p[..., _REVERSE, :]
+    return torch.where(cw, rev, p)
 
 
 def _pieces(P: torch.Tensor, Q: torch.Tensor) -> torch.Tensor:

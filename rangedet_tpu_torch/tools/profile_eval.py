@@ -4,13 +4,16 @@ of a recipe, seeded random weights, under ``torch.profiler``.
     python -m rangedet_tpu_torch.tools.profile_eval [--batch 4]
         [--out profile_b4.txt]
 
-Prints the wall time of the profiled steps, the device time of the forward
-and of the post-processing (top-k, decode, WNMS) ranges and of the
-forward's Meta-Kernel block (the "meta_block" range), the device busy
-share, and the kernels by total device time; writes the full table to
-``--out``. It profiles the recipe as it ships (``use_pallas_meta``: the
-Meta-Kernel's taps from their kernel), then the same step with the taps'
-plain version, for its range line. Needs a CUDA card.
+It drives the program's eval step (``infer.make_eval_step``) and reads
+its ranges (``utils/spans.py``). Prints the wall time of the profiled
+steps, the device time of the ``forward`` and ``postprocess`` ranges, of
+the forward's Meta-Kernel block (``meta_block``), of the post-processing's
+``topk``, ``decode`` and ``wnms``, the weighted NMS's rounds a step
+(``wnms.round``), the device busy share, and the kernels by total device
+time; writes the full table to ``--out``. It profiles the recipe as it
+ships (``use_pallas_meta``: the Meta-Kernel's taps from their kernel),
+then the same step with the taps' plain version, for its range line.
+Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -19,12 +22,14 @@ import os
 import time
 
 import torch
-from torch.profiler import ProfilerActivity, profile, record_function
+from torch.profiler import ProfilerActivity, profile
 
 RECIPE = "rangedet_veh_wo_aug_4_18e"
 ITERS = 5  # profiled steps, after 2 warm-up steps
 SEED = 0
-RANGES = ("forward", "postprocess", "meta_block")
+# every range of the eval step (their device copies are no kernels)
+SPANS = ("forward", "postprocess", "meta_block", "topk", "decode", "wnms",
+         "wnms.round", "host_sync")
 
 
 def _device_us(evt) -> float:
@@ -67,14 +72,21 @@ def range_device_ms(prof, names, iters):
     return out
 
 
+def range_counts(prof, name, iters) -> float:
+    """Host windows of the range ``name`` a step."""
+    from torch.autograd import DeviceType
+
+    return sum(e.device_type() == DeviceType.CPU and e.name() == name
+               for e in prof.profiler.kineto_results.events()) / iters
+
+
 def profile_step(cfg, batch_size):
     """Profile ITERS eval steps after 2 warm-up steps. Returns the wall ms
-    per step, the busy device ms per step, the device ms of each range and
-    the kernel events."""
+    per step, the busy device ms per step, the device ms of each range
+    (and "rounds", the weighted NMS's a step) and the kernel events."""
     from rangedet_tpu_torch.data.synthetic import make_batch
-    from rangedet_tpu_torch.infer import build_eval_inputs
+    from rangedet_tpu_torch.infer import build_eval_inputs, make_eval_step
     from rangedet_tpu_torch.models import RangeDet
-    from rangedet_tpu_torch.models.detector import run_inference
 
     dev = torch.device("cuda")
     model = RangeDet(**cfg.model_kwargs())
@@ -83,28 +95,23 @@ def profile_step(cfg, batch_size):
     inputs = build_eval_inputs(
         make_batch(cfg, batch_size, seed=SEED, num_boxes=20), cfg, dev)
 
-    def step():
-        with torch.inference_mode():
-            with record_function("forward"):
-                out = model(inputs["input_data"], inputs["coord"])
-            with record_function("postprocess"):
-                return run_inference(*out, inputs, cfg)
-
+    step = make_eval_step(model, cfg)
     for _ in range(2):
-        step()
+        step(inputs)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(ITERS):
-            step()
+            step(inputs)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / ITERS
 
-    ranges = range_device_ms(prof, RANGES, ITERS)
+    ranges = range_device_ms(prof, SPANS, ITERS)
+    ranges["rounds"] = range_counts(prof, "wnms.round", ITERS)
     # kernels only: the ranges and the aten ops that launched the kernels
     # carry device time too
-    kernels = [e for e in prof.key_averages() if e.key not in RANGES
+    kernels = [e for e in prof.key_averages() if e.key not in SPANS
                and str(e.device_type).endswith("CUDA")
                and _self_device_us(e) > 0]
     busy_ms = sum(_self_device_us(e) for e in kernels) / 1e3 / ITERS
@@ -131,8 +138,10 @@ def main(argv=None) -> None:
               f"{form}, on {name}: wall {wall_ms:.2f} ms/step, device busy "
               f"{busy_ms:.2f} ms/step ({100 * busy_ms / wall_ms:.1f}%), "
               f"device ms by range: forward {ranges['forward']:.2f}, "
-              f"postprocess {ranges['postprocess']:.2f}, meta_block "
-              f"{ranges['meta_block']:.2f} (of the forward)")
+              f"postprocess {ranges['postprocess']:.2f} (topk "
+              f"{ranges['topk']:.2f}, decode {ranges['decode']:.2f}, wnms "
+              f"{ranges['wnms']:.2f} in {ranges['rounds']:.1f} rounds), "
+              f"meta_block {ranges['meta_block']:.2f} (of the forward)")
         if i:  # the kernel table of the recipe's own step only
             continue
         kernels.sort(key=_self_device_us, reverse=True)

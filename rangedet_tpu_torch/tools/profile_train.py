@@ -71,7 +71,7 @@ def profile_step(cfg, batch_size):
         wall_ms = (time.perf_counter() - t0) * 1e3 / ITERS
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
-    names = STAGES + NESTED
+    names = ("train_step",) + STAGES + NESTED
     ranges = range_device_ms(prof, names, ITERS)
     events = prof.key_averages()
     kernels = [e for e in events if e.key not in names

@@ -7,7 +7,7 @@ output dict) that ``tools/create_prediction_bin_3d.py`` and
     python -m rangedet_tpu_torch.tools.test --config rangedet_veh_wo_aug_4_18e \
         --data-root DIR [--image-set validation] [--batch 4] \
         [--experiment-dir DIR] [--epoch N | --weights w.npz] [--device cuda] \
-        [--output p.pkl]
+        [--output p.pkl] [--profile-steps N]
     python -m rangedet_tpu_torch.tools.test --config ... --synthetic 2
 
 Frames come from the roidb files under ``DATA_ROOT/<image set>/*.roidb``
@@ -26,6 +26,14 @@ the devices: each rank runs on its card (``cuda:LOCAL_RANK``) the frames
 i = rank (mod N), ``--batch`` of them a step, and rank 0 gathers the
 outputs and writes the pickle in the order of a one-process run, which
 it equals.
+
+``--profile-steps N`` writes a ``torch.profiler`` trace of eval steps
+1 .. N (step 0 loads the kernels) under ``<experiment>/<name>/
+eval_traces``, which Chrome and TensorBoard read (``utils/logger.py:
+ProfilerHook``; rank 0 only). The eval step's ranges (``utils/spans.py``)
+are in it: ``forward``, ``postprocess``, and inside the latter ``topk``,
+``decode`` and ``wnms``, whose ``wnms.round`` and ``host_sync`` ranges
+count the weighted NMS's rounds and its waits for the card.
 """
 from __future__ import annotations
 
@@ -38,6 +46,7 @@ import numpy as np
 import torch
 
 INIT_SEED = 0
+PROFILE_START = 1  # step 0 loads the kernels and grows the allocator
 
 
 def parse_args(argv=None):
@@ -65,6 +74,10 @@ def parse_args(argv=None):
                         "whenever WORLD_SIZE > 1)")
     p.add_argument("--device", default="cuda",
                    help="cuda (the card cuda:LOCAL_RANK) or cpu")
+    p.add_argument("--profile-steps", type=int, default=0,
+                   help=f"write a torch.profiler trace of N eval steps from "
+                        f"step {PROFILE_START} under <experiment>/<name>/"
+                        f"eval_traces")
     return p.parse_args(argv)
 
 
@@ -156,6 +169,7 @@ def _test(args, ranks):
     from rangedet_tpu_torch.configs import load_config
     from rangedet_tpu_torch.infer import build_eval_inputs, make_eval_step
     from rangedet_tpu_torch.models import RangeDet
+    from rangedet_tpu_torch.utils.logger import ProfilerHook
 
     device, rank, world = ranks.device, ranks.rank, ranks.world
     if world > 1:
@@ -177,33 +191,40 @@ def _test(args, ranks):
                                        f" on rank {rank}" if world > 1
                                        else ""))
 
+    profiler = ProfilerHook(
+        os.path.join(cfg.experiment_dir, cfg.name, "eval_traces"),
+        PROFILE_START, args.profile_steps if rank == 0 else 0)
     rows = []  # (rec_id, annotation, output) a frame, in order
     n = n_truncated = 0
     t0 = time.perf_counter()
-    for group, real in batched(frames, args.batch):
-        stacked = {k: np.concatenate([b[k] for _, b, _ in group])
-                   for k in group[0][1]}
-        out = eval_step(build_eval_inputs(stacked, cfg, device))
-        # the reference pickle contract (create_prediction_bin_3d.py:85-97):
-        # per frame {'det_xyzlwhyaws': {class: (N, 8) [x,y,z,l,w,h,yaw,
-        # score]}, 'meta_info': {'name', 'timestamp_micros'}}
-        out = {c: {k: v.cpu().numpy() for k, v in r.items()}
-               for c, r in out.items()}
-        for j in range(real):
-            rec_id, _, anno = group[j]
-            det, truncated = {}, False
-            for cls_name, res in out.items():
-                det[cls_name] = res["boxes"][j][res["valid"][j]][
-                    : cfg.max_det_per_image]
-                truncated |= bool(res["truncated"][j])
-            n_truncated += truncated
-            rows.append((rec_id, anno, {
-                "det_xyzlwhyaws": det,
-                "meta_info": anno.get(
-                    "meta_info", {"name": str(rec_id), "timestamp_micros": 0}),
-                "truncated": truncated,
-            }))
-            n += 1
+    try:
+        for step, (group, real) in enumerate(batched(frames, args.batch)):
+            stacked = {k: np.concatenate([b[k] for _, b, _ in group])
+                       for k in group[0][1]}
+            profiler(step)
+            out = eval_step(build_eval_inputs(stacked, cfg, device))
+            # the reference pickle contract (create_prediction_bin_3d.py:
+            # 85-97): per frame {'det_xyzlwhyaws': {class: (N, 8) [x,y,z,
+            # l,w,h,yaw,score]}, 'meta_info': {'name', 'timestamp_micros'}}
+            out = {c: {k: v.cpu().numpy() for k, v in r.items()}
+                   for c, r in out.items()}
+            for j in range(real):
+                rec_id, _, anno = group[j]
+                det, truncated = {}, False
+                for cls_name, res in out.items():
+                    det[cls_name] = res["boxes"][j][res["valid"][j]][
+                        : cfg.max_det_per_image]
+                    truncated |= bool(res["truncated"][j])
+                n_truncated += truncated
+                rows.append((rec_id, anno, {
+                    "det_xyzlwhyaws": det,
+                    "meta_info": anno.get("meta_info", {
+                        "name": str(rec_id), "timestamp_micros": 0}),
+                    "truncated": truncated,
+                }))
+                n += 1
+    finally:
+        profiler.close()
     dt = time.perf_counter() - t0
     print(f"{n} frames in {dt:.1f}s on {device} (batch {args.batch}); "
           f"{n_truncated} flagged truncated (device_topk cap bound)")

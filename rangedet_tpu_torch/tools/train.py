@@ -125,7 +125,6 @@ import time
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 STEPS_PER_EPOCH = 100  # tools/train.py's default for synthetic data
 LOADER_SEED = 0  # tools/train.py passes no seed to its BatchLoader
@@ -324,6 +323,7 @@ def device_cache_source(cfg, args, logger, device):
         unpack_raw,
     )
     from rangedet_tpu_torch.data.waymo import load_roidbs
+    from rangedet_tpu_torch.utils.spans import span
 
     if cfg.augment:
         raise SystemExit(
@@ -348,7 +348,7 @@ def device_cache_source(cfg, args, logger, device):
             yield order[lo:lo + B]
 
     def to_batch(idx, step):
-        with record_function("device_cache_batch"):
+        with span("device_cache_batch"):
             raw = unpack_raw(gather_packed(cache, idx), data_w)
             if names:
                 raw = augment_raw(raw, data_w, names=names,

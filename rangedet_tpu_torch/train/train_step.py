@@ -11,17 +11,18 @@ smooth-L1 -> backward -> the clip (elementwise, or by the global norm) ->
 the optimizer (SGD with momentum and weight decay, or AdamW) at the
 schedule's LR and, with onecycle, its momentum -> for AdamWS the conv
 kernels' standardization. The 3x3 convs run the conv3x3 forward, dgrad
-and wgrad kernels, the IoU target its own kernel (``ops/``). Each stage is
-a ``record_function`` range, which ``tools/profile_train.py`` reads.
+and wgrad kernels, the IoU target its own kernel (``ops/``). The step is
+a profiler range (``utils/spans.py``) ``train_step``, each stage one
+inside it, which ``tools/profile_train.py`` and the benchmark read.
 """
 from __future__ import annotations
 
 from typing import Callable, Dict
 
 import torch
-from torch.profiler import record_function
 
 from ..models.detector import build_train_targets, compute_losses
+from ..utils.spans import span
 from .schedule import clip_gradients, set_hyperparams, standardize_
 from .state import TrainState
 
@@ -57,22 +58,24 @@ def make_train_step(state: TrainState, cfg, group=None, width_group=None
 
     def step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         model.train()
-        with record_function("targets"):
-            targets = build_train_targets(batch, cfg, width_group)
-        with record_function("forward"):
-            cls_logits, reg_deltas = model(batch["input_data"],
-                                           batch["coord"])
-        with record_function("losses"):  # the IoU target included
-            total, metrics = compute_losses(cls_logits, reg_deltas, targets,
-                                            cfg, sync_group=sync)
-        with record_function("backward"):
-            opt.zero_grad(set_to_none=True)
-            total.backward()
-        if reduce is not None:
-            with record_function("all_reduce"):
-                metrics = reduce(metrics)
-        with record_function("optimizer"):
-            apply_update(state, cfg)
+        with span("train_step"):
+            with span("targets"):
+                targets = build_train_targets(batch, cfg, width_group)
+            with span("forward"):
+                cls_logits, reg_deltas = model(batch["input_data"],
+                                               batch["coord"])
+            with span("losses"):  # the IoU target included
+                total, metrics = compute_losses(cls_logits, reg_deltas,
+                                                targets, cfg,
+                                                sync_group=sync)
+            with span("backward"):
+                opt.zero_grad(set_to_none=True)
+                total.backward()
+            if reduce is not None:
+                with span("all_reduce"):
+                    metrics = reduce(metrics)
+            with span("optimizer"):
+                apply_update(state, cfg)
         return {k: v.detach() for k, v in metrics.items()}
 
     return step
