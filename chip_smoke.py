@@ -350,6 +350,14 @@ META_TAPS_BOUND_MAX = 3.0
 # of ~340k terms in another order
 TAP_OFF_MAX = 1e-4
 TAP_SUM_TOL = 1e-5
+# the weighted-NMS kernel's f32 operations a (member, candidate) pair of
+# the blocked form: the BEV IoU (two Liang-Barsky clips of 16 half-plane
+# tests each, the edge sums, areas and the ratio), as profile_iou counts
+# the same clip. Charged to every member of every round against every
+# candidate, it is an upper count: the function needs only each survivor
+# against the candidates alive at its turn, and the kernel computes the
+# IoU only of the pairs past its circumcircle filter
+WNMS_OPS_PER_PAIR = 600
 # phase 10's CLI run: training frames (B=2: 8 steps an epoch), the
 # recipe's options, the speedometer's frequency; AdamWS's standardized
 # kernels within STD_TOL of mean 0 / std 1 a filter after each step
@@ -579,6 +587,64 @@ class KernelTotals:
 
     def bound_by(self):
         return max(self.by, key=self.by.get) if self.by else "operations"
+
+
+def wnms_check(torch, nms, args, kw):
+    """The weighted-NMS kernel on one call's (F, K, 11) candidates against
+    the plain version on the card: validity, the score column (bit for
+    bit) and the rounds a frame (the plain version's wnms.round ranges,
+    each frame alone) equal; the 11 averaged values within the bound of
+    two f32 weighted means of the same m products summed in other orders
+    (tests/test_torch_wnms_plan.py:mean_gap_bound), taken here with m the
+    frame's valid candidates and each product at most the weight times the
+    column's largest |value| among them (a NaN as any NaN); then kernel
+    and plain ms and the f32 bound of the blocked form's pair IoUs.
+    Returns a KernelTotals."""
+    rows, valid = nms.weighted_nms(*args, **kw)
+    rounds = nms.wnms_kernel(*args, **kw)[2].tolist()
+    u, gap_share = 2.0 ** -24, 0.0
+    for f, one in enumerate(zip(*args)):
+        n = [0]
+        real = nms.span
+
+        def count(name):
+            n[0] += name == "wnms.round"
+            return real(name)
+
+        with mock.patch.object(nms, "span", count):
+            want, want_valid = nms.weighted_nms_plain(*one, **kw)
+        m = int(one[2].sum())
+        e = (m + 1) * u
+        scale = one[0][one[2]].abs().amax(dim=0) if m else torch.zeros_like(
+            one[0][0])
+        tol = (2 * (2 * e + u) * scale.double() / (1 - e) ** 2)
+        x, y = rows[f][:, :11].double(), want[:, :11].double()
+        nan = torch.isnan(x)
+        gap = torch.where(nan | (x == y), 0.0, (x - y).abs())
+        gap_share = max(gap_share, float((gap / tol).nan_to_num().max()))
+        same = (torch.equal(valid[f], want_valid)
+                and torch.equal(nan, torch.isnan(y))
+                and bool((gap <= tol).all())
+                and torch.equal(rows[f][:, 11].view(torch.int32),
+                                want[:, 11].view(torch.int32)))
+        if not same or rounds[f] != n[0]:
+            raise SystemExit(f"[3] WNMS kernel vs plain, frame {f}: "
+                             f"validity, scores and values within bound "
+                             f"{same}, rounds {rounds[f]} vs {n[0]}")
+    t = KernelTotals()
+    F_, K = args[0].shape[:2]
+    flops = WNMS_OPS_PER_PAIR * sum(rounds) * min(kw["block"], K) * K
+    nbytes = 4 * F_ * K * 13 + 4 * rows.numel() + valid.numel()
+    t.add(1, _time_ms(lambda: nms.weighted_nms(*args, **kw)),
+          _median_ms(lambda: nms.weighted_nms_plain(*args, **kw), iters=3),
+          _bound_ms(flops, nbytes, PEAK_F32), None, 0.0)
+    print(f"[3] WNMS kernel at F={F_}, K={K}: validity, scores and rounds "
+          f"{rounds} equal to the plain version's, values within their "
+          f"bound (largest gap/bound {gap_share:.3g}); kernel "
+          f"{t.ms:.4f} ms, "
+          f"plain {t.plain_ms:.2f} ms, f32 bound {t.bound_ms:.4f} ms "
+          f"({t.bound_by()})")
+    return t
 
 
 # ---------------------------------------------------------------- phase 5
@@ -5279,6 +5345,7 @@ def main():
         torch.cuda.synchronize()
         conv3x3.reset_counts()
         taps.reset_counts()
+        nms.reset_counts()
         out = eval_step(inputs)
         torch.cuda.synchronize()
         launches, taps_launches = conv3x3.LAUNCHES, taps.LAUNCHES
@@ -5286,6 +5353,11 @@ def main():
             raise SystemExit(f"[3] B={B}: {launches} conv3x3 and "
                              f"{taps_launches} taps launches, expected "
                              f"{expected} and {n_taps}")
+        if nms.LAUNCHES != cfg.num_classes:
+            raise SystemExit(f"[3] B={B}: {nms.LAUNCHES} WNMS launches, "
+                             f"expected one a class ({cfg.num_classes})")
+        if B == 4:  # veh.eval.b4's step
+            wnms_launches_b4 = nms.LAUNCHES
         res = out["veh"]
         boxes, valid = res["boxes"], res["valid"]
         if not (torch.isfinite(boxes[valid]).all()
@@ -5333,6 +5405,10 @@ def main():
             wnms_ms = _median_ms(
                 lambda: real_wnms(*captured["args"], **captured["kw"]))
         n_valid = int(captured["args"][2].sum())
+        if B == 4:  # veh.eval.b4's shapes
+            with torch.inference_mode():
+                wnms_b4 = wnms_check(torch, nms, captured["args"],
+                                     captured["kw"])
         print(f"[3] B={B}: {launches} conv3x3 and {taps_launches} taps "
               f"launches/forward; outputs "
               f"finite; kernel vs plain path max rel err {rel:.4g} "
@@ -5446,6 +5522,9 @@ def main():
         ("serve", "conv3x3_bhcw", serve, serve_launches, conv_src, conv_tpu),
         ("serve", "meta_kernel_taps", taps_totals[1], serve_taps_launches,
          meta_src, "rangedet_tpu/ops/meta_kernel_pallas.py:138"),
+        ("serve_b4", "weighted_nms", wnms_b4, wnms_launches_b4,
+         "rangedet_tpu_torch/csrc/wnms.cu",
+         "none (rangedet_tpu/ops/nms.py:weighted_nms, a lax.while_loop)"),
         ("train", "conv3x3_bhcw_train", totals["fwd"], launches["fwd"],
          conv_src, conv_tpu),
         ("train", "conv3x3_dgrad", totals["dgrad"], launches["dgrad"],

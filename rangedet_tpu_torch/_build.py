@@ -24,9 +24,10 @@ BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                      "-Xptxas", "-v"]
-# per-source extra flags: the IoU target matches its plain version
-# operation for operation, so no multiply-add contraction there
-EXTRA_FLAGS = {"iou_target.cu": ["-fmad=false"]}
+# per-source extra flags: the IoU target and the weighted NMS match their
+# plain versions operation for operation, so no multiply-add contraction
+# there
+EXTRA_FLAGS = {"iou_target.cu": ["-fmad=false"], "wnms.cu": ["-fmad=false"]}
 
 _lib: Optional[ctypes.CDLL] = None
 # what the last build printed (ptxas registers / shared memory per kernel)
@@ -113,7 +114,7 @@ def load_from(csrc: Path) -> ctypes.CDLL:
     entry point that the variant does not have (an older build's) stays
     unbound."""
     lib = ctypes.CDLL(str(build(csrc)))
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     strides = ctypes.POINTER(ctypes.c_longlong)
     entry_points = {
         "conv3x3_bhcw_fwd": [vp] * 14 + [i32] * 15 + [vp],
@@ -128,6 +129,8 @@ def load_from(csrc: Path) -> ctypes.CDLL:
         "meta_agg_fwd": [vp] * 10 + [i32] * 6 + [vp],
         "meta_block_bwd": [vp] * 13 + [i32] * 7 + [vp],
         "meta_kernel_taps": [vp] * 7 + [i32] * 6 + [vp],
+        "wnms_launch": [vp] * 3 + [i32] * 2 + [f32] * 2 + [i32] * 3
+                       + [vp] * 5,
     }
     for name, argtypes in entry_points.items():
         if hasattr(lib, name):

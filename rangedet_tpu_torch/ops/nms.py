@@ -18,11 +18,20 @@ Each round selects the next ``block`` alive candidates, computes their IoU
 rows as one batch, resolves the greedy chain inside the block, and votes
 for the whole block at once. It is exact: an IoU row does not depend on the
 suppression state, and a candidate between two block members was already
-dead when the block was selected. Frames run side by side; the host checks
-once per round whether any frame still has work. That check is a
-profiler range ``host_sync`` and each round after it ``wnms.round``
-(``utils/spans.py``): a call checks once more than it has rounds, and each
-round's IoU rows wait twice more (``rotated_iou._ccw``'s list index).
+dead when the block was selected.
+
+Routes: ``weighted_nms`` takes a CPU tensor to ``weighted_nms_plain`` and a
+CUDA tensor to ``wnms_kernel`` (``csrc/wnms.cu``: one launch, the whole
+sweep of every frame on the card, no wait for it) or raises. The kernel
+takes the plain version's decisions; its weighted sums run in float64 in
+a fixed order, so its rows may differ from the plain f32 sums in the last
+bits (``tests/test_torch_wnms_plan.py`` states the bound). The plain
+version runs the frames side by side; the host checks once per round
+whether any frame still has work. That check is a profiler range
+``host_sync`` and each round after it ``wnms.round`` (``utils/spans.py``):
+a call checks once more than it has rounds, and each round's IoU rows wait
+twice more (``rotated_iou._ccw``'s list index). The kernel's route opens
+neither.
 """
 from __future__ import annotations
 
@@ -30,12 +39,23 @@ from typing import Tuple
 
 import torch
 
+from .. import _build
 from ..utils.spans import span
 from .boxes import polygon_area
 from .rotated_iou import iou_bev_corners
 
 YAW_REJECT = 0.3
 TWO_PI = 2.0 * 3.1415926  # the constant of nms.h:542
+
+LAUNCHES = 0  # csrc/wnms.cu launches
+# csrc/wnms.cu's MAX_K and SCRATCH (a test holds them equal)
+MAX_K = 16384  # candidates a frame: the kernel sorts them in shared memory
+SCRATCH = 34  # floats of the kernel's scratch a candidate
+
+
+def reset_counts() -> None:
+    global LAUNCHES
+    LAUNCHES = 0
 
 
 def _det_iou(dets11: torch.Tensor, one: torch.Tensor, iou_3d: bool
@@ -97,8 +117,85 @@ def weighted_nms(
     (F, K) scores and validity, F frames at once; (K, 11) runs one frame.
 
     Returns out12 (F, max_keep, 12) [weighted 11 values, survivor score] and
-    out_valid (F, max_keep), without F for a single frame.
+    out_valid (F, max_keep), without F for a single frame: the kernel on a
+    CUDA tensor, the plain version on a CPU tensor.
     """
+    if dets11.device.type == "cpu":
+        return weighted_nms_plain(dets11, scores, valid, thresh, thresh_vote,
+                                  max_keep, iou_3d, block)
+    if dets11.device.type != "cuda":
+        raise ValueError(f"no weighted-NMS kernel for device {dets11.device}")
+    single = dets11.dim() == 2
+    if single:
+        dets11, scores, valid = dets11[None], scores[None], valid[None]
+    rows, row_valid, _ = wnms_kernel(
+        dets11.float().contiguous(), scores.float().contiguous(),
+        valid.contiguous(), thresh, thresh_vote, max_keep, iou_3d, block)
+    if single:
+        return rows[0], row_valid[0]
+    return rows, row_valid
+
+
+def wnms_kernel(dets11: torch.Tensor, scores: torch.Tensor,
+                valid: torch.Tensor, thresh: float, thresh_vote: float,
+                max_keep: int, iou_3d: bool = False, block: int = 16
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The kernel on CUDA tensors: dets11 (F, K, 11) and scores (F, K)
+    float32, valid (F, K) bool, all contiguous on one card, 1 <= K <=
+    MAX_K -> (out12, out_valid) as ``weighted_nms``'s, and the rounds a
+    frame, (F,) int32 on the card. One launch, no wait for it."""
+    global LAUNCHES
+    if dets11.dim() != 3 or dets11.shape[-1] != 11:
+        raise ValueError(f"dets11 must be (F, K, 11), got "
+                         f"{tuple(dets11.shape)}")
+    F_, K = dets11.shape[:2]
+    for name, t, dtype, shape in (("dets11", dets11, torch.float32,
+                                   (F_, K, 11)),
+                                  ("scores", scores, torch.float32, (F_, K)),
+                                  ("valid", valid, torch.bool, (F_, K))):
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous {shape}, got "
+                             f"{tuple(t.shape)}")
+        if t.device != dets11.device or t.device.type != "cuda":
+            raise ValueError(f"{name} on {t.device}, dets11 on "
+                             f"{dets11.device}: the kernel needs one card")
+    if not 1 <= K <= MAX_K:
+        raise ValueError(f"{K} candidates a frame, the kernel takes 1 to "
+                         f"{MAX_K}")
+    if F_ < 1 or max_keep < 0 or block < 1:
+        raise ValueError(f"no weighted NMS of {F_} frames, max_keep "
+                         f"{max_keep}, block {block}")
+    dev = dets11.device
+    rows = torch.empty((F_, max_keep, 12), dtype=torch.float32, device=dev)
+    row_valid = torch.empty((F_, max_keep), dtype=torch.bool, device=dev)
+    rounds = torch.empty((F_,), dtype=torch.int32, device=dev)
+    scratch = torch.empty((F_ * K * SCRATCH,), dtype=torch.float32,
+                          device=dev)
+    with torch.cuda.device(dev):
+        err = _build.load().wnms_launch(
+            dets11.data_ptr(), scores.data_ptr(), valid.data_ptr(), F_, K,
+            thresh, thresh_vote, max_keep, block, int(iou_3d),
+            scratch.data_ptr(), rows.data_ptr(), row_valid.data_ptr(),
+            rounds.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"wnms launch failed: cudaError {err}")
+    LAUNCHES += 1
+    return rows, row_valid, rounds
+
+
+def weighted_nms_plain(
+    dets11: torch.Tensor,
+    scores: torch.Tensor,
+    valid: torch.Tensor,
+    thresh: float,
+    thresh_vote: float,
+    max_keep: int,
+    iou_3d: bool = False,
+    block: int = 16,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``weighted_nms`` through the plain version on any device."""
     if block < 1:
         raise ValueError(f"block must be >= 1, got {block}")
     single = dets11.dim() == 2

@@ -8,11 +8,12 @@ It drives the program's eval step (``infer.make_eval_step``) and reads
 its ranges (``utils/spans.py``). Prints the wall time of the profiled
 steps, the device time of the ``forward`` and ``postprocess`` ranges, of
 the forward's Meta-Kernel block (``meta_block``), of the post-processing's
-``topk``, ``decode`` and ``wnms``, the weighted NMS's rounds a step
-(``wnms.round``), the device busy share, and the kernels by total device
-time; writes the full table to ``--out``. It profiles the recipe as it
-ships (``use_pallas_meta``: the Meta-Kernel's taps from their kernel),
-then the same step with the taps' plain version, for its range line.
+``topk``, ``decode`` and ``wnms``, the weighted NMS kernel's rounds a
+frame in each class call of one more step (``ops/nms.py:wnms_kernel``),
+the device busy share, and the kernels by total device time; writes the
+full table to ``--out``. It profiles the recipe as it ships
+(``use_pallas_meta``: the Meta-Kernel's taps from their kernel), then the
+same step with the taps' plain version, for its range line.
 Needs a CUDA card.
 """
 from __future__ import annotations
@@ -20,6 +21,7 @@ from __future__ import annotations
 import argparse
 import os
 import time
+from unittest import mock
 
 import torch
 from torch.profiler import ProfilerActivity, profile
@@ -28,8 +30,7 @@ RECIPE = "rangedet_veh_wo_aug_4_18e"
 ITERS = 5  # profiled steps, after 2 warm-up steps
 SEED = 0
 # every range of the eval step (their device copies are no kernels)
-SPANS = ("forward", "postprocess", "meta_block", "topk", "decode", "wnms",
-         "wnms.round", "host_sync")
+SPANS = ("forward", "postprocess", "meta_block", "topk", "decode", "wnms")
 
 
 def _device_us(evt) -> float:
@@ -72,21 +73,15 @@ def range_device_ms(prof, names, iters):
     return out
 
 
-def range_counts(prof, name, iters) -> float:
-    """Host windows of the range ``name`` a step."""
-    from torch.autograd import DeviceType
-
-    return sum(e.device_type() == DeviceType.CPU and e.name() == name
-               for e in prof.profiler.kineto_results.events()) / iters
-
-
 def profile_step(cfg, batch_size):
     """Profile ITERS eval steps after 2 warm-up steps. Returns the wall ms
     per step, the busy device ms per step, the device ms of each range
-    (and "rounds", the weighted NMS's a step) and the kernel events."""
+    (and "rounds", the weighted NMS kernel's a frame in each class call of
+    one more step) and the kernel events."""
     from rangedet_tpu_torch.data.synthetic import make_batch
     from rangedet_tpu_torch.infer import build_eval_inputs, make_eval_step
     from rangedet_tpu_torch.models import RangeDet
+    from rangedet_tpu_torch.ops import nms
 
     dev = torch.device("cuda")
     model = RangeDet(**cfg.model_kwargs())
@@ -108,7 +103,17 @@ def profile_step(cfg, batch_size):
         wall_ms = (time.perf_counter() - t0) * 1e3 / ITERS
 
     ranges = range_device_ms(prof, SPANS, ITERS)
-    ranges["rounds"] = range_counts(prof, "wnms.round", ITERS)
+    calls = []
+    real = nms.weighted_nms
+
+    def grab(*a, **kw):
+        calls.append((a, kw))
+        return real(*a, **kw)
+
+    with mock.patch.object(nms, "weighted_nms", grab):
+        step(inputs)
+    ranges["rounds"] = [nms.wnms_kernel(*a, **kw)[2].tolist()
+                        for a, kw in calls]
     # kernels only: the ranges and the aten ops that launched the kernels
     # carry device time too
     kernels = [e for e in prof.key_averages() if e.key not in SPANS
@@ -140,7 +145,7 @@ def main(argv=None) -> None:
               f"device ms by range: forward {ranges['forward']:.2f}, "
               f"postprocess {ranges['postprocess']:.2f} (topk "
               f"{ranges['topk']:.2f}, decode {ranges['decode']:.2f}, wnms "
-              f"{ranges['wnms']:.2f} in {ranges['rounds']:.1f} rounds), "
+              f"{ranges['wnms']:.2f}, rounds a frame {ranges['rounds']}), "
               f"meta_block {ranges['meta_block']:.2f} (of the forward)")
         if i:  # the kernel table of the recipe's own step only
             continue

@@ -32,8 +32,9 @@ it equals.
 eval_traces``, which Chrome and TensorBoard read (``utils/logger.py:
 ProfilerHook``; rank 0 only). The eval step's ranges (``utils/spans.py``)
 are in it: ``forward``, ``postprocess``, and inside the latter ``topk``,
-``decode`` and ``wnms``, whose ``wnms.round`` and ``host_sync`` ranges
-count the weighted NMS's rounds and its waits for the card.
+``decode`` and ``wnms`` (on the CPU, its ``wnms.round`` and ``host_sync``
+ranges count the weighted NMS's rounds and its waits; on the card it is one
+kernel launch and opens neither).
 """
 from __future__ import annotations
 

@@ -4,7 +4,7 @@
 profiler records, and a shared null context otherwise: a
 ``record_function`` does its bookkeeping even with no profiler on (about
 9 us a range on a CPU host, more than one aten op), and the eval step
-opens about two ranges a round of its weighted NMS. Behind the check a
+opens about two ranges a round of its plain weighted NMS. Behind the check a
 closed span costs one attribute read.
 
 The ranges sit on the profiler's own clock beside the device trace, so a
@@ -21,10 +21,11 @@ The ranges, by where they open:
   and level concat, then per class the mask, the stable sort and the
   gathers), ``decode`` and ``wnms`` (the weighted NMS and the eval rows),
   per class;
-* ``ops/nms.py:weighted_nms``: ``wnms.round`` around each pass of the loop
-  that does work, ``host_sync`` around each wait for the card: the loop's
-  check (its rounds plus one a call) and, inside a round, the two list
-  indexes of ``ops/rotated_iou.py:_ccw``;
+* ``ops/nms.py:weighted_nms_plain`` (the CPU's route; the card's kernel
+  opens none): ``wnms.round`` around each pass of the loop that does work,
+  ``host_sync`` around each wait for the card: the loop's check (its
+  rounds plus one a call) and, inside a round, the two list indexes of
+  ``ops/rotated_iou.py:_ccw``;
 * ``train/train_step.py``: ``train_step`` around the stages ``targets``,
   ``forward``, ``losses``, ``backward`` (``all_reduce`` with a process
   group) and ``optimizer``;

@@ -211,7 +211,9 @@ def test_eval_cli_writes_a_trace_of_its_steps(tmp_path):
 def test_host_syncs_are_every_wait_of_the_eval_step_on_cuda():
     """At full size on the card, the eval step's synchronizing calls (as
     ``torch.cuda.set_sync_debug_mode`` reports them) are as many as its
-    ``host_sync`` ranges, so ``eval.host_syncs`` misses no wait."""
+    ``host_sync`` ranges, so ``eval.host_syncs`` misses no wait; on the
+    card the weighted NMS is one kernel launch, so both are 0 and no
+    ``wnms.round`` opens."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the step's kernels have no CPU mode "
                     "at full size")
@@ -231,6 +233,7 @@ def test_host_syncs_are_every_wait_of_the_eval_step_on_cuda():
     syncs = [w for w in caught
              if "called a synchronizing CUDA operation" in str(w.message)]
     names = [e.name for e in prof.events()]
-    assert names.count("wnms.round") > 1
-    assert len(syncs) == names.count("host_sync"), sorted(
+    assert names.count("wnms") == len(cfg.class_names)
+    assert names.count("wnms.round") == 0
+    assert len(syncs) == names.count("host_sync") == 0, sorted(
         {(w.filename, w.lineno) for w in syncs})
