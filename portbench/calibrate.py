@@ -65,14 +65,15 @@ def reference_numbers(workload: str, seed: int, precision: str, dev=None,
     numbers (the first forward, its stages, its loss); the limits of the
     gradients' and updates' gaps take their upper readings from the
     faults."""
-    _, _, config, traffic = run.load_spec(workload, bench_path)
+    _, cell, config, traffic = run.load_spec(workload, bench_path)
     c = dict(config["config"], **(overrides or {}))
     dev = dev or torch.device("cuda", 0)
     data = run.content_seed(seed, traffic)
     P0 = model_weights(c, data, dev)
     if traffic["mode"] == "train":
         pool = [run.to_device(b, dev) for b in make_pool(
-            data, traffic, c, batches=range(3))]
+            data, run.global_traffic(traffic, cell["chips"]), c,
+            batches=range(3))]
         spe = config["assumed"]["steps_per_epoch"]
         ref = run.host_readings(reference_train(P0, c, spe, pool[:3]))
         # the lower precision's first forward (a backward in fp8 needs
@@ -113,13 +114,14 @@ def witness_numbers(workload: str, seed: int, dev=None, overrides=None):
     (the precision the configurations state) in the program's place
     through the first three steps: (numbers, detail) against the f32
     reference, every leaf's gap read as the program's are."""
-    _, _, config, traffic = run.load_spec(workload)
+    _, cell, config, traffic = run.load_spec(workload)
     c = dict(config["config"], **(overrides or {}))
     dev = dev or torch.device("cuda", 0)
     data = run.content_seed(seed, traffic)
     P0 = model_weights(c, data, dev)
     pool = [run.to_device(b, dev) for b in make_pool(
-        data, traffic, c, batches=range(3))]
+        data, run.global_traffic(traffic, cell["chips"]), c,
+        batches=range(3))]
     spe = config["assumed"]["steps_per_epoch"]
     ref = run.host_readings(reference_train(P0, c, spe, pool))
     gc.collect()

@@ -23,6 +23,23 @@ def train_unchanged(step, state, cfg):
     return f
 
 
+def train_no_exchange(step, state, cfg):
+    """The data-parallel step with its exchange after the backward left
+    out: each rank updates from its own gradients and reports its own
+    metrics (``parallel/dp_step.py``'s reduction a no-op on every rank,
+    which keeps the ranks' collectives matched)."""
+    from rangedet_tpu_torch.parallel import dp_step
+
+    def f(batch):
+        reduce = dp_step.all_reduce_
+        dp_step.all_reduce_ = lambda tensors, group, mean=False: None
+        try:
+            return step(batch)
+        finally:
+            dp_step.all_reduce_ = reduce
+    return f
+
+
 def train_half_batch(step, state, cfg):
     """Half of the batch left out: the losses' means over the rest."""
     return lambda batch: step(_half(batch))
@@ -45,5 +62,6 @@ def eval_altered_box(step):
     return f
 
 
-TRAIN = {"unchanged": train_unchanged, "half_batch": train_half_batch}
+TRAIN = {"unchanged": train_unchanged, "half_batch": train_half_batch,
+         "no_exchange": train_no_exchange}
 EVAL = {"half_batch": eval_half_batch, "altered_box": eval_altered_box}

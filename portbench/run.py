@@ -23,8 +23,16 @@ path produced (``check.py``). The last line of standard output is one
 JSON object; the numbers compared, each beside its limit, are the last
 lines of standard error.
 
-Exits 2 without the card the cell asks for, 3 if the process holds JAX
-or the JAX package once the window has closed; either way with no result.
+A training cell of ``chips`` > 1 runs the program's data-parallel step,
+one process a card (``dp.py``): rank r takes frames [r B, (r + 1) B) of
+each global batch of ``chips`` x B frames (B the traffic's
+``frames_per_card``), which are the one-card pool's batches of that many
+frames; rank 0 alone is traced, reads the first steps and prints the
+result, and its reference is the one-card step's over the global batch.
+
+Exits 2 without the cards the cell asks for, 3 if the process holds JAX
+or the JAX package once the window has closed, 4 if a rank of a
+data-parallel cell fails; each time with no result.
 """
 from __future__ import annotations
 
@@ -133,6 +141,35 @@ def port_config(config: dict, is_train: bool):
     return cfg.replace(**kw)
 
 
+def prepare(workload: str, bench_path: Path, config_overrides: dict = None,
+            traffic_overrides: dict = None):
+    """``load_spec`` with the tests' overrides, and every cache of the
+    program at its place in the checkout."""
+    bench, cell, config, traffic = load_spec(workload, bench_path)
+    config = json.loads(json.dumps(config))
+    config["config"].update(config_overrides or {})
+    traffic = dict(traffic, **(traffic_overrides or {}))
+    for k, v in CACHES.items():
+        os.environ[k] = str(ROOT / v)
+    return bench, cell, config, traffic
+
+
+def global_traffic(traffic: dict, world: int) -> dict:
+    """The traffic of a global batch: ``world`` cards' frames."""
+    return dict(traffic, frames_per_card=traffic["frames_per_card"] * world)
+
+
+def rank_pool(seed: int, traffic: dict, c: dict, rank: int, world: int
+              ) -> List[dict]:
+    """Rank ``rank``'s rows of each of the pool's global batches, made
+    alone (with one rank, the pool)."""
+    from .traffic.frames import make_pool
+
+    b = traffic["frames_per_card"]
+    return make_pool(seed, global_traffic(traffic, world), c,
+                     frames=range(rank * b, (rank + 1) * b))
+
+
 def to_device(batch, dev):
     import torch
 
@@ -146,25 +183,38 @@ def _host(t):
 
 # ---------------------------------------------------------------- the window
 def run_window(call: Callable[[int], None], seconds: float, trace_steps: int,
-               sync: Callable[[], None]):
+               sync: Callable[[], None], group=None):
     """call(i) runs window step i. The first ``trace_steps`` steps (none
     with 0) run under the profiler inside the ``portbench.window`` range.
     The window lasts ``seconds`` from its first step, and its untraced
     steps at least half of that (the profiler's teardown can take
-    seconds); it ends on a sync. Returns a record of it."""
+    seconds); it ends on a sync. Returns a record of it.
+
+    With a ``group`` (``dp.Group``, a data-parallel cell) every rank runs
+    the same steps, rank 0 alone under the profiler: the window opens on a
+    barrier, rank 0's clock decides when it closes, its decision shared by
+    a vote every ``dp.STOP_EVERY`` steps (on the host: no step waits for
+    the card), and it closes on a sync and a barrier."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
+    from .dp import STOP_EVERY
     from .trace import WINDOW
 
     sync()
+    if group is not None:
+        group.barrier()
+        if group.rank == 0:
+            print("portbench: the window opens", file=sys.stderr, flush=True)
     t0 = time.perf_counter()
     i, prof = 0, None
     if trace_steps:
         acts = [ProfilerActivity.CPU]
         if torch.cuda.is_available():
             acts.append(ProfilerActivity.CUDA)
-        with profile(activities=acts) as prof:
+        traced_here = group is None or group.rank == 0
+        with (profile(activities=acts) if traced_here
+              else contextlib.nullcontext()) as prof:
             with record_function(WINDOW):
                 for _ in range(trace_steps):
                     call(i)
@@ -173,10 +223,20 @@ def run_window(call: Callable[[int], None], seconds: float, trace_steps: int,
     traced = i
     t_u = time.perf_counter()
     deadline = max(t0 + seconds, t_u + seconds / 2)
-    while time.perf_counter() < deadline or i == traced:
-        call(i)
-        i += 1
+    if group is None:
+        while time.perf_counter() < deadline or i == traced:
+            call(i)
+            i += 1
+    else:
+        while True:
+            call(i)
+            i += 1
+            if ((i - traced) % STOP_EVERY == 0
+                    and group.vote(time.perf_counter() >= deadline)):
+                break
     sync()
+    if group is not None:
+        group.barrier()
     t_end = time.perf_counter()
     return SimpleNamespace(prof=prof, traced=traced, t0=t0, steps=i - traced,
                            seconds=t_end - t_u, all_steps=i,
@@ -185,12 +245,16 @@ def run_window(call: Callable[[int], None], seconds: float, trace_steps: int,
 
 # ------------------------------------------------------------------ training
 def train_cell(cfg, c, config, traffic, pool, dev, sync, seconds, trace,
-               seed, fault=None):
+               seed, fault=None, group=None):
     """Set up the program's train step from the benchmark's weights, run
     its first steps (the warm-up, which the reference follows) and the
     window. Returns (window record, the program's readings: the total loss
     of the first three steps, the momentum buffers after the first, the
-    parameters after the third)."""
+    parameters after the third). With a ``group`` (``dp.Group``) the step
+    is the program's data-parallel one over it, set up as
+    ``tools/train.py`` sets it up: rank 0's weights on every rank, the
+    BatchNorms' sync group as ``cfg.sync_bn`` says; the readings are this
+    rank's (its rows' forward, the reduced loss and gradient)."""
     from rangedet_tpu_torch.models import RangeDet
     from rangedet_tpu_torch.train import train_step as ts
     from rangedet_tpu_torch.train.state import create_train_state
@@ -203,7 +267,15 @@ def train_cell(cfg, c, config, traffic, pool, dev, sync, seconds, trace,
     model.load_state_dict(model_weights(c, seed, dev), strict=True)
     spe = config["assumed"]["steps_per_epoch"]
     state = create_train_state(model, cfg, spe, seed=None)
-    step = ts.build_train_step_fn(state, cfg)
+    if group is None:
+        step = ts.build_train_step_fn(state, cfg)
+    else:
+        from rangedet_tpu_torch.models.layers import set_sync_group
+        from rangedet_tpu_torch.parallel.dist import replicate_state
+
+        replicate_state(state.model, group.group)
+        set_sync_group(state.model, group.group if cfg.sync_bn else None)
+        step = ts.build_train_step_fn(state, cfg, group.group)
     if fault is not None:
         step = faults.TRAIN[fault](step, state, cfg)
     names = {p: n for n, p in model.named_parameters()}
@@ -243,7 +315,7 @@ def train_cell(cfg, c, config, traffic, pool, dev, sync, seconds, trace,
         call_ms.append((time.perf_counter() - t) * 1e3)
 
     rec = run_window(call, seconds, traffic["trace_steps"] if trace else 0,
-                     sync)
+                     sync, group)
     rec.call_ms = call_ms[rec.traced:]
     del step, state, model
     return rec, readings
@@ -358,24 +430,23 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
              device: Optional[str] = None, config_overrides: dict = None,
              traffic_overrides: dict = None, fault: Optional[str] = None,
              bench_path: Path = ROOT / "BENCHMARK.json",
-             t_start: float = T_START) -> dict:
+             t_start: float = T_START, world: Optional[int] = None) -> dict:
     """One run of ``workload``. ``device`` None: the card, checked; else
-    "cpu", for the tests, with smaller shapes (the overrides) and a fault
-    of ``faults.py`` planted in the timed path. Returns {"result": the
-    result line's object, "checks": {name: (value, limit)}, "detail",
-    "timings"}."""
-    bench, cell, config, traffic = load_spec(workload, bench_path)
-    config = json.loads(json.dumps(config))
-    config["config"].update(config_overrides or {})
-    traffic = dict(traffic, **(traffic_overrides or {}))
-    for k, v in CACHES.items():
-        os.environ[k] = str(ROOT / v)
+    "cpu", for the tests, with smaller shapes (the overrides), a fault
+    of ``faults.py`` planted in the timed path, and a data-parallel cell
+    over ``world`` gloo ranks (the cell's cards by default). Returns
+    {"result": the result line's object, "checks": {name: (value,
+    limit)}, "detail", "timings"}; on a data-parallel cell this process is
+    rank 0."""
+    bench, cell, config, traffic = prepare(workload, bench_path,
+                                           config_overrides,
+                                           traffic_overrides)
     import torch
 
     chips = cell["chips"]
-    if chips != 1:
-        raise SystemExit(f"{workload} asks for {chips} cards; the harness "
-                         "runs cells of one card")
+    world = chips if world is None else world
+    if world > 1 and traffic["mode"] != "train":
+        raise SystemExit(f"{workload}: only training runs on several cards")
     if device is None:
         if not torch.cuda.is_available():
             raise Refused(2, "no CUDA card")
@@ -394,6 +465,18 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
         _build.load()
         torch.zeros(1, device=dev)
     timings["build_s"] = time.perf_counter() - t_start - timings["imports_s"]
+    group = None
+    if world > 1:  # the library is built: start the other ranks
+        from . import dp
+
+        group = dp.launch(dict(workload=workload, seed=seed, seconds=seconds,
+                               trace=trace, device=device,
+                               config_overrides=config_overrides,
+                               traffic_overrides=traffic_overrides,
+                               fault=fault, bench_path=str(bench_path)),
+                          world, dev, seconds)
+        timings["join_s"] = (time.perf_counter() - t_start
+                             - timings["imports_s"] - timings["build_s"])
     c = config["config"]
     train = traffic["mode"] == "train"
     cfg = port_config(config, train)
@@ -401,22 +484,30 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
 
     t = time.perf_counter()
     data = content_seed(seed, traffic)
-    pool = [to_device(b, dev) for b in make_pool(data, traffic, c)]
+    pool = [to_device(b, dev) for b in rank_pool(data, traffic, c, 0, world)]
     timings["pool_s"] = time.perf_counter() - t
     sample, order = plan(seed, traffic)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    if train:
-        rec, prog = train_cell(cfg, c, config, traffic, pool, dev, sync,
-                               seconds, trace, data, fault)
-    else:
-        rec, outs = eval_cell(cfg, c, traffic, pool, dev, sync, seconds,
-                              trace, sample, order, data, fault)
+    try:
+        if train:
+            rec, prog = train_cell(cfg, c, config, traffic, pool, dev, sync,
+                                   seconds, trace, data, fault, group)
+        else:
+            rec, outs = eval_cell(cfg, c, traffic, pool, dev, sync, seconds,
+                                  trace, sample, order, data, fault)
+        peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
+                else 0)
+        if group is not None:  # the fullest card's peak; the ranks end
+            peak = int(group.max(peak))
+            group.close()
+    except BaseException:
+        if group is not None:
+            group.abort()
+        raise
     setup_s = rec.t0 - t_start
     timings["setup_s"] = setup_s
     timings["window_ms_a_step"] = 1e3 * rec.seconds / rec.steps
-    peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
-            else 0)
     tr = None
     if rec.prof is not None:
         from .trace import Trace
@@ -439,7 +530,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     P0 = model_weights(c, data, dev)
     if train:
         first = [to_device(b, dev) for b in make_pool(
-            data, traffic, c, batches=range(3))]
+            data, global_traffic(traffic, world), c, batches=range(3))]
         ref = reference_train(P0, c, config["assumed"]["steps_per_epoch"],
                               first)
         del first
@@ -455,11 +546,11 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     checks = {k: (float(v), float(limits[k])) for k, v in numbers.items()}
     correct = all(v <= lim for v, lim in checks.values())
 
-    rec.frames_per_step = traffic["frames_per_card"] * chips
+    rec.frames_per_step = traffic["frames_per_card"] * world
     rec.frames = rec.steps * rec.frames_per_step
     ctx = SimpleNamespace(mode=traffic["mode"], c=c, traffic=traffic,
                           window=rec, trace=tr, setup_s=setup_s,
-                          peak_bytes=peak, chips=chips)
+                          peak_bytes=peak, chips=world)
     metrics = {}
     for m in cell_metrics(bench, workload, trace):
         v = load_reader(m["name"], bench_path.parent)(ctx)
@@ -468,7 +559,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     device_info = {"platform": "gpu" if dev.type == "cuda" else dev.type,
                    "kind": (torch.cuda.get_device_name(dev)
                             if dev.type == "cuda" else "cpu"),
-                   "count": chips, "memory_peak_bytes": int(peak)}
+                   "count": world, "memory_peak_bytes": int(peak)}
     result = {"correct": bool(correct), "attempted": int(rec.all_steps),
               "failed": 0, "metrics": metrics, "device": device_info}
     if tr is not None:
@@ -480,6 +571,49 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
                         for k, (v, lim) in checks.items()}
     return {"result": result, "checks": checks, "detail": detail,
             "timings": timings}
+
+
+def rank_main(spec: dict) -> int:
+    """Rank r > 0 of a data-parallel cell, started by ``dp.launch`` with
+    rank 0's ``run_cell`` arguments: join, make this rank's rows of the
+    pool, run the same warm-up and window as rank 0 (untraced), give rank
+    0 this card's peak, and end. Returns the exit code."""
+    from . import dp
+
+    bench_path = Path(spec["bench_path"])
+    _, _, config, traffic = prepare(spec["workload"], bench_path,
+                                    spec["config_overrides"],
+                                    spec["traffic_overrides"])
+    import torch
+
+    from rangedet_tpu_torch import _build
+
+    rank, world = spec["rank"], spec["world"]
+    dev = torch.device(spec["device"] or "cuda",
+                       None if spec["device"] else rank)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        _build.load()  # rank 0 built it before it started this rank
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    group = dp.join(rank, world, spec["port"], dev, None)
+    c = config["config"]
+    cfg = port_config(config, True)
+    data = content_seed(spec["seed"], traffic)
+    pool = [to_device(b, dev)
+            for b in rank_pool(data, traffic, c, rank, world)]
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    train_cell(cfg, c, config, traffic, pool, dev, sync, spec["seconds"],
+               spec["trace"], data, spec["fault"], group)
+    group.max(torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
+              else 0)
+    group.close()
+    found = jax_modules()
+    if found:
+        print(f"portbench: rank {rank} holds {', '.join(found)}",
+              file=sys.stderr)
+        return 3
+    return 0
 
 
 def eval_numbers(outs, P0, c, seed, traffic, dev) -> Dict[str, float]:

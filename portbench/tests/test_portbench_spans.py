@@ -1,12 +1,13 @@
 """The readers of the program's own ranges (``portbench/spans.py``): on a
-made-up trace, what each counts; on the tiny CPU eval cell with
-``--trace 1``, the round and sync counts read, and the device readings
-read nothing without a card."""
+made-up trace, what each counts, and how the breakdown labels idle time;
+on the tiny CPU eval cell with ``--trace 1``, the round count read, and
+the device readings read nothing without a card."""
 from types import SimpleNamespace
 
 import torch
 
 from portbench import run, spans
+from portbench.trace import Trace
 
 from tiny import TINY, TINY_TRAFFIC
 
@@ -38,20 +39,37 @@ def test_readers_on_a_made_up_trace():
     assert spans.count(None, "wnms.round", "wnms") is None
 
 
-def test_tiny_eval_cell_reads_rounds_and_syncs():
+def test_idle_gaps_are_labelled_by_the_innermost_range():
+    """A window [0, 100) with device work at [10, 20) and [60, 70): the
+    gaps' middles fall in "wnms" (inside "postprocess"), "postprocess" and
+    no range."""
+    trace = object.__new__(Trace)
+    trace.t0, trace.t1 = 0, 100
+    trace.ranges = {"portbench.window": [(0, 100)],
+                    "postprocess": [(0, 60)], "wnms": [(0, 10)]}
+    trace.device = [("k", 10, 20, 1), ("k", 60, 70, 2)]
+    gaps = dict(trace.idle_gaps())
+    assert gaps == {"wnms": 10e-9, "postprocess": 40e-9,
+                    "no range": 30e-9}
+
+
+def test_tiny_eval_cell_reads_rounds():
     out = run.run_cell("veh.eval.b4", 2147483901, 0.5, True, device="cpu",
                        config_overrides=TINY, traffic_overrides=TINY_TRAFFIC)
     got = out["result"]["metrics"]
     rounds = got["eval.wnms_rounds"]["value"]
     assert rounds >= 1
-    # one check a round and one more (one class), and any other wait
-    assert got["eval.host_syncs"]["value"] >= rounds + 1
     assert got["eval.wnms_rounds"]["unit"] == "rounds"
     # no card: nothing ran on a device, so no device reading
     for name in ("eval.topk_decode_ms", "eval.wnms_device_ms",
                  "eval.wnms_launches"):
         assert name not in got
-    # the breakdown labels idle time with the program's ranges
+    # no device work: the whole window is one gap, labelled by a range of
+    # the run or "no range"
     labels = {n for n, _ in out["result"]["breakdown"]["idle_gaps"]}
-    assert labels & {"wnms", "wnms.round", "host_sync", "topk", "decode"}
+    assert labels and labels <= {"no range", "portbench.step",
+                                 "portbench.to_host", "portbench.forward",
+                                 "forward", "postprocess", "topk", "decode",
+                                 "wnms", "wnms.round", "host_sync",
+                                 "meta_block"}
     assert out["result"]["correct"]

@@ -8,7 +8,11 @@ range_device_ms``'s method): the program launches its own kernels through
 ctypes, and torch.profiler credits those to no range of its own. A range's
 device time is that of the work launched while one of its windows was open
 on the host, on any thread. Device busy time is the union of the device
-intervals, so work that overlaps on two streams counts once.
+intervals, so work that overlaps on two streams counts once. NCCL's
+kernels (names that start with ``nccl``) are kept out of it and counted
+apart (``collective_s``, ``collective_launches``): a collective's kernel
+spins on the card while it waits for the slowest rank, so as busy time it
+would count the other ranks' lag as this card's work.
 """
 from __future__ import annotations
 
@@ -16,6 +20,7 @@ from typing import Dict, Iterable, List, Optional, Tuple
 
 WINDOW = "portbench.window"  # the harness's range around the traced steps
 TOP = 10  # entries of each breakdown list
+COLLECTIVE = "nccl"  # the prefix of NCCL's kernel names
 
 
 def _user_range(e) -> bool:
@@ -59,9 +64,11 @@ class Trace:
         return (self.t1 - self.t0) / 1e9
 
     def _busy(self) -> List[Tuple[int, int]]:
-        """The union of the device intervals inside the window, sorted."""
+        """The union of the device intervals inside the window, sorted,
+        collectives left out."""
         spans = sorted((max(s, self.t0), min(e, self.t1))
-                       for _, s, e, _ in self.device)
+                       for n, s, e, _ in self.device
+                       if not n.startswith(COLLECTIVE))
         out: List[Tuple[int, int]] = []
         for s, e in spans:
             if e <= s:
@@ -75,6 +82,22 @@ class Trace:
     @property
     def busy_s(self) -> float:
         return sum(e - s for s, e in self._busy()) / 1e9
+
+    def _collectives(self) -> List[int]:
+        """The durations (ns) of the collectives' kernels in the window."""
+        inside = ((max(s, self.t0), min(e, self.t1))
+                  for n, s, e, _ in self.device if n.startswith(COLLECTIVE))
+        return [e - s for s, e in inside if e > s]
+
+    @property
+    def collective_s(self) -> float:
+        """Device seconds of the collectives' kernels in the window, their
+        waits for the other ranks included."""
+        return sum(self._collectives()) / 1e9
+
+    @property
+    def collective_launches(self) -> int:
+        return len(self._collectives())
 
     def range_ms(self, name: str) -> Optional[float]:
         """Device ms a step of the work launched inside range ``name``;

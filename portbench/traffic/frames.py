@@ -307,11 +307,15 @@ def frame_states(seed: int, traffic: dict) -> np.ndarray:
         traffic["pool_batches"], traffic["frames_per_card"])
 
 
-def make_pool(seed: int, traffic: dict, c: dict,
-              batches=None) -> List[Dict[str, np.ndarray]]:
+def make_pool(seed: int, traffic: dict, c: dict, batches=None,
+              frames=None) -> List[Dict[str, np.ndarray]]:
     """The traffic's pool: ``pool_batches`` batches of ``frames_per_card``
-    frames, or only the batches numbered in ``batches``."""
+    frames, or only the batches numbered in ``batches``; of each batch
+    only the frames numbered in ``frames`` (a rank's rows of a global
+    batch), where given."""
     states = frame_states(seed, traffic)
+    if frames is not None:
+        states = states[:, list(frames)]
     return [make_batch(states[i], traffic["boxes_per_frame"],
                        c["feat_size"], c["pad_field"][1], c["max_gt_boxes"],
                        c["label_set"])
