@@ -589,11 +589,12 @@ class KernelTotals:
         return max(self.by, key=self.by.get) if self.by else "operations"
 
 
-def wnms_check(torch, nms, args, kw):
+def wnms_check(torch, nms, args, kw, tag="3"):
     """The weighted-NMS kernel on one call's (F, K, 11) candidates against
     the plain version on the card: validity, the score column (bit for
     bit) and the rounds a frame (the plain version's wnms.round ranges,
-    each frame alone) equal; the 11 averaged values within the bound of
+    each frame alone at its own keep cap, the rows past it zero and
+    invalid) equal; the 11 averaged values within the bound of
     two f32 weighted means of the same m products summed in other orders
     (tests/test_torch_wnms_plan.py:mean_gap_bound), taken here with m the
     frame's valid candidates and each product at most the weight times the
@@ -603,6 +604,8 @@ def wnms_check(torch, nms, args, kw):
     rows, valid = nms.weighted_nms(*args, **kw)
     rounds = nms.wnms_kernel(*args, **kw)[2].tolist()
     u, gap_share = 2.0 ** -24, 0.0
+    caps = kw["max_keep"]
+    caps = [caps] if isinstance(caps, int) else list(caps)
     for f, one in enumerate(zip(*args)):
         n = [0]
         real = nms.span
@@ -611,24 +614,29 @@ def wnms_check(torch, nms, args, kw):
             n[0] += name == "wnms.round"
             return real(name)
 
+        cap = caps[f % len(caps)]
         with mock.patch.object(nms, "span", count):
-            want, want_valid = nms.weighted_nms_plain(*one, **kw)
+            want, want_valid = nms.weighted_nms_plain(
+                *one, **dict(kw, max_keep=cap))
+        if valid[f, cap:].any() or rows[f, cap:].any():
+            raise SystemExit(f"[{tag}] WNMS kernel, frame {f}: rows past "
+                             f"its cap {cap} not zero and invalid")
         m = int(one[2].sum())
         e = (m + 1) * u
         scale = one[0][one[2]].abs().amax(dim=0) if m else torch.zeros_like(
             one[0][0])
         tol = (2 * (2 * e + u) * scale.double() / (1 - e) ** 2)
-        x, y = rows[f][:, :11].double(), want[:, :11].double()
+        x, y = rows[f, :cap, :11].double(), want[:, :11].double()
         nan = torch.isnan(x)
         gap = torch.where(nan | (x == y), 0.0, (x - y).abs())
         gap_share = max(gap_share, float((gap / tol).nan_to_num().max()))
-        same = (torch.equal(valid[f], want_valid)
+        same = (torch.equal(valid[f, :cap], want_valid)
                 and torch.equal(nan, torch.isnan(y))
                 and bool((gap <= tol).all())
-                and torch.equal(rows[f][:, 11].view(torch.int32),
+                and torch.equal(rows[f, :cap, 11].view(torch.int32),
                                 want[:, 11].view(torch.int32)))
         if not same or rounds[f] != n[0]:
-            raise SystemExit(f"[3] WNMS kernel vs plain, frame {f}: "
+            raise SystemExit(f"[{tag}] WNMS kernel vs plain, frame {f}: "
                              f"validity, scores and values within bound "
                              f"{same}, rounds {rounds[f]} vs {n[0]}")
     t = KernelTotals()
@@ -638,7 +646,8 @@ def wnms_check(torch, nms, args, kw):
     t.add(1, _time_ms(lambda: nms.weighted_nms(*args, **kw)),
           _median_ms(lambda: nms.weighted_nms_plain(*args, **kw), iters=3),
           _bound_ms(flops, nbytes, PEAK_F32), None, 0.0)
-    print(f"[3] WNMS kernel at F={F_}, K={K}: validity, scores and rounds "
+    print(f"[{tag}] WNMS kernel at F={F_}, K={K}, keep caps {caps}: "
+          f"validity, scores and rounds "
           f"{rounds} equal to the plain version's, values within their "
           f"bound (largest gap/bound {gap_share:.3g}); kernel "
           f"{t.ms:.4f} ms, "
@@ -1815,13 +1824,19 @@ def phase8_iou(torch, m, cfg, iou):
     return t
 
 
-def eval_checks(torch, m, dev, recipe, tag, taps_check=False):
+def eval_checks(torch, m, dev, recipe, tag, taps_check=False,
+                wnms_rows=False):
     """A recipe's eval step at B=4 and B=1: launches, per-class finite boxes
-    and valid counts, kernel path against the plain path, median ms, the
-    WNMS share over its classes, peak memory. With ``taps_check``, kernel 7
+    and valid counts, the post-processing's one weighted-NMS call over
+    every class's rows, each class's outputs bit-equal to the class run
+    alone (``class_alone``), kernel path against the plain path, median
+    ms, the WNMS share, peak memory. With ``taps_check``, kernel 7
     on the inputs the step gave it (check_taps, within one bf16 ulp of the
-    f32 plain version, no speed gate); returns {B: its KernelTotals} and
-    the taps launches of the B=1 step."""
+    f32 plain version, no speed gate); with ``wnms_rows`` (on a card), the
+    WNMS kernel on the B=4 step's own rows and keep caps against the plain
+    version (wnms_check). Returns {B: its KernelTotals, "wnms": wnms_check's
+    and "wnms_launches": the B=4 step's WNMS launches} and the taps
+    launches of the B=1 step."""
     nms, taps = m["nms"], m["taps"]
     cfg = m["load_config"](recipe, is_train=False)
 
@@ -1833,6 +1848,10 @@ def eval_checks(torch, m, dev, recipe, tag, taps_check=False):
     model = model.to(dev).eval()
     eval_step = m["make_eval_step"](model, cfg)
     n_fwd, n_taps = conv_launches(cfg)[0], meta_units(cfg)
+    # held to each class run alone: all of it on the card; validity and
+    # truncation in a CPU rehearsal (class_alone)
+    alone_keys = (("boxes",) if dev.type == "cuda" else ()) + (
+        "valid", "truncated")
     totals = {}
     for B in (4, 1):
         inputs = m["build_eval_inputs"](
@@ -1887,11 +1906,26 @@ def eval_checks(torch, m, dev, recipe, tag, taps_check=False):
             calls.append((a, kw))
             return real_wnms(*a, **kw)
 
+        n0 = nms.LAUNCHES
         with mock.patch.object(nms, "weighted_nms", grab), \
                 torch.inference_mode():
             m["run_inference"](*got, inputs, cfg)
-        if len(calls) != cfg.num_classes:
-            fail(f"B={B}: {len(calls)} WNMS calls")
+        if len(calls) != 1 or calls[0][0][0].shape[0] != B * len(
+                cfg.class_names):
+            fail(f"B={B}: {len(calls)} WNMS calls, expected one over "
+                 f"B x {len(cfg.class_names)} rows")
+        if wnms_rows and B == 4 and dev.type == "cuda":
+            totals["wnms_launches"] = nms.LAUNCHES - n0
+            with torch.inference_mode():
+                totals["wnms"] = wnms_check(torch, nms, *calls[0], tag=tag)
+        with torch.inference_mode():
+            folded = m["run_inference"](*got, inputs, cfg)
+            for k, name in enumerate(cfg.class_names):
+                alone = class_alone(m["run_inference"], got, inputs, cfg, k)
+                if not all(torch.equal(folded[name][key], alone[key])
+                           for key in alone_keys):
+                    fail(f"B={B}: {name}'s outputs differ from the class "
+                         f"run alone")
         torch.cuda.reset_peak_memory_stats()
         step_ms = _median_ms(lambda: eval_step(inputs))
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1910,6 +1944,22 @@ def eval_checks(torch, m, dev, recipe, tag, taps_check=False):
               f"peak memory {peak:.2f} GiB")
     del model, eval_step
     return totals, n_taps
+
+
+def class_alone(run_inference, fwd, inputs, cfg, k):
+    """Class k's outputs of ``run_inference`` with its logits and deltas
+    alone, a one-class post-processing. On the card they equal the
+    class's outputs of the whole bit for bit; on the CPU (a rehearsal)
+    torch's sigmoid rounds a class's strided logits in its scalar path,
+    the whole's contiguous ones in its vector path, so scores may differ
+    in the last bit and near-tied candidates swap ranks: there validity
+    and truncation are held alone."""
+    cls, reg = fwd
+    name = cfg.class_names[k]
+    one = cfg.replace(class_names=(name,), label_set=(cfg.label_set[k],))
+    return run_inference([c[..., k:k + 1] for c in cls],
+                         [d[..., 8 * k:8 * k + 8] for d in reg], inputs,
+                         one)[name]
 
 
 def phase8_files(torch, m, dev):
@@ -2098,10 +2148,10 @@ def phase8(torch, m, dev):
           f"memory {peak:.2f} GiB")
     del model, state, step, batch
 
-    eval_checks(torch, m, dev, MULTICLASS, "8")
+    serve, _ = eval_checks(torch, m, dev, MULTICLASS, "8", wnms_rows=True)
     phase8_files(torch, m, dev)
     print(f"[8] phase 8 in {time.perf_counter() - t_phase:.1f} s")
-    return totals, launches
+    return totals, launches, serve
 
 
 # ---------------------------------------------------------------- phase 9
@@ -5353,9 +5403,10 @@ def main():
             raise SystemExit(f"[3] B={B}: {launches} conv3x3 and "
                              f"{taps_launches} taps launches, expected "
                              f"{expected} and {n_taps}")
-        if nms.LAUNCHES != cfg.num_classes:
+        if nms.LAUNCHES != 1:
             raise SystemExit(f"[3] B={B}: {nms.LAUNCHES} WNMS launches, "
-                             f"expected one a class ({cfg.num_classes})")
+                             f"expected one an eval step, every class's "
+                             f"rows in it")
         if B == 4:  # veh.eval.b4's step
             wnms_launches_b4 = nms.LAUNCHES
         res = out["veh"]
@@ -5483,7 +5534,7 @@ def main():
     # ------------------------------------------------------------ phase 8
     mods.update(layers=layers, nms=nms, run_inference=run_inference,
                 augment=augment, waymo=waymo, bin_cli=bin_cli)
-    mc_iou, mc_launches = phase8(torch, mods, dev)
+    mc_iou, mc_launches, mc_serve = phase8(torch, mods, dev)
 
     # ------------------------------------------------------------ phase 9
     wide, wide_launches, wide_taps, wide_taps_launches = phase9(
@@ -5524,6 +5575,9 @@ def main():
          meta_src, "rangedet_tpu/ops/meta_kernel_pallas.py:138"),
         ("serve_b4", "weighted_nms", wnms_b4, wnms_launches_b4,
          "rangedet_tpu_torch/csrc/wnms.cu",
+         "none (rangedet_tpu/ops/nms.py:weighted_nms, a lax.while_loop)"),
+        ("serve_multiclass", "weighted_nms", mc_serve["wnms"],
+         mc_serve["wnms_launches"], "rangedet_tpu_torch/csrc/wnms.cu",
          "none (rangedet_tpu/ops/nms.py:weighted_nms, a lax.while_loop)"),
         ("train", "conv3x3_bhcw_train", totals["fwd"], launches["fwd"],
          conv_src, conv_tpu),

@@ -130,7 +130,7 @@ def load_from(csrc: Path) -> ctypes.CDLL:
         "meta_block_bwd": [vp] * 13 + [i32] * 7 + [vp],
         "meta_kernel_taps": [vp] * 7 + [i32] * 6 + [vp],
         "wnms_launch": [vp] * 3 + [i32] * 2 + [f32] * 2 + [i32] * 3
-                       + [vp] * 5,
+                       + [vp] + [i32] + [vp] * 5,
     }
     for name, argtypes in entry_points.items():
         if hasattr(lib, name):

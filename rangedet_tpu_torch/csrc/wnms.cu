@@ -4,8 +4,9 @@
 // Replaces no Pallas kernel. JAX runs this loop as one lax.while_loop in
 // rangedet_tpu/ops/nms.py:weighted_nms; the port's eager form of it was a
 // host loop (~378 small launches and three waits for the card a round).
-// One block a frame owns the whole loop, so the host launches once a
-// class call and reads nothing back.
+// One block a row (a frame's class) owns the whole loop, so the host
+// launches once an eval step, every class's rows together, and reads
+// nothing back.
 //
 // Semantics (ops/nms.py's docstring): candidates in descending score order
 // (stable; invalid ones carry -inf), a round takes the next `block` alive
@@ -16,7 +17,11 @@
 // 2 * 3.1415926) from the voters' median yaw (the reference's tie-breaks,
 // ranks in the stable yaw order) are dropped; its row is the voters'
 // score-weighted mean of the 11 values plus its own score, at its greedy
-// rank. A frame stops at max_keep rows or when nothing is alive.
+// rank. A frame stops at its keep cap or when nothing is alive.
+//
+// Rows of several classes (ops/nms.py): the rows' keep caps come by
+// value, one a class, row f taking entry f % n; the output has max_keep
+// rows a frame, the rows past a frame's cap zero and invalid.
 //
 // Schedule, per frame (one block of THREADS threads):
 //   A. the stable score order and the stable yaw order as bitonic sorts of
@@ -87,6 +92,7 @@ constexpr int SCRATCH = REC + 2;
 static_assert(SCRATCH * 4 == REC * 4 + sizeof(int) + sizeof(float),
               "the scratch layout of wnms_kernel");
 constexpr int MAX_K = 16384;
+constexpr int MAX_CLASSES = 16;
 constexpr float EPS = 1e-8f;
 constexpr float YAW_REJECT = 0.3f;
 constexpr float SAME = 1e-6f;
@@ -348,13 +354,19 @@ __device__ __forceinline__ bool bit(const uint32_t* bits, int j) {
   return (bits[j >> 5] >> (j & 31)) & 1u;
 }
 
+// each class's keep cap; n = 0: every row keeps max_keep rows
+struct RowCaps {
+  int n;
+  int keep[MAX_CLASSES];
+};
+
 // scratch: F * K records, then F * K yaw ranks (int), then F * K yaws
 // by rank
 __global__ void __launch_bounds__(THREADS, 1)
 wnms_kernel(const float* __restrict__ dets, const float* __restrict__ scores,
             const uint8_t* __restrict__ valid, int K, int Kp, float thresh,
             float thresh_vote, int max_keep, int block, int iou_3d,
-            float* __restrict__ scratch, float* __restrict__ out,
+            RowCaps caps, float* __restrict__ scratch, float* __restrict__ out,
             uint8_t* __restrict__ out_valid, int* __restrict__ rounds) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int f = blockIdx.x, tid = threadIdx.x;
@@ -365,6 +377,7 @@ wnms_kernel(const float* __restrict__ dets, const float* __restrict__ scores,
   int* ypos = reinterpret_cast<int*>(scratch + FK * REC) + (size_t)f * K;
   float* yaw_by_pos = scratch + FK * (REC + 1) + (size_t)f * K;
   const float* fd = dets + (size_t)f * K * 11;
+  const int keep = caps.n ? caps.keep[f % caps.n] : max_keep;
 
   __shared__ int s_nf[11];
   __shared__ int s_r, s_cur, s_lim, s_nm, s_rounds;
@@ -470,8 +483,8 @@ wnms_kernel(const float* __restrict__ dets, const float* __restrict__ scores,
   int parity = 0;
   while (true) {
     if (warp == 0) {
-      const int lim = s_r < max_keep ? warp_nth(alive, Kw, s_cur, block, lane)
-                                     : -1;
+      const int lim = s_r < keep ? warp_nth(alive, Kw, s_cur, block, lane)
+                                 : -1;
       if (lane == 0) {
         s_lim = lim;
         if (lim >= 0) ++s_rounds;
@@ -555,7 +568,7 @@ wnms_kernel(const float* __restrict__ dets, const float* __restrict__ scores,
 
       // voting, warp b for survivor b
       if (warp < nm && ((S >> warp) & 1u) &&
-          r0 + __popc(S & ((1u << warp) - 1)) < max_keep) {
+          r0 + __popc(S & ((1u << warp) - 1)) < keep) {
         const int b = warp, mj = s_mem[b];
         const float* me = mrec + b * REC;
         const float yaw_i = me[R_YAW];
@@ -661,15 +674,15 @@ wnms_kernel(const float* __restrict__ dets, const float* __restrict__ scores,
         alive[w] &= ~dead;
       }
       __syncthreads();
-      if (tid == 0) s_r = min(max_keep, r0 + __popc(S));
+      if (tid == 0) s_r = min(keep, r0 + __popc(S));
       __syncthreads();
-      if (s_r >= max_keep) break;
+      if (s_r >= keep) break;
     }
     if (tid == 0) s_cur = lim + 1;
     __syncthreads();
   }
 
-  // the rows past the last survivor
+  // the rows past the last survivor, and past the frame's cap
   const int r = s_r;
   for (int t = tid; t < (max_keep - r) * 12; t += THREADS)
     out[((size_t)f * max_keep + r) * 12 + t] = 0.f;
@@ -693,13 +706,22 @@ extern "C" {
 
 // dets (F, K, 11), scores (F, K) f32, valid (F, K) bool, contiguous;
 // scratch F * K * SCRATCH floats; out (F, max_keep, 12), out_valid
-// (F, max_keep), rounds (F,) int32.
+// (F, max_keep), rounds (F,) int32; keep: n_caps ints on the host (a
+// class's keep cap, at most max_keep), or none with n_caps 0.
 int wnms_launch(const float* dets, const float* scores, const void* valid,
                 int F, int K, float thresh, float thresh_vote, int max_keep,
-                int block, int iou_3d, float* scratch, float* out,
+                int block, int iou_3d, const int* keep, int n_caps,
+                float* scratch, float* out,
                 void* out_valid, int* rounds, void* stream) {
-  if (F < 1 || K < 1 || K > MAX_K || max_keep < 0 || block < 1)
+  if (F < 1 || K < 1 || K > MAX_K || max_keep < 0 || block < 1 ||
+      n_caps < 0 || n_caps > MAX_CLASSES)
     return (int)cudaErrorInvalidValue;
+  RowCaps caps{};
+  caps.n = n_caps;
+  for (int c = 0; c < n_caps; ++c) {
+    if (keep[c] < 0 || keep[c] > max_keep) return (int)cudaErrorInvalidValue;
+    caps.keep[c] = keep[c];
+  }
   int Kp = 32;
   while (Kp < K) Kp <<= 1;
   const size_t smem = smem_bytes(K, Kp);
@@ -708,7 +730,7 @@ int wnms_launch(const float* dets, const float* scores, const void* valid,
   if (err != cudaSuccess) return (int)err;
   wnms_kernel<<<F, THREADS, smem, (cudaStream_t)stream>>>(
       dets, scores, static_cast<const uint8_t*>(valid), K, Kp, thresh,
-      thresh_vote, max_keep, block, iou_3d, scratch, out,
+      thresh_vote, max_keep, block, iou_3d, caps, scratch, out,
       static_cast<uint8_t*>(out_valid), rounds);
   return (int)cudaGetLastError();
 }

@@ -182,21 +182,29 @@ def run_inference(
     batch: Dict[str, torch.Tensor],
     cfg,
 ) -> Dict[str, Any]:
-    """Per class: concat levels -> masked top-k -> decode -> weighted NMS ->
-    box8_eval rows [cx, cy, cz, l, w, h, yaw, score].
+    """Every class at once: concat levels -> masked top-k -> decode ->
+    weighted NMS -> box8_eval rows [cx, cy, cz, l, w, h, yaw, score].
 
-    The candidate set is the top ``min(device_topk, pre_nms_top_n, N)``
-    masked scores, ordered by a stable sort; a candidate is valid when its
-    score is strictly above min_score (reference tools/test.py:200).
-    ``truncated`` flags a frame whose weakest kept candidate still clears
-    min_score, i.e. where the cap bound. batch holds pc_s{s} and mask_s{s}.
-    Returns {class_name: {"boxes": (B, post_nms, 8), "valid": (B, post_nms),
-    "truncated": (B,)}}. Profiler ranges (``utils/spans.py``): ``topk``
-    once for the levels' scores and once a class, ``decode`` and ``wnms``
-    a class.
+    A class's candidate set is the top ``min(device_topk, pre_nms_top_n,
+    N)`` of its masked scores, ordered by a stable sort; a candidate is
+    valid when its score is strictly above the class's min_score
+    (reference tools/test.py:200). ``truncated`` flags a frame whose
+    weakest kept candidate still clears min_score, i.e. where the cap
+    bound. The classes are rows beside the frames, (B, K, ...) frame by
+    frame: one sort of the B x K rows, one gather each of scores, deltas
+    and points, one decode and one weighted-NMS call over the B x K rows,
+    each row with its class's keep cap (``post_nms_top_n``); a class of
+    fewer candidates is padded to the largest count with zero, invalid
+    columns. Each class's validity, scores and truncation equal those of
+    the class run alone bit for bit, and so do its boxes on the card and
+    wherever no class is padded. batch holds
+    pc_s{s} and mask_s{s}. Returns {class_name: {"boxes": (B, post_nms, 8),
+    "valid": (B, post_nms), "truncated": (B,)}}. Profiler ranges
+    (``utils/spans.py``): ``topk``, ``decode`` and ``wnms``, once each.
     """
     B = cls_logits[0].shape[0]
     K = cfg.num_classes
+    names = cfg.class_names
     with span("topk"):
         scores = torch.cat(
             [torch.sigmoid(l).reshape(B, -1, K) for l in cls_logits], dim=1)
@@ -207,33 +215,44 @@ def run_inference(
             1)
         mask = torch.cat(
             [batch[f"mask_s{s}"].reshape(B, -1) for s in cfg.fpn_strides], 1)
-
-    results = {}
-    for k, name in enumerate(cfg.class_names):
-        topk = min(cfg.device_topk.get(name, 4096),
-                   cfg.pre_nms_top_n.get(name, 50000), scores.shape[1])
-        min_score = cfg.min_score[name]
-        with span("topk"):
-            masked = torch.where(mask > 0, scores[..., k],
-                                 torch.zeros_like(scores[..., k]))
-            idx = torch.sort(-masked, dim=1, stable=True).indices[:, :topk]
-            top_scores = torch.gather(masked, 1, idx)
-            top_deltas = torch.gather(deltas[:, :, k], 1,
-                                      idx[..., None].expand(-1, -1, 8))
-            top_pc = torch.gather(pc, 1, idx[..., None].expand(-1, -1, 3))
-            valid = top_scores > min_score
-            truncated = top_scores[:, -1] > min_score
-        with span("decode"):
-            box11 = ops_boxes.box10_to_box11(
-                ops_decode.decode_boxes(top_deltas, top_pc))
-        with span("wnms"):
-            out12, out_valid = ops_nms.weighted_nms(
-                box11, top_scores, valid,
-                thresh=cfg.wnms_thr_lo, thresh_vote=cfg.wnms_thr_hi,
-                max_keep=cfg.post_nms_top_n[name], iou_3d=cfg.wnms_is_3d,
-                block=cfg.wnms_block,
-            )
-            boxes = ops_boxes.box12_to_box8_eval(out12)
-        results[name] = {"boxes": boxes, "valid": out_valid,
-                         "truncated": truncated}
-    return results
+        N = scores.shape[1]
+        topks = [min(cfg.device_topk.get(n, 4096),
+                     cfg.pre_nms_top_n.get(n, 50000), N) for n in names]
+        T = max(topks)
+        rows = scores.transpose(1, 2)  # (B, K, N)
+        masked = torch.where(mask[:, None] > 0, rows, torch.zeros_like(rows))
+        idx = torch.sort(-masked, dim=2, stable=True).indices[..., :T]
+        top_scores = torch.gather(masked, 2, idx)
+        top_deltas = torch.gather(deltas.transpose(1, 2), 2,
+                                  idx[..., None].expand(-1, -1, -1, 8))
+        top_pc = torch.gather(pc[:, None].expand(-1, K, -1, -1), 2,
+                              idx[..., None].expand(-1, -1, -1, 3))
+        valid = torch.empty_like(top_scores, dtype=torch.bool)
+        truncated = torch.empty((B, K), dtype=torch.bool,
+                                device=top_scores.device)
+        for k, (n, t) in enumerate(zip(names, topks)):
+            torch.gt(top_scores[:, k], cfg.min_score[n], out=valid[:, k])
+            torch.gt(top_scores[:, k, t - 1], cfg.min_score[n],
+                     out=truncated[:, k])
+            if t < T:  # the padding
+                valid[:, k, t:] = False
+    with span("decode"):
+        box11 = ops_boxes.box10_to_box11(
+            ops_decode.decode_boxes(top_deltas, top_pc))
+    with span("wnms"):
+        for k, t in enumerate(topks):
+            if t < T:  # a padded column's non-finite value would poison
+                box11[:, k, t:] = 0  # the weighted sums (csrc/wnms.cu)
+        caps = [cfg.post_nms_top_n[n] for n in names]
+        out12, out_valid = ops_nms.weighted_nms(
+            box11.reshape(B * K, T, 11), top_scores.reshape(B * K, T),
+            valid.reshape(B * K, T),
+            thresh=cfg.wnms_thr_lo, thresh_vote=cfg.wnms_thr_hi,
+            max_keep=caps[0] if len(set(caps)) == 1 else caps,
+            iou_3d=cfg.wnms_is_3d, block=cfg.wnms_block,
+        )
+        boxes = ops_boxes.box12_to_box8_eval(out12).view(B, K, -1, 8)
+        out_valid = out_valid.view(B, K, -1)
+    return {n: {"boxes": boxes[:, k, :c], "valid": out_valid[:, k, :c],
+                "truncated": truncated[:, k]}
+            for k, (n, c) in enumerate(zip(names, caps))}

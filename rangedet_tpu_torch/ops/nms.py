@@ -30,17 +30,24 @@ version runs the frames side by side; the host checks once per round
 whether any frame still has work. That check is a profiler range
 ``host_sync`` and each round after it ``wnms.round`` (``utils/spans.py``):
 a call checks once more than it has rounds, and each round's IoU rows wait
-twice more (``rotated_iou._ccw``'s list index). The kernel's route opens
-neither.
+twice more (``rotated_iou._ccw``'s list index). The kernel's route waits
+for nothing; while a profiler records, and only then, it keeps each
+launch's rounds a row on the card (``take_rounds``), read after the trace.
+
+Rows of several classes: ``max_keep`` may give one cap a class, the rows
+laid out frame by frame and each frame's classes in turn, so row f keeps
+at most entry f % n of them; the output has the largest, and the rest of
+a row is zero and invalid.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import ctypes
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 
 from .. import _build
-from ..utils.spans import span
+from ..utils.spans import recording, span
 from .boxes import polygon_area
 from .rotated_iou import iou_bev_corners
 
@@ -51,11 +58,23 @@ LAUNCHES = 0  # csrc/wnms.cu launches
 # csrc/wnms.cu's MAX_K and SCRATCH (a test holds them equal)
 MAX_K = 16384  # candidates a frame: the kernel sorts them in shared memory
 SCRATCH = 34  # floats of the kernel's scratch a candidate
+MAX_CLASSES = 16  # keep caps, one a class, that the kernel takes
+ROUNDS: List[torch.Tensor] = []  # each recorded launch's rounds a row
+
+Caps = Union[int, Sequence[int]]
 
 
 def reset_counts() -> None:
     global LAUNCHES
     LAUNCHES = 0
+
+
+def take_rounds() -> List[torch.Tensor]:
+    """The rounds a row, (F,) int32 on the card, of each kernel launch
+    made while a profiler recorded, oldest first, and forget them."""
+    out = ROUNDS[:]
+    ROUNDS.clear()
+    return out
 
 
 def _det_iou(dets11: torch.Tensor, one: torch.Tensor, iou_3d: bool
@@ -103,22 +122,36 @@ def _median_yaw_presorted(voters_sorted, yaw_sorted, yaw_i):
     return torch.where(n <= 2, yaw_i, median)
 
 
+def row_caps(max_keep: Caps) -> Tuple[int, Optional[List[int]]]:
+    """-> (the output's rows a frame, the keep caps of a class or None
+    where every row keeps ``max_keep``)."""
+    if isinstance(max_keep, int):
+        if max_keep < 0:
+            raise ValueError(f"max_keep {max_keep}")
+        return max_keep, None
+    keep = [int(k) for k in max_keep]
+    if not (1 <= len(keep) <= MAX_CLASSES and all(k >= 0 for k in keep)):
+        raise ValueError(f"keep caps {keep}: 1 to {MAX_CLASSES}, each >= 0")
+    return max(keep), keep
+
+
 def weighted_nms(
     dets11: torch.Tensor,
     scores: torch.Tensor,
     valid: torch.Tensor,
     thresh: float,
     thresh_vote: float,
-    max_keep: int,
+    max_keep: Caps,
     iou_3d: bool = False,
     block: int = 16,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Weighted NMS of (F, K, 11) dets [8 corners, yaw, bottom, height] with
     (F, K) scores and validity, F frames at once; (K, 11) runs one frame.
+    ``max_keep``: an int, or one a class (the module).
 
-    Returns out12 (F, max_keep, 12) [weighted 11 values, survivor score] and
-    out_valid (F, max_keep), without F for a single frame: the kernel on a
-    CUDA tensor, the plain version on a CPU tensor.
+    Returns out12 (F, max(max_keep), 12) [weighted 11 values, survivor
+    score] and out_valid (F, max(max_keep)), without F for a single frame:
+    the kernel on a CUDA tensor, the plain version on a CPU tensor.
     """
     if dets11.device.type == "cpu":
         return weighted_nms_plain(dets11, scores, valid, thresh, thresh_vote,
@@ -128,9 +161,11 @@ def weighted_nms(
     single = dets11.dim() == 2
     if single:
         dets11, scores, valid = dets11[None], scores[None], valid[None]
-    rows, row_valid, _ = wnms_kernel(
+    rows, row_valid, rounds = wnms_kernel(
         dets11.float().contiguous(), scores.float().contiguous(),
         valid.contiguous(), thresh, thresh_vote, max_keep, iou_3d, block)
+    if recording():
+        ROUNDS.append(rounds)
     if single:
         return rows[0], row_valid[0]
     return rows, row_valid
@@ -138,7 +173,7 @@ def weighted_nms(
 
 def wnms_kernel(dets11: torch.Tensor, scores: torch.Tensor,
                 valid: torch.Tensor, thresh: float, thresh_vote: float,
-                max_keep: int, iou_3d: bool = False, block: int = 16
+                max_keep: Caps, iou_3d: bool = False, block: int = 16
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The kernel on CUDA tensors: dets11 (F, K, 11) and scores (F, K)
     float32, valid (F, K) bool, all contiguous on one card, 1 <= K <=
@@ -164,19 +199,21 @@ def wnms_kernel(dets11: torch.Tensor, scores: torch.Tensor,
     if not 1 <= K <= MAX_K:
         raise ValueError(f"{K} candidates a frame, the kernel takes 1 to "
                          f"{MAX_K}")
-    if F_ < 1 or max_keep < 0 or block < 1:
-        raise ValueError(f"no weighted NMS of {F_} frames, max_keep "
-                         f"{max_keep}, block {block}")
+    if F_ < 1 or block < 1:
+        raise ValueError(f"no weighted NMS of {F_} frames, block {block}")
+    width, keep = row_caps(max_keep)
+    keep_arr = None if keep is None else (ctypes.c_int * len(keep))(*keep)
     dev = dets11.device
-    rows = torch.empty((F_, max_keep, 12), dtype=torch.float32, device=dev)
-    row_valid = torch.empty((F_, max_keep), dtype=torch.bool, device=dev)
+    rows = torch.empty((F_, width, 12), dtype=torch.float32, device=dev)
+    row_valid = torch.empty((F_, width), dtype=torch.bool, device=dev)
     rounds = torch.empty((F_,), dtype=torch.int32, device=dev)
     scratch = torch.empty((F_ * K * SCRATCH,), dtype=torch.float32,
                           device=dev)
     with torch.cuda.device(dev):
         err = _build.load().wnms_launch(
             dets11.data_ptr(), scores.data_ptr(), valid.data_ptr(), F_, K,
-            thresh, thresh_vote, max_keep, block, int(iou_3d),
+            thresh, thresh_vote, width, block, int(iou_3d),
+            keep_arr, len(keep or ()),
             scratch.data_ptr(), rows.data_ptr(), row_valid.data_ptr(),
             rounds.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
@@ -191,7 +228,7 @@ def weighted_nms_plain(
     valid: torch.Tensor,
     thresh: float,
     thresh_vote: float,
-    max_keep: int,
+    max_keep: Caps,
     iou_3d: bool = False,
     block: int = 16,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -202,6 +239,7 @@ def weighted_nms_plain(
     if single:
         dets11, scores, valid = dets11[None], scores[None], valid[None]
     F_, K = scores.shape
+    width, keep = row_caps(max_keep)
     dev = dets11.device
     dets11 = dets11.float()
     neg_inf = torch.full_like(scores, float("-inf"), dtype=torch.float32)
@@ -217,14 +255,17 @@ def weighted_nms_plain(
     arange = torch.arange(K, device=dev)
     weights = torch.clamp(scores, min=0.0)
     Bk = min(block, K)
+    cap = torch.tensor([width] * F_ if keep is None else
+                       [keep[f % len(keep)] for f in range(F_)],
+                       dtype=torch.long, device=dev)
 
     suppressed = ~valid
-    rows = torch.zeros((F_, max_keep + 1, 12), device=dev)  # last: dump slot
-    row_valid = torch.zeros((F_, max_keep + 1), dtype=torch.bool, device=dev)
+    rows = torch.zeros((F_, width + 1, 12), device=dev)  # last: dump slot
+    row_valid = torch.zeros((F_, width + 1), dtype=torch.bool, device=dev)
     r = torch.zeros((F_,), dtype=torch.long, device=dev)
     while True:
         alive0 = valid & ~suppressed
-        active = (r < max_keep) & alive0.any(dim=-1)
+        active = (r < cap) & alive0.any(dim=-1)
         with span("host_sync"):
             more = bool(active.any())
         if not more:
@@ -272,17 +313,17 @@ def weighted_nms_plain(
                 [avg11, torch.gather(scores, 1, sub)[..., None]], dim=-1
             )
 
-            # emit survivors at their greedy ranks; the rest go to the dump
-            # slot
+            # emit survivors at their greedy ranks below their row's cap;
+            # the rest go to the dump slot
             ranks = r[:, None] + torch.cumsum(surv.long(), dim=-1) - 1
-            slot = torch.where(surv, ranks, torch.full_like(ranks, max_keep))
-            slot = torch.clamp(slot, max=max_keep)
+            slot = torch.where(surv & (ranks < cap[:, None]), ranks,
+                               torch.full_like(ranks, width))
             rows.scatter_(1, slot[..., None].expand(-1, -1, 12), blk_rows)
             row_valid.scatter_(1, slot, torch.ones_like(surv))
             suppressed = suppressed | kill
-            r = torch.clamp(r + surv.sum(dim=-1), max=max_keep)
+            r = torch.minimum(r + surv.sum(dim=-1), cap)
 
-    rows, row_valid = rows[:, :max_keep], row_valid[:, :max_keep]
+    rows, row_valid = rows[:, :width], row_valid[:, :width]
     if single:
         return rows[0], row_valid[0]
     return rows, row_valid

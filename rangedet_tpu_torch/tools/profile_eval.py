@@ -9,7 +9,7 @@ its ranges (``utils/spans.py``). Prints the wall time of the profiled
 steps, the device time of the ``forward`` and ``postprocess`` ranges, of
 the forward's Meta-Kernel block (``meta_block``), of the post-processing's
 ``topk``, ``decode`` and ``wnms``, the weighted NMS kernel's rounds a
-frame in each class call of one more step (``ops/nms.py:wnms_kernel``),
+row (a frame's class) in the last profiled step (``nms.take_rounds``),
 the device busy share, and the kernels by total device time; writes the
 full table to ``--out``. It profiles the recipe as it ships
 (``use_pallas_meta``: the Meta-Kernel's taps from their kernel), then the
@@ -21,7 +21,6 @@ from __future__ import annotations
 import argparse
 import os
 import time
-from unittest import mock
 
 import torch
 from torch.profiler import ProfilerActivity, profile
@@ -76,8 +75,8 @@ def range_device_ms(prof, names, iters):
 def profile_step(cfg, batch_size):
     """Profile ITERS eval steps after 2 warm-up steps. Returns the wall ms
     per step, the busy device ms per step, the device ms of each range
-    (and "rounds", the weighted NMS kernel's a frame in each class call of
-    one more step) and the kernel events."""
+    (and "rounds", the weighted NMS kernel's a row in the last profiled
+    step) and the kernel events."""
     from rangedet_tpu_torch.data.synthetic import make_batch
     from rangedet_tpu_torch.infer import build_eval_inputs, make_eval_step
     from rangedet_tpu_torch.models import RangeDet
@@ -94,6 +93,7 @@ def profile_step(cfg, batch_size):
     for _ in range(2):
         step(inputs)
     torch.cuda.synchronize()
+    nms.take_rounds()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -103,17 +103,7 @@ def profile_step(cfg, batch_size):
         wall_ms = (time.perf_counter() - t0) * 1e3 / ITERS
 
     ranges = range_device_ms(prof, SPANS, ITERS)
-    calls = []
-    real = nms.weighted_nms
-
-    def grab(*a, **kw):
-        calls.append((a, kw))
-        return real(*a, **kw)
-
-    with mock.patch.object(nms, "weighted_nms", grab):
-        step(inputs)
-    ranges["rounds"] = [nms.wnms_kernel(*a, **kw)[2].tolist()
-                        for a, kw in calls]
+    ranges["rounds"] = nms.take_rounds()[-1].tolist()
     # kernels only: the ranges and the aten ops that launched the kernels
     # carry device time too
     kernels = [e for e in prof.key_averages() if e.key not in SPANS
@@ -145,7 +135,7 @@ def main(argv=None) -> None:
               f"device ms by range: forward {ranges['forward']:.2f}, "
               f"postprocess {ranges['postprocess']:.2f} (topk "
               f"{ranges['topk']:.2f}, decode {ranges['decode']:.2f}, wnms "
-              f"{ranges['wnms']:.2f}, rounds a frame {ranges['rounds']}), "
+              f"{ranges['wnms']:.2f}, rounds a row {ranges['rounds']}), "
               f"meta_block {ranges['meta_block']:.2f} (of the forward)")
         if i:  # the kernel table of the recipe's own step only
             continue

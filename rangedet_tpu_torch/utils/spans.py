@@ -18,14 +18,15 @@ The ranges, by where they open:
 
 * ``infer.make_eval_step``: ``forward``, ``postprocess``;
 * ``models/detector.py:run_inference``: ``topk`` (the scores' sigmoid
-  and level concat, then per class the mask, the stable sort and the
-  gathers), ``decode`` and ``wnms`` (the weighted NMS and the eval rows),
-  per class;
-* ``ops/nms.py:weighted_nms_plain`` (the CPU's route; the card's kernel
-  opens none): ``wnms.round`` around each pass of the loop that does work,
-  ``host_sync`` around each wait for the card: the loop's check (its
-  rounds plus one a call) and, inside a round, the two list indexes of
-  ``ops/rotated_iou.py:_ccw``;
+  and level concat, the mask, the stable sort and the gathers of every
+  class at once), ``decode`` and ``wnms`` (the weighted NMS and the eval
+  rows), once a step;
+* ``ops/nms.py:weighted_nms_plain`` (the CPU's route): ``wnms.round``
+  around each pass of the loop that does work, ``host_sync`` around each
+  wait for the card: the loop's check (its rounds plus one a call) and,
+  inside a round, the two list indexes of ``ops/rotated_iou.py:_ccw``
+  (the kernel's route opens neither: it keeps its rounds on the card
+  while a profiler records, ``ops/nms.py:take_rounds``);
 * ``train/train_step.py``: ``train_step`` around the stages ``targets``,
   ``forward``, ``losses``, ``backward`` (``all_reduce`` with a process
   group) and ``optimizer``;
@@ -39,6 +40,11 @@ import contextlib
 from torch.autograd import profiler as _profiler
 
 _NULL = contextlib.nullcontext()
+
+
+def recording() -> bool:
+    """Whether a profiler records."""
+    return _profiler._is_profiler_enabled
 
 
 def span(name: str):

@@ -5,6 +5,7 @@ that both ways of starting the profiler record them, the eval CLI's
 trace, and (on a card) that ``host_sync`` covers every wait of the eval
 step for the card."""
 import ast
+import contextlib
 import glob
 import json
 import os
@@ -21,6 +22,7 @@ from rangedet_tpu_torch.configs import load_config
 from rangedet_tpu_torch.data.synthetic import make_batch
 from rangedet_tpu_torch.infer import build_eval_inputs, make_eval_step
 from rangedet_tpu_torch.models import RangeDet
+from rangedet_tpu_torch.ops import nms
 from rangedet_tpu_torch.train.state import create_train_state
 from rangedet_tpu_torch.train.train_step import (
     batch_to_device,
@@ -104,14 +106,15 @@ def test_eval_step_opens_its_spans_nested():
         assert _parent(r, ranges) in EVAL_PARENT[r[0]], r
     rounds = names.count("wnms.round")
     assert rounds > 1
-    # the loop's check: its rounds plus one a class; inside each round the
-    # IoU rows' two list indexes (rotated_iou._ccw)
+    # the loop's check: its rounds plus one, every class in one call;
+    # inside each round the IoU rows' two list indexes (rotated_iou._ccw)
     checks = [r for r in ranges
               if r[0] == "host_sync" and _parent(r, ranges) == "wnms"]
-    assert len(checks) == rounds + len(cfg.class_names)
+    assert len(checks) == rounds + 1
     assert names.count("host_sync") == len(checks) + 2 * rounds
-    # the levels' scores once, then each class's top-k
-    assert names.count("topk") == 1 + len(cfg.class_names)
+    # the top-k, decode and weighted NMS of every class, once a step
+    assert names.count("topk") == names.count("decode") == 1
+    assert names.count("wnms") == 1
     assert names.count("forward") == names.count("postprocess") == 1
 
 
@@ -211,9 +214,10 @@ def test_eval_cli_writes_a_trace_of_its_steps(tmp_path):
 def test_host_syncs_are_every_wait_of_the_eval_step_on_cuda():
     """At full size on the card, the eval step's synchronizing calls (as
     ``torch.cuda.set_sync_debug_mode`` reports them) are as many as its
-    ``host_sync`` ranges, so ``eval.host_syncs`` misses no wait; on the
-    card the weighted NMS is one kernel launch, so both are 0 and no
-    ``wnms.round`` opens."""
+    ``host_sync`` ranges: the weighted NMS is one kernel launch, so, with
+    the profiler off or on, both are 0 and no ``wnms.round`` opens. While
+    the profiler records, and only then, the step keeps the kernel's
+    rounds a row on the card (``nms.take_rounds``)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the step's kernels have no CPU mode "
                     "at full size")
@@ -222,18 +226,37 @@ def test_host_syncs_are_every_wait_of_the_eval_step_on_cuda():
     step, inputs = _eval(cfg, dev, 4)
     step(inputs)
     torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        with profile(activities=[ProfilerActivity.CPU]) as prof:
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                step(inputs)
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-    syncs = [w for w in caught
-             if "called a synchronizing CUDA operation" in str(w.message)]
+    nms.take_rounds()
+    rounds = []
+    real = nms.wnms_kernel
+
+    def keep(*a, **kw):
+        out = real(*a, **kw)
+        rounds.append(out[2])
+        return out
+
+    def waits(profiled):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            with (profile(activities=[ProfilerActivity.CPU]) if profiled
+                  else contextlib.nullcontext()) as prof, \
+                    mock.patch.object(nms, "wnms_kernel", keep):
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    step(inputs)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+        return prof, sorted({(w.filename, w.lineno) for w in caught
+                             if "called a synchronizing CUDA operation"
+                             in str(w.message)})
+
+    _, off = waits(False)
+    assert off == [], off
+    assert nms.take_rounds() == []
+    prof, on = waits(True)
     names = [e.name for e in prof.events()]
     assert names.count("wnms") == len(cfg.class_names)
     assert names.count("wnms.round") == 0
-    assert len(syncs) == names.count("host_sync") == 0, sorted(
-        {(w.filename, w.lineno) for w in syncs})
+    assert len(on) == names.count("host_sync") == 0, on
+    kept, = nms.take_rounds()
+    assert kept is rounds[-1] and int(kept.max()) > 0

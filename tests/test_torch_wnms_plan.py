@@ -171,13 +171,16 @@ def mean_gap_bound(m, a, w):
 
 
 def emulate_frame(dets, scores, valid, thresh, thresh_vote, max_keep,
-                  iou_3d, block):
-    """One frame through the kernel's schedule -> (rows (max_keep, 12),
-    valid (max_keep,), rounds, and the float64 bound (max_keep, 11) of
-    each row's gap to the plain version's f32 sums)."""
+                  iou_3d, block, width=None):
+    """One frame through the kernel's schedule -> (rows (width, 12),
+    valid (width,), rounds, and the float64 bound (width, 11) of each
+    row's gap to the plain version's f32 sums). A row of a launch of
+    several classes: ``max_keep`` its cap, ``width`` the launch's rows a
+    frame (default ``max_keep``)."""
     th, tv = torch.tensor(thresh, dtype=torch.float32), torch.tensor(
         thresh_vote, dtype=torch.float32)
     K = dets.shape[0]
+    width = max_keep if width is None else width
     s_masked = torch.where(valid, scores, float("-inf"))
     order = torch.from_numpy(kernel_order((-s_masked).numpy()))
     d, sm, alive = dets[order], s_masked[order], valid[order].clone()
@@ -187,12 +190,12 @@ def emulate_frame(dets, scores, valid, thresh, thresh_vote, max_keep,
     yorder = torch.from_numpy(kernel_order(rec["yaw"].numpy()))
     ypos[yorder] = torch.arange(K)
     yaw_by_pos = rec["yaw"][yorder]
-    nf = (~torch.isfinite(d)).sum(0)
+    nf = (~torch.isfinite(dets)).sum(0)
     vals = d  # the 11 values a row averages, in their order
     filt = bool(th > 0) and bool(tv >= 0)
-    rows = torch.zeros((max_keep, 12))
-    rv = torch.zeros(max_keep, dtype=torch.bool)
-    tol = torch.zeros((max_keep, VALUES), dtype=torch.float64)
+    rows = torch.zeros((width, 12))
+    rv = torch.zeros(width, dtype=torch.bool)
+    tol = torch.zeros((width, VALUES), dtype=torch.float64)
     r, cur, rounds = 0, 0, 0
     idx = torch.arange(K)
 
@@ -441,15 +444,63 @@ def test_kernel_schedule_equals_plain(name):
     assert (want[far] == 0).all(), name
 
 
+def _class_rows():
+    """Rows of a launch of three classes: frames of the "cap" case as
+    each frame's three classes (row f = 3 b + k), a keep cap and a
+    candidate count a class -> (dets (F, K, 11), scores, valid, caps,
+    counts); a row's columns past its count are padding, zero and
+    invalid, as ``models/detector.py:run_inference`` pads a class."""
+    dets, scores, valid, _ = _case("cap")
+    caps, counts = [200, 200, 100], [4096, 1024, 2560]
+    dets = dets[:2, None].expand(-1, 3, -1, -1).reshape(6, 4096, 11).clone()
+    scores = scores[:2, None].expand(-1, 3, -1).reshape(6, 4096).clone()
+    valid = valid[:2, None].expand(-1, 3, -1).reshape(6, 4096).clone()
+    scores[1::3] *= 0.9  # the classes' scores differ
+    for f in range(6):
+        dets[f, counts[f % 3]:] = 0.0
+        valid[f, counts[f % 3]:] = False
+    return dets, scores, valid, caps, counts
+
+
+def test_kernel_schedule_with_row_caps_equals_plain():
+    """A launch's rows of other keep caps and candidate counts through the
+    kernel's schedule, each row in its padded place: validity, rounds and
+    score column equal the plain version's on the row's own candidates
+    and cap, bit for bit, the averaged values within ``mean_gap_bound``;
+    the rows past a row's cap zero and invalid; and the plain version over
+    all rows at once is held to its rows alone alike."""
+    dets, scores, valid, caps, counts = _class_rows()
+    kw = dict(KW, max_keep=caps)
+    rows, rv = nms.weighted_nms_plain(dets, scores, valid, **kw)
+    assert tuple(rows.shape) == (6, 200, 12)
+    for f in range(6):
+        cap, n = caps[f % 3], counts[f % 3]
+        one = dict(KW, max_keep=cap)
+        e_rows, e_valid, e_rounds, tol = emulate_frame(
+            dets[f], scores[f], valid[f], width=200, **one)
+        want, wv, want_rounds = plain_frame(dets[f, :n], scores[f, :n],
+                                            valid[f, :n], one)
+        assert torch.equal(e_valid[:cap], wv), f
+        assert e_rounds == want_rounds, (f, e_rounds, want_rounds)
+        assert _within(e_rows[:cap], want, tol[:cap]), f
+        assert not e_valid[cap:].any() and not e_rows[cap:].any(), f
+        assert torch.equal(rv[f, :cap], wv), f
+        assert _within(rows[f, :cap], want, tol[:cap]), f
+        assert not rv[f, cap:].any() and not rows[f, cap:].any(), f
+        assert int(wv.sum()) == cap, f  # the caps bind
+
+
 def test_kernel_constants_match_the_wrapper():
-    """ops/nms.py's MAX_K and SCRATCH are csrc/wnms.cu's: the wrapper
-    refuses what the kernel refuses and sizes the scratch it indexes."""
+    """ops/nms.py's MAX_K, SCRATCH and MAX_CLASSES are csrc/wnms.cu's: the
+    wrapper refuses what the kernel refuses and sizes the scratch it
+    indexes."""
     src = (Path(nms.__file__).parents[1] / "csrc" / "wnms.cu").read_text()
 
     def const(name):
         return re.search(rf"constexpr int {name} = ([^;]+);", src).group(1)
 
     assert int(const("MAX_K")) == nms.MAX_K
+    assert int(const("MAX_CLASSES")) == nms.MAX_CLASSES
     assert const("SCRATCH") == "REC + 2"
     assert int(const("REC")) + 2 == nms.SCRATCH
 
@@ -531,8 +582,41 @@ def test_kernel_matches_plain_on_cuda():
             assert _within(got, want.cpu(), tol), (
                 name, f, float((got - want.cpu()).abs().nan_to_num().max()))
 
+    # one launch of rows of three classes, their caps and counts mixed:
+    # each row equals the emulation of its padded place and the kernel on
+    # the row's own candidates and cap, bit for bit (the kernel sums and
+    # ranks voters only, so the padding is not read)
+    d, s, v, caps, counts = _class_rows()
+    n0 = nms.LAUNCHES
+    k_rows, k_valid, rounds = nms.wnms_kernel(
+        d.to(dev), s.to(dev), v.to(dev), KW["thresh"], KW["thresh_vote"],
+        caps, KW["iou_3d"], KW["block"])
+    assert nms.LAUNCHES == n0 + 1
+    assert tuple(k_rows.shape) == (6, 200, 12)
+    rounds = rounds.tolist()
+    for f in range(6):
+        cap, n = caps[f % 3], counts[f % 3]
+        one = dict(KW, max_keep=cap)
+        e_rows, e_valid, e_rounds, _ = emulate_frame(
+            d[f], s[f], v[f], width=200, **one)
+        assert torch.equal(k_valid[f].cpu(), e_valid), f
+        assert rounds[f] == e_rounds, (f, rounds, e_rounds)
+        assert _same(k_rows[f].cpu(), e_rows), f
+        a_rows, a_valid, a_rounds = nms.wnms_kernel(
+            d[f:f + 1, :n].contiguous().to(dev),
+            s[f:f + 1, :n].contiguous().to(dev),
+            v[f:f + 1, :n].contiguous().to(dev), KW["thresh"],
+            KW["thresh_vote"], cap, KW["iou_3d"], KW["block"])
+        assert torch.equal(k_valid[f, :cap], a_valid[0]), f
+        assert _same(k_rows[f, :cap].cpu(), a_rows[0].cpu()), f
+        assert int(a_rounds[0]) == rounds[f], f
+
     d, s, v, kw = _case("small")
     d, s, v = d.to(dev), s.to(dev), v.to(dev)
+    with pytest.raises(ValueError):  # a negative keep cap
+        nms.wnms_kernel(d, s, v, 0.1, 0.5, [8, -1])
+    with pytest.raises(ValueError):  # more classes than the kernel takes
+        nms.wnms_kernel(d, s, v, 0.1, 0.5, [8] * (nms.MAX_CLASSES + 1))
     with pytest.raises(TypeError):
         nms.wnms_kernel(d.double(), s, v, 0.1, 0.5, 8)
     with pytest.raises(TypeError):
